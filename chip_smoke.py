@@ -6,17 +6,32 @@ Needs one CUDA GPU (an H100: the kernels are built for sm_90a) and nvcc.
 Phases, each of which must pass or the script exits non-zero without
 its final `ok` line:
 
-  1. card and build: the card's name and power limit, then the four
-     hand-written kernels built from edgegraph3d_tpu_torch/csrc;
+  1. card and build: the card's name and power limit, then the six
+     hand-written kernels built from edgegraph3d_tpu_torch/csrc (one nvcc
+     per source, all started together);
   2. kernel vs plain torch on the card, at the main path's full-scale
      shapes (49 views at 1600x1200): decisions (ids / valid / alive)
      may differ on at most 1e-4 of the rows (0 expected: the kernels are
      built with --fmad=false and follow the twins' operation order),
-     coordinates must agree within 1e-3 px (3D points 1e-4 relative);
-  3. the stage-3 main path (`run_pipeline(stages=(3,), device="cuda")`)
-     on the benchmark's 8-view cube trend workload;
-  4. the same main path on the 49-view 1600x1200 full-scale workload
-     (6,268 refpoints, every viewing camera starts), with each kernel's
+     coordinates must agree within 1e-3 px (3D points 1e-4 relative).
+     K5 gather_rows must be bit-equal to `table[rows]` at the Pallas
+     probe's shape and at the chain-extension shape; K6
+     group_seed_sample runs on the full scene's stage-1 match sets with 0
+     decision mismatches allowed.  The full-scale similarity graph built
+     on the card (f64 products) must have the host build's edges, with
+     weights within 1e-5 relative (the count of unequal weights is
+     printed), and its stage-1 match sets must equal those of the host
+     build with label propagation on the CPU; label propagation's bucket
+     sums must be bit-equal on the card and the CPU (the ordered sums
+     that keep its tie rule);
+  3. the main path on the benchmark's 8-view cube trend workload:
+     stage 3 alone (`run_pipeline(stages=(3,))`), the default stages
+     (1, 2, 3) through the file entry `edge_matching` on files written
+     to a temporary directory, and the default stages with
+     closeness_max_dist_ratio=1e6, which must make stage-2 match sets;
+  4. the default stages (1, 2, 3) on the 49-view 1600x1200 full-scale
+     workload (6,268 refpoints, every viewing camera starts): stage-1
+     match sets and stage-1 points > 0, and each of the six kernels'
      launch count, which must be > 0;
   5. quality gates for phases 3 and 4: edge_points > 0, coverage >= 0.9
      and med_dist3d <= 0.01.
@@ -48,6 +63,10 @@ KERNEL_META = {
                        "edgegraph3d_tpu/ops/triangulation.py:174"),
     "follow_walk": ("edgegraph3d_tpu_torch/csrc/follow_walk.cu",
                     "edgegraph3d_tpu/matching/following.py:296"),
+    "gather_rows": ("edgegraph3d_tpu_torch/csrc/gather_rows.cu",
+                    "tools/pallas_probe.py:145"),
+    "group_seed_sample": ("edgegraph3d_tpu_torch/csrc/group_seed_sample.cu",
+                          "edgegraph3d_tpu/matching/polyline_stages.py:434"),
 }
 
 
@@ -58,6 +77,15 @@ def log(*a):
 def fail(msg: str):
     log(f"FAIL: {msg}")
     sys.exit(1)
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
 
 
 def cuda_time(fn, reps: int):
@@ -115,6 +143,22 @@ def _cand_diff(a, b):
     return int(bad.sum()), err, int(a.valid.shape[0])
 
 
+def record_into(results, name, mism, rows, err, ms, plain_ms, err_tol,
+                gated=None, exact=False):
+    """Log and gate one kernel's comparison.  `gated` is the error held
+    against err_tol (default: err); `exact` allows no decision mismatch
+    at all (else DECISION_TOL of the rows)."""
+    gated = err if gated is None else gated
+    log(f"  {name}: rows={rows} decision_mismatches={mism} "
+        f"max_abs_err={err:.3g} gated_err={gated:.3g} kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f}")
+    results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    if mism > (0 if exact else DECISION_TOL * rows):
+        fail(f"{name}: {mism} of {rows} rows differ in a decision")
+    if gated > err_tol:
+        fail(f"{name}: coordinate error {gated} > {err_tol}")
+
+
 def compare_kernels(ctx, sfmd):
     import torch
 
@@ -130,17 +174,8 @@ def compare_kernels(ctx, sfmd):
     N, V = obs_mask.shape
     results = {}
 
-    def record(name, mism, rows, err, ms, plain_ms, err_tol, gated=None):
-        """`gated` is the error held against err_tol (default: err)."""
-        gated = err if gated is None else gated
-        log(f"  {name}: rows={rows} decision_mismatches={mism} "
-            f"max_abs_err={err:.3g} gated_err={gated:.3g} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f}")
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        if mism > DECISION_TOL * rows:
-            fail(f"{name}: {mism} of {rows} rows differ in a decision")
-        if gated > err_tol:
-            fail(f"{name}: coordinate error {gated} > {err_tol}")
+    def record(*a, **kw):
+        record_into(results, *a, **kw)
 
     # K1 at the _start_sweep shape: every (refpoint, view), M=4, 10 px
     ox = torch.as_tensor(obs_xy, device=dev)
@@ -242,42 +277,229 @@ def compare_kernels(ctx, sfmd):
     return results
 
 
+def compare_stage12_kernels(ctx, sfmd, results):
+    """K5 at the probe's and the extension's shapes, K6 at the group
+    sweep's shape, and label propagation's ordered bucket sums, on the
+    full-scale scene."""
+    import numpy as np
+    import torch
+
+    from edgegraph3d_tpu_torch.matching import communities, polyline_stages
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    from edgegraph3d_tpu_torch.matching.detection import grid_topm_query
+    from edgegraph3d_tpu_torch.ops import gather
+
+    cfg = ctx.config
+    dev = ctx.device
+    V, P, L, _ = ctx.plg_coords.shape
+
+    def check_gather(label, table, rows, reps):
+        got, ms = cuda_time(lambda: gather.gather_rows(table, rows), reps)
+        ref, pms = cuda_time(lambda: gather._gather_rows_plain(table, rows),
+                             reps)
+        bad = int((got != ref).any(1).sum())
+        err = float((got - ref).abs().max())
+        log(f"  gather_rows {label}: table={tuple(table.shape)} "
+            f"rows={len(rows)} mismatched_rows={bad} max_abs_err={err:.3g} "
+            f"kernel_ms={ms:.4f} plain_ms={pms:.4f}")
+        if bad:
+            fail(f"gather_rows {label}: {bad} rows differ from table[rows]")
+        return err, ms, pms
+
+    # K5 at the Pallas probe's shape (R = V*P = 8 x 8192, W = 2L = 128)
+    g = torch.Generator(device=dev).manual_seed(1)
+    table = torch.randn((65536, 128), generator=g, device=dev)
+    rows = torch.randint(0, 65536, (16384,), generator=g, device=dev)
+    err, _, _ = check_gather("probe shape", table, rows, 20)
+    del table
+    # K5 at the chain-extension shape: E x V rows of [L, 2] located by K1
+    # (M=1) at every (refpoint, view) of the scene, E = the refpoints
+    obs_xy, _ = rp.dense_observations(sfmd)
+    N = len(obs_xy)
+    view = torch.arange(V, dtype=torch.int32, device=dev).repeat(N)
+    loc = grid_topm_query(ctx.grids, view,
+                          torch.as_tensor(obs_xy, device=dev)
+                          .reshape(N * V, 2), ctx.cell,
+                          cfg.extension_reanchor_px, 1)
+    rows = view.long() * P + loc.pl_id[:, 0].clamp_min(0).long()
+    err2, ms, pms = check_gather("extension shape", ctx.plg_coords.reshape(
+        V * P, 2 * L), rows, 20)
+    results["gather_rows"] = dict(max_abs_err=max(err, err2), ms=ms,
+                                  plain_ms=pms)
+
+    # the full scene's stage-1 graph: the card's f64 matmul build against
+    # the host build from the same close sets, then the communities of
+    # each, the card's with LP on the card, the host's with LP on the CPU
+    t0 = time.time()
+    used, edges, weights = polyline_stages.similarity_graph(sfmd, ctx)
+    t_card = time.time() - t0
+    t0 = time.time()
+    used_h, edges_h, weights_h = polyline_stages.similarity_graph(
+        sfmd, ctx, host=True)
+    t_host = time.time() - t0
+    if not (np.array_equal(used, used_h) and np.array_equal(edges, edges_h)):
+        fail(f"similarity edges: the card's {len(edges)} edges over "
+             f"{len(used)} nodes differ from the host build's {len(edges_h)}"
+             f" over {len(used_h)}")
+    n_diff = int((weights != weights_h).sum())
+    rel = float(np.max(np.abs(weights - weights_h) / weights_h))
+    log(f"  similarity graph: {len(used)} nodes, {len(edges)} edges (card "
+        f"{t_card:.2f}s, host {t_host:.2f}s), weights differing from the "
+        f"host build's: {n_diff}, max rel err {rel:.3g}")
+    if rel > 1e-5:
+        fail(f"similarity weights: relative error {rel} > 1e-5")
+    method = cfg.community_method
+    t0 = time.time()
+    comms = communities.communities_from_edges(
+        edges, weights, len(used), min_size=3, method=method, device=dev)
+    t_card = time.time() - t0
+    t0 = time.time()
+    comms_h = communities.communities_from_edges(
+        edges_h, weights_h, len(used), min_size=3, method=method,
+        device="cpu")
+    t_host = time.time() - t0
+    groups = polyline_stages.communities_to_match_sets(used, comms, P)
+    groups_h = polyline_stages.communities_to_match_sets(used, comms_h, P)
+    same = len(groups) == len(groups_h) and all(
+        np.array_equal(a, b) for a, b in zip(groups, groups_h))
+    log(f"  communities ({method}): card {len(comms)} -> {len(groups)} "
+        f"match sets ({t_card:.2f}s); host edges + CPU LP {len(comms_h)} -> "
+        f"{len(groups_h)} ({t_host:.2f}s); same match sets: {same}")
+    if not groups:
+        fail("the full scene made no stage-1 match sets")
+    if not same:
+        fail("stage-1 match sets differ between the card and the CPU path")
+
+    # label propagation: bucket sums at the converged labels, card vs CPU
+    n = len(used)
+    e_d = torch.as_tensor(edges.astype(np.int64), device=dev)
+    w_d = torch.as_tensor(weights, device=dev)
+    labels = communities.label_propagation(e_d, w_d, n)
+    sums_d = communities._bucket_sums(*communities._directed(e_d, w_d),
+                                      labels, n)
+    sums_c = communities._bucket_sums(
+        *communities._directed(e_d.cpu(), w_d.cpu()), labels.cpu(), n)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(sums_d, sums_c))
+    log(f"  label propagation: {len(torch.unique(labels))} labels, "
+        f"{len(sums_c[2])} buckets, card == CPU sums: {same}")
+    if not same:
+        fail("label propagation bucket sums differ between card and CPU")
+    del e_d, w_d, labels, sums_d, sums_c
+
+    # K6 at the group sweep's shape: the first group chunk (64 sets)
+    cam, pl, msk = (torch.as_tensor(a[:64], device=dev) for a in
+                    polyline_stages._member_table(groups, 8))
+    cs, ps = cam.clamp_min(0).long(), pl.clamp_min(0).long()
+    coords = gather.gather_rows(ctx.plg_coords.reshape(V * P, 2 * L),
+                                (cs * P + ps).reshape(-1)) \
+        .reshape(*cam.shape, L, 2)
+    lengths = torch.where(msk, ctx.plg_length[cs, ps], 0).to(torch.int32)
+    args = (coords, lengths, cam, msk, ctx.F_table, 24,
+            cfg.split_interval_distance_px)
+    got, ms = cuda_time(lambda: polyline_stages.group_seed_sample(*args),
+                        20)
+    ref, pms = cuda_time(
+        lambda: polyline_stages._group_seed_sample_plain(
+            *args, polyline_stages._QUASI_COS, polyline_stages._QUASI_DIST),
+        3)
+    lanes = got[3].numel()
+    bad = ((got[1] != ref[1]) | (got[3] != ref[3])
+           | (got[5] != ref[5]).flatten(3).any(-1)
+           | (got[7] != ref[7]).flatten(3).any(-1))
+    hit = got[7] & ref[7]
+    err = float((got[0] - ref[0]).abs().max())
+    if hit.any():
+        err = max(err, float((got[4] - ref[4]).abs()[hit].max()))
+    log(f"  group_seed_sample: groups={cam.shape[0]} lanes={lanes} "
+        f"valid_samples={int(ref[3].sum())} crossings={int(ref[7].sum())}")
+    record_into(results, "group_seed_sample", int(bad.sum()), lanes, err,
+                ms, pms, COORD_TOL_PX, exact=True)
+    return groups
+
+
 # ----------------------------------------------------------------------
 # phases 3-4: the main path
 # ----------------------------------------------------------------------
 
-def run_main_path(name, scene, max_starting_views):
+def _write_scene_files(root, sfmd, edges):
+    """The scene as the command line takes it: edge PNGs and the
+    OpenMVG JSON."""
+    from PIL import Image
+
+    from edgegraph3d_tpu_torch.core import sfm as sfm_io
+    for d in ("imgs", "edges"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for v in range(edges.shape[0]):
+        Image.fromarray(edges[v]).save(
+            os.path.join(root, "edges", f"synthetic_{v:04d}.png"))
+    sfm_io.write_sfm_data(sfmd, os.path.join(root, "input.json"))
+
+
+def run_main_path(name, scene, max_starting_views, stages=(1, 2, 3),
+                  config=None, via_files=False):
+    """One pipeline run on the card with the launch counts set to 0 just
+    before it and read just after.  `via_files` goes through
+    `edge_matching` on files in a temporary directory.  Returns
+    (launches, stage counts)."""
+    import tempfile
+
     import torch
 
     from edgegraph3d_tpu_torch import kernels
-    from edgegraph3d_tpu_torch.pipeline import PipelineStats, run_pipeline
+    from edgegraph3d_tpu_torch.core import sfm as sfm_io
+    from edgegraph3d_tpu_torch.pipeline import (PipelineStats, edge_matching,
+                                                run_pipeline)
     from edgegraph3d_tpu_torch.quality import quality_metrics
 
     sfmd, edges, curves = scene
-    stats = PipelineStats()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    t0 = time.time()
-    out = run_pipeline(sfmd, edges, bench_config(),
-                       max_starting_views=max_starting_views, stats=stats,
-                       stages=(3,), device="cuda")
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = dict(kernels.LAUNCHES)
+    cfg = config or bench_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        if via_files:
+            _write_scene_files(tmp, sfmd, edges)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        if via_files:
+            work = os.path.join(tmp, "work")
+            out = edge_matching(
+                os.path.join(tmp, "imgs"), os.path.join(tmp, "edges"), work,
+                os.path.join(tmp, "input.json"),
+                os.path.join(tmp, "out.json"), cfg,
+                max_starting_views=max_starting_views, device="cuda")
+        else:
+            stats = PipelineStats()
+            out = run_pipeline(sfmd, edges, cfg,
+                               max_starting_views=max_starting_views,
+                               stats=stats, stages=stages, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(kernels.LAUNCHES)
+        if via_files:
+            with open(os.path.join(work, "stats.json")) as f:
+                counts = json.load(f)["counts"]
+            back = sfm_io.read_sfm_data(os.path.join(tmp, "out.json"))
+            if back.n_points != out.n_points:
+                fail(f"{name}: out.json holds {back.n_points} points, the "
+                     f"run returned {out.n_points}")
+        else:
+            log(stats.report())
+            counts = dict(stats.counts)
     peak = torch.cuda.max_memory_allocated()
     qual = quality_metrics(out, sfmd, curves)
-    log(stats.report())
     log(f"{name}: views={sfmd.n_cameras} refpoints={sfmd.n_points} "
+        f"stages={'(1, 2, 3)' if via_files else stages} "
         f"max_starting_views={max_starting_views or 'all'} wall_s={wall:.3f} "
         f"views_per_s={sfmd.n_cameras / wall:.4f} "
         f"max_memory_allocated_bytes={peak}")
+    log(f"{name} stage counts: {json.dumps(counts)}")
     log(f"{name} quality: {json.dumps(qual)}")
     log(f"{name} launches: {json.dumps(launches)}")
     if qual["edge_points"] == 0 or not qual["coverage"] >= 0.9 \
             or not qual["med_dist3d"] <= 0.01:
         fail(f"{name}: quality gate (edge_points > 0, coverage >= 0.9, "
              f"med_dist3d <= 0.01) not met: {qual}")
-    return launches
+    return launches, counts
 
 
 def main() -> int:
@@ -296,11 +518,7 @@ def main() -> int:
 
     t_start = time.time()
     log("== phase 1: card and build")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+    card = card_name()
     log(card)
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
@@ -320,14 +538,28 @@ def main() -> int:
     log(f"grids {tuple(ctx.grids.shape)}, polylines "
         f"{tuple(ctx.plg_coords.shape)}")
     results = compare_kernels(ctx, full[0])
+    compare_stage12_kernels(ctx, full[0], results)
     del ctx
     torch.cuda.empty_cache()
 
     log("== phase 3: main path, cube8 trend workload")
-    run_main_path("cube8", cube8_scene(), 2)
+    cube = cube8_scene()
+    run_main_path("cube8 stage 3", cube, 2, stages=(3,))
+    _, counts = run_main_path("cube8 edge_matching", cube, 2,
+                              via_files=True)
+    if counts.get("stage1_sweep", 0) <= 0:
+        fail(f"cube8 edge_matching: stage 1 made no points: {counts}")
+    launches, counts = run_main_path(
+        "cube8 stage-2 sets", cube, 2,
+        config=bench_config().replace(closeness_max_dist_ratio=1e6))
+    if counts.get("stage2_closeness_graph", 0) <= 0:
+        fail(f"cube8 stage-2 sets: stage 2 made no match sets: {counts}")
 
-    log("== phase 4: main path, full-scale workload")
-    launches = run_main_path("full", full, None)
+    log("== phase 4: main path, full-scale workload, stages (1, 2, 3)")
+    launches, counts = run_main_path("full", full, None)
+    if counts.get("stage1_similarity_graph", 0) <= 0 \
+            or counts.get("stage1_sweep", 0) <= 0:
+        fail(f"full: stage 1 made no match sets or no points: {counts}")
     missing = [k for k, n in launches.items() if n <= 0]
     if missing:
         fail(f"kernels not launched on the main path: {missing}")

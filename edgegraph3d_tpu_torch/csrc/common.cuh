@@ -5,6 +5,7 @@
 // do, so values that sit on a threshold decide the same way.
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -32,6 +33,101 @@ static __device__ __forceinline__ int clampi(int x, int lo, int hi) {
 // (cvt.rzi.s32.f32 semantics; the plain twin clamps before converting).
 static __device__ __forceinline__ int cell_of(float p, float cell, int n) {
   return clampi(__float2int_rz(p / cell), 0, n - 1);
+}
+
+// One polyline: `len` valid points of a row-major [L, 2] coordinate row.
+struct Poly {
+  const float* c;
+  int len;
+};
+
+// polyline_ops.advance_by_distance_xy for one lane: the first segment in
+// walk order (from `seg`) whose far end lies at least `radius` from
+// (cx, cy), then the circle-segment root in the walk direction.  Returns
+// found; writes the new position only when found.
+static __device__ __forceinline__ bool advance(const Poly& p, int seg,
+                                               float cx, float cy, int dir,
+                                               float radius, int* nseg,
+                                               float* nt, float* nx,
+                                               float* ny) {
+  const float r2 = radius * radius;
+  const bool fwd = dir > 0;
+  int k = -1;
+  if (fwd) {
+    for (int j = seg < 0 ? 0 : seg; j < p.len - 1; ++j) {
+      const float fx = p.c[2 * (j + 1)] - cx;
+      const float fy = p.c[2 * (j + 1) + 1] - cy;
+      if (fx * fx + fy * fy >= r2) { k = j; break; }
+    }
+  } else {
+    for (int j = (seg < p.len - 2 ? seg : p.len - 2); j >= 0; --j) {
+      const float fx = p.c[2 * j] - cx;
+      const float fy = p.c[2 * j + 1] - cy;
+      if (fx * fx + fy * fy >= r2) { k = j; break; }
+    }
+  }
+  if (k < 0) return false;
+  const float ax = p.c[2 * k], ay = p.c[2 * k + 1];
+  const float ux = p.c[2 * (k + 1)] - ax;
+  const float uy = p.c[2 * (k + 1) + 1] - ay;
+  const float fx = ax - cx;
+  const float fy = ay - cy;
+  const float A = nmax(ux * ux + uy * uy, 1e-12f);
+  const float B = 2.0f * (ux * fx + uy * fy);
+  const float C = fx * fx + fy * fy - r2;
+  const float disc = nmax(B * B - 4.0f * A * C, 0.0f);
+  const float sq = sqrtf(disc);
+  float s = fwd ? (-B + sq) / (2.0f * A) : (-B - sq) / (2.0f * A);
+  s = clip01(s);
+  *nseg = k;
+  *nt = s;
+  *nx = ax + s * ux;
+  *ny = ay + s * uy;
+  return true;
+}
+
+// polyline_ops._segments_line_intersection_xy for one segment
+// (ax, ay) -> (bx, by) and a normalized line (l0, l1, l2).
+struct SegLine {
+  float s;     // crossing parameter along the segment (0 if parallel)
+  bool has;    // a crossing that is neither parallel nor quasi-parallel
+  bool quasi;  // |cos| > qcos with an endpoint within qdist of the line
+};
+
+static __device__ __forceinline__ SegLine seg_line(float ax, float ay,
+                                                   float bx, float by,
+                                                   float l0, float l1,
+                                                   float l2, float qcos,
+                                                   float qdist) {
+  const float sa = ax * l0 + ay * l1 + l2;
+  const float sb = bx * l0 + by * l1 + l2;
+  const float diff = sa - sb;
+  const bool crosses = (sa * sb) <= 0.0f;
+  const bool parallel = fabsf(diff) < 1e-9f;
+  const float ux = bx - ax;
+  const float uy = by - ay;
+  const float ulen = nmax(sqrtf(ux * ux + uy * uy), 1e-12f);
+  const float c = fabsf(-ux * l1 + uy * l0) / ulen;
+  const bool near = nmin(fabsf(sa), fabsf(sb)) <= qdist;
+  SegLine r;
+  r.s = parallel ? 0.0f : sa / diff;
+  r.quasi = (c > qcos) && near;
+  r.has = crosses && !parallel && !r.quasi;
+  return r;
+}
+
+// ops.geometry.epipolar_line: F (row-major 3x3) times [x, y, 1], scaled
+// so l0^2 + l1^2 = 1.
+static __device__ __forceinline__ void epipolar(const float* F, float x,
+                                                float y, float* l0,
+                                                float* l1, float* l2) {
+  const float a = F[0] * x + F[1] * y + F[2];
+  const float b = F[3] * x + F[4] * y + F[5];
+  const float c = F[6] * x + F[7] * y + F[8];
+  const float ln = nmax(sqrtf(a * a + b * b), 1e-20f);
+  *l0 = a / ln;
+  *l1 = b / ln;
+  *l2 = c / ln;
 }
 
 // Top-M closest candidates with DISTINCT polyline ids, kept sorted by

@@ -32,54 +32,8 @@
 
 namespace {
 
-struct Poly {
-  const float* c;  // [L, 2]
-  int len;
-};
-
-// advance_by_distance_xy: returns found; writes seg/t/x/y.
-__device__ __forceinline__ bool advance(const Poly& p, int seg, float cx,
-                                        float cy, int dir, float radius,
-                                        int* nseg, float* nt, float* nx,
-                                        float* ny) {
-  const float r2 = radius * radius;
-  const bool fwd = dir > 0;
-  int k = -1;
-  if (fwd) {
-    for (int j = seg < 0 ? 0 : seg; j < p.len - 1; ++j) {
-      const float fx = p.c[2 * (j + 1)] - cx;
-      const float fy = p.c[2 * (j + 1) + 1] - cy;
-      if (fx * fx + fy * fy >= r2) { k = j; break; }
-    }
-  } else {
-    for (int j = (seg < p.len - 2 ? seg : p.len - 2); j >= 0; --j) {
-      const float fx = p.c[2 * j] - cx;
-      const float fy = p.c[2 * j + 1] - cy;
-      if (fx * fx + fy * fy >= r2) { k = j; break; }
-    }
-  }
-  if (k < 0) return false;
-  const float ax = p.c[2 * k], ay = p.c[2 * k + 1];
-  const float ux = p.c[2 * (k + 1)] - ax;
-  const float uy = p.c[2 * (k + 1) + 1] - ay;
-  const float fx = ax - cx;
-  const float fy = ay - cy;
-  const float A = eg3d::nmax(ux * ux + uy * uy, 1e-12f);
-  const float B = 2.0f * (ux * fx + uy * fy);
-  const float C = fx * fx + fy * fy - r2;
-  const float disc = eg3d::nmax(B * B - 4.0f * A * C, 0.0f);
-  const float sq = sqrtf(disc);
-  float s = fwd ? (-B + sq) / (2.0f * A) : (-B - sq) / (2.0f * A);
-  s = eg3d::clip01(s);
-  *nseg = k;
-  *nt = s;
-  *nx = ax + s * ux;
-  *ny = ay + s * uy;
-  return true;
-}
-
 // next_intersection_bounded_xy: returns found; writes seg/t/x/y.
-__device__ __forceinline__ bool intersect(const Poly& p, int seg, float t,
+__device__ __forceinline__ bool intersect(const eg3d::Poly& p, int seg, float t,
                                           float cx, float cy, int dir,
                                           float l0, float l1, float l2,
                                           float min_d, float max_d,
@@ -91,22 +45,12 @@ __device__ __forceinline__ bool intersect(const Poly& p, int seg, float t,
   for (; fwd ? (j <= hi) : (j >= 0); j += fwd ? 1 : -1) {
     const float ax = p.c[2 * j], ay = p.c[2 * j + 1];
     const float bx = p.c[2 * (j + 1)], by = p.c[2 * (j + 1) + 1];
-    const float sa = ax * l0 + ay * l1 + l2;
-    const float sb = bx * l0 + by * l1 + l2;
-    const float diff = sa - sb;
-    const bool crosses = (sa * sb) <= 0.0f;
-    const bool parallel = fabsf(diff) < 1e-9f;
-    const float s = parallel ? 0.0f : sa / diff;
-    const float ux = bx - ax;
-    const float uy = by - ay;
-    const float ulen = eg3d::nmax(sqrtf(ux * ux + uy * uy), 1e-12f);
-    const float c = fabsf(-ux * l1 + uy * l0) / ulen;
-    const bool near = eg3d::nmin(fabsf(sa), fabsf(sb)) <= qdist;
-    const bool quasi = (c > qcos) && near;
-    const bool has = crosses && !parallel && !quasi;
+    const eg3d::SegLine r =
+        eg3d::seg_line(ax, ay, bx, by, l0, l1, l2, qcos, qdist);
+    const float s = r.s;
     const bool s_ok = (j == seg) ? (fwd ? (s >= t) : (s <= t)) : true;
-    if (quasi) return false;  // quasi-parallel event first: stop
-    if (has && s_ok) {
+    if (r.quasi) return false;  // quasi-parallel event first: stop
+    if (r.has && s_ok) {
       const float sx = ax + s * (bx - ax);
       const float sy = ay + s * (by - ay);
       const float ex = sx - cx;
@@ -133,12 +77,16 @@ __global__ void follow_walk_kernel(
     int* seg_out, float* t_out, uint8_t* alive_out) {
   const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= S) return;
-  Poly poly[3];
+  eg3d::Poly poly[3];
   int seg[3], dir[3];
   float t[3], x[3], y[3];
   for (int k = 0; k < 3; ++k) {
     const int64_t cv = cams[3 * s + k];
-    const int64_t pl = pls[3 * s + k];
+    // a lane of an invalid seed may carry pl = -1 (no polyline located);
+    // resolve_configuration still walks it, so the id wraps as the plain
+    // twin's torch index does (-1 -> the view's last polyline) instead of
+    // reading before the table
+    const int64_t pl = pls[3 * s + k] < 0 ? pls[3 * s + k] + P : pls[3 * s + k];
     poly[k].c = coords + (cv * P + pl) * L * 2;
     poly[k].len = lengths[cv * P + pl];
     seg[k] = seg0[3 * s + k];
@@ -157,17 +105,12 @@ __global__ void follow_walk_kernel(
           ny[3] = {0.f, 0.f, 0.f};
     bool ok = false;
     if (active) {
-      ok = advance(poly[0], seg[0], x[0], y[0], dir[0], step, &ns[0], &nt[0],
+      ok = eg3d::advance(poly[0], seg[0], x[0], y[0], dir[0], step, &ns[0], &nt[0],
                    &nx[0], &ny[0]);
       for (int k = 1; k < 3 && ok; ++k) {
         const float* F = (k == 1) ? F1 : F2;
-        float l0 = F[0] * nx[0] + F[1] * ny[0] + F[2];
-        float l1 = F[3] * nx[0] + F[4] * ny[0] + F[5];
-        float l2 = F[6] * nx[0] + F[7] * ny[0] + F[8];
-        const float ln = eg3d::nmax(sqrtf(l0 * l0 + l1 * l1), 1e-20f);
-        l0 = l0 / ln;
-        l1 = l1 / ln;
-        l2 = l2 / ln;
+        float l0, l1, l2;
+        eg3d::epipolar(F, nx[0], ny[0], &l0, &l1, &l2);
         ok = intersect(poly[k], seg[k], t[k], x[k], y[k], dir[k], l0, l1, l2,
                        min_d, max_d, qcos, qdist, &ns[k], &nt[k], &nx[k],
                        &ny[k]);

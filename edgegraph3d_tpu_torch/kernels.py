@@ -1,6 +1,6 @@
 """Build and bind the hand-written CUDA kernels (csrc/*.cu).
 
-All four kernels of the stage-3 main path live in one shared library
+All six kernels of the main path live in one shared library
 with a plain C interface, compiled by nvcc for Hopper (sm_90a) at first
 use into `_build/` and loaded with ctypes.  The library is rebuilt when
 any source is newer than it.  Each C entry launches on the caller's
@@ -8,8 +8,9 @@ stream and returns `cudaGetLastError()`; `check()` raises on non-zero.
 
 `LAUNCHES` holds one plain-integer launch count per kernel.  The
 wrappers (detection.grid_topm_query / epipolar_topm_query,
-triangulation.triangulate_gn, following.follow_walk) add one right after
-each launch of their kernel and nowhere else.
+triangulation.triangulate_gn, following.follow_walk, gather.gather_rows,
+polyline_stages.group_seed_sample) add one right after each launch of
+their kernel and nowhere else.
 
 Arithmetic is compiled with `--fmad=false`: the plain-torch twins round
 after every multiply and add, and contracting `a*b+c` into one FMA would
@@ -31,11 +32,12 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD = os.path.join(_DIR, "_build")
 LIB_PATH = os.path.join(BUILD, "libeg3d_kernels.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+              "-fPIC"]
 
 KERNEL_NAMES = ("grid_topm_query", "epipolar_topm_query", "triangulate_gn",
-                "follow_walk")
+                "follow_walk", "gather_rows", "group_seed_sample")
 LAUNCHES = {k: 0 for k in KERNEL_NAMES}
 
 _LOCK = threading.Lock()
@@ -44,6 +46,7 @@ _LIB = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 _SIGNATURES = {
     # grids, V, GH, GW, Kc, view, pts, Q, cell, radius, M,
     # pl, seg, t, xy, dist, valid, stream
@@ -63,6 +66,14 @@ _SIGNATURES = {
     "eg3d_follow_walk": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                          _P, _I, _I, _F, _F, _F, _F, _F,
                          _P, _P, _P, _P, _P],
+    # table, R, W, rows (int64), S, out, stream
+    "eg3d_gather_rows": [_P, _L, _L, _P, _L, _P, _P],
+    # K, L, S -> dynamic shared-memory bytes of one block
+    "eg3d_group_seed_sample_smem": [_I, _I, _I],
+    # coords, lengths, cams, mask, G, K, L, F_table, V, S, spacing, qcos,
+    # qdist, s_xy, s_seg, s_t, s_valid, i_xy, i_seg, i_t, i_ok, stream
+    "eg3d_group_seed_sample": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _F,
+                               _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -89,23 +100,39 @@ def sources() -> list[str]:
 
 def build(verbose: bool = False) -> str:
     """Compile csrc/*.cu into LIB_PATH unless it is newer than every
-    source.  Returns the library path."""
+    source: one nvcc per source, all started together, then one link.
+    Returns the library path."""
     srcs = sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     if (os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH)
             >= max(os.path.getmtime(s) for s in srcs)):
         return LIB_PATH
     os.makedirs(BUILD, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *sources()]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stderr}")
-    if verbose:
-        print(res.stderr)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    jobs = []
+    for src in sources():
+        obj = os.path.join(BUILD, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-c", "-o", obj, src]
+        jobs.append((obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    steps = []
+    for obj, cmd, proc in jobs:
+        _, err = proc.communicate()
+        steps.append((cmd, proc.returncode, err))
+    tmp = f"{LIB_PATH}.{tag}"
+    if all(rc == 0 for _, rc, _ in steps):
+        cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *(o for o, _, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        steps.append((cmd, res.returncode, res.stderr))
+    for obj, _, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    for cmd, rc, err in steps:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{err}")
+        if verbose:
+            print(err)
     os.replace(tmp, LIB_PATH)
     return LIB_PATH
 

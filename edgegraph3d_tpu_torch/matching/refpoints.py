@@ -14,7 +14,8 @@ per-refpoint loop, see the JAX module docstring):
      and post-hoc interval claiming on the host (MatchesManager), with
      continuation rounds for chains that hit max_follow_steps;
   5. expansion of every chain to all views (matching/expansion.py) and
-     chain extension from the expanded view sets.
+     chain extension from the expanded view sets (chain ends re-anchored
+     by K1, their polylines gathered by kernel K5).
 
 Buffers are sized from counts: the JAX fixed capacities (cap_s,
 cap_rows, gn_cap) and their overflow redo paths do not exist here.
@@ -37,6 +38,7 @@ from edgegraph3d_tpu_torch.matching import matches as matches_mod
 from edgegraph3d_tpu_torch.matching.detection import (epipolar_topm_query,
                                                       grid_topm_query)
 from edgegraph3d_tpu_torch.matching.grid import build_grids
+from edgegraph3d_tpu_torch.ops.gather import gather_rows
 from edgegraph3d_tpu_torch.ops.geometry import (all_fundamental_matrices,
                                                 epipolar_line)
 from edgegraph3d_tpu_torch.ops.triangulation import triangulate_gn
@@ -227,8 +229,24 @@ def _seed_tuple(seeds: dict) -> following.SeedTuple:
         X=seeds["X"], valid=valid)
 
 
+def _pack_seed_outputs(out: dict) -> dict:
+    """The valid seeds of dense seed fields [N, A, B, ...] (valid [N, A,
+    B]), compacted in row-major (n, a, b) order, with `ridx` = n: the
+    refpoint row, or the group for the stage-1/2 sweep.  Counterpart of
+    the JAX _pack_seed_outputs, sized from the count."""
+    valid = out["valid"]
+    idx = torch.nonzero(valid.reshape(-1)).flatten()
+    lead = valid.ndim
+    seeds = {k: out[k].reshape((-1,) + tuple(out[k].shape[lead:]))[idx]
+             for k in ("cams", "pl_id", "seg", "t", "xy", "X")}
+    seeds["ridx"] = idx // max(1, int(np.prod(valid.shape[1:])))
+    return seeds
+
+
 def _seeds_to_host(seeds: dict, refpoint_lo: int) -> dict:
-    """Device seed tensors -> the host chunk dict sweep_seeds uses."""
+    """Device seed tensors -> the host chunk dict sweep_seeds uses, with
+    `_ref` = refpoint_lo + ridx (counterpart of the JAX
+    _chunk_from_seed_buf)."""
     return dict(
         cams=seeds["cams"].cpu().numpy().astype(np.int32),
         pl_id=seeds["pl_id"].cpu().numpy().astype(np.int32),
@@ -587,7 +605,9 @@ def _locate_on_polylines(ctx: MatchingContext, xy_ev, dir_ev,
     pl = torch.clamp_min(cand.pl_id[:, 0], 0).long()
     seg = torch.clamp_min(cand.seg[:, 0], 0).long()
     vl = view.long()
-    poly = ctx.plg_coords[vl, pl]                               # [Q,L,2]
+    P = ctx.plg_coords.shape[1]
+    poly = gather_rows(ctx.plg_coords.reshape(-1, 2 * L),
+                       vl * P + pl).reshape(-1, L, 2)           # [Q,L,2]
     n_pts = ctx.plg_length[vl, pl]
     dx = poly[:, 1:, 0] - poly[:, :-1, 0]
     dy = poly[:, 1:, 1] - poly[:, :-1, 1]

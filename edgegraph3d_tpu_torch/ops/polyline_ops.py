@@ -1,10 +1,11 @@
 """Polyline walk primitives, batched over lanes.
 
 Port of the walk primitives of edgegraph3d_tpu/ops/polyline_ops.py
-(advance_by_distance_xy, next_intersection_bounded_xy,
-_segments_line_intersection_xy).  These are the plain path under kernel
-K4 (following.follow_walk), which runs the same per-lane logic as a
-sequential segment scan.
+(advance_by_distance[_xy], next_intersection_bounded_xy,
+_segments_line_intersection_xy, polyline_line_intersections,
+sample_interval_points).  These are the plain path under kernels K4
+(following.follow_walk) and K6 (polyline_stages.group_seed_sample),
+which run the same per-lane logic as sequential segment scans.
 
 A position on a polyline is (seg, t, xy): point = lerp(coords[seg],
 coords[seg + 1], t).  Direction is +1 (towards the end) or -1.  Every
@@ -81,6 +82,13 @@ def advance_by_distance_xy(px, py, length, seg, xy, direction,
     return Step(seg=k.to(torch.int32), t=s, xy=xy_new, found=any_hit)
 
 
+def advance_by_distance(coords, length, seg, xy, direction,
+                        radius: float) -> Step:
+    """[S, L, 2]-coords form of advance_by_distance_xy."""
+    return advance_by_distance_xy(coords[..., 0], coords[..., 1], length,
+                                  seg, xy, direction, radius)
+
+
 def _segments_line_intersection_xy(ax, ay, bx, by, line, quasi_cos: float,
                                    quasi_dist: float):
     """Segments (ax,ay)->(bx,by) [S, K] against normalized lines [S, 3]
@@ -138,3 +146,55 @@ def next_intersection_bounded_xy(px, py, length, seg, t, xy, direction,
     found = any_event & ~is_quasi & in_bounds
     return Step(seg=first.to(torch.int32), t=sf,
                 xy=torch.stack([sx, sy], dim=-1), found=found)
+
+
+def polyline_line_intersections(coords, length, line, max_out: int,
+                                quasi_cos: float = 0.965,
+                                quasi_dist: float = 5.0):
+    """The first `max_out` crossings, in segment order, of each polyline
+    coords [S, L, 2] (length [S] valid coords) with its normalized line
+    [S, 3].  Quasi-parallel segments do not cross.  Slots past the last
+    crossing hold the first non-crossing segments in index order (the
+    reference's stable argsort), with valid False.
+
+    Returns (xy [S, max_out, 2], seg [S, max_out] i32, t [S, max_out],
+    valid [S, max_out])."""
+    L = coords.shape[1]
+    idx = torch.arange(L - 1, device=coords.device)
+    a, b = coords[:, :-1], coords[:, 1:]
+    has, s, _ = _segments_line_intersection_xy(
+        a[..., 0], a[..., 1], b[..., 0], b[..., 1], line, quasi_cos,
+        quasi_dist)
+    ok = has & (idx < (length[:, None] - 1))
+    xy = a + s[..., None] * (b - a)
+    order = torch.sort(torch.where(ok, idx, 2 * L), dim=1,
+                       stable=True).indices[:, :max_out]
+    return (torch.take_along_dim(xy, order[..., None], 1),
+            order.to(torch.int32), torch.take_along_dim(s, order, 1),
+            torch.take_along_dim(ok, order, 1))
+
+
+def sample_interval_points(coords, length, spacing: float,
+                           max_samples: int):
+    """Points along each polyline coords [S, L, 2] at euclidean `spacing`
+    from each other, starting at coords[:, 0] (valid iff length >= 2):
+    `max_samples - 1` forward advance_by_distance steps.  Once a step
+    fails the lane keeps its last position with valid False.
+
+    Returns (xy [S, n, 2], seg [S, n] i32, t [S, n], valid [S, n])."""
+    S = coords.shape[0]
+    dev = coords.device
+    seg = torch.zeros(S, dtype=torch.int32, device=dev)
+    t = torch.zeros(S, dtype=coords.dtype, device=dev)
+    xy = coords[:, 0]
+    alive = length >= 2
+    fwd = torch.ones(S, dtype=torch.int32, device=dev)
+    out = [(xy, seg, t, alive)]
+    for _ in range(max_samples - 1):
+        res = advance_by_distance(coords, length, seg, xy, fwd, spacing)
+        alive = alive & res.found
+        seg = torch.where(alive, res.seg, seg)
+        t = torch.where(alive, res.t, t)
+        xy = torch.where(alive[:, None], res.xy, xy)
+        out.append((xy, seg, t, alive))
+    return tuple(torch.stack(f, 1) for f in zip(*out))

@@ -4,15 +4,18 @@ Port of edgegraph3d_tpu/pipeline.py:
 
     edge images -> polyline graphs (plgs/extraction.py, native C++)
     -> device context (F table + per-view segment grids)
+    -> stage 1: similarity match sets, stage 2: closeness match sets,
+       each swept for seeds (matching/polyline_stages.py)
     -> stage 3: reconstruction from refpoints (matching/refpoints.py)
+    -> expansion and chain extension
     -> 2D density filter (filtering/density.py)
     -> append edge-points, write before_filtering.json
     -> GN + view-count outlier filter (filtering/outliers.py)
 
-`run_pipeline` keeps the reference signature (default stages=(1, 2, 3));
-stages 1 and 2, joint BA, meshes and debug images are not ported yet and
-raise NotImplementedError rather than being skipped.  `device` defaults
-to "cuda" and never falls back to the CPU on its own.
+`run_pipeline` and `edge_matching` keep the reference signatures
+(default stages=(1, 2, 3)); joint BA, meshes and debug images are not
+ported yet and raise NotImplementedError rather than being skipped.
+`device` defaults to "cuda" and never falls back to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from edgegraph3d_tpu_torch.config import DEFAULT_CONFIG, EdgeGraphConfig
 from edgegraph3d_tpu_torch.core import sfm as sfm_io
 from edgegraph3d_tpu_torch.filtering.density import density_filter
 from edgegraph3d_tpu_torch.filtering.outliers import filter_sfm_data
+from edgegraph3d_tpu_torch.io.images import load_edge_images
 from edgegraph3d_tpu_torch.matching import refpoints as refpoints_mod
 from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
 
@@ -114,32 +118,49 @@ def reconstruct_all_stages(sfmd, ctx, stats: PipelineStats,
                            stages=(1, 2, 3),
                            max_starting_views: int | None = None):
     """Run the enabled reconstruction stages with one shared interval
-    manager, then expansion and chain extension.  Only stage 3 is
-    ported; asking for stage 1 or 2 raises."""
+    manager (stage 1 similarity, stage 2 closeness, stage 3 refpoints,
+    each skipping intervals claimed by earlier stages), then expansion
+    and chain extension."""
     from edgegraph3d_tpu_torch.matching import matches as matches_mod
+    from edgegraph3d_tpu_torch.matching import polyline_stages
 
     for s in stages:
-        if s in (1, 2):
-            raise NotImplementedError(
-                f"stage {s} " + _NOT_PORTED.format(8)
-                + "; run with stages=(3,)")
-        if s != 3:
+        if s not in (1, 2, 3):
             raise ValueError(f"unknown stage {s}")
     V = ctx.P_mats.shape[0]
     manager = matches_mod.MatchesManager(ctx.plg_length.cpu().numpy())
     pieces = []
-    if 3 in stages:
-        t0 = time.time()
-        n = 0
-        round0, _ = refpoints_mod.compute_and_follow_seeds(
-            sfmd, ctx, max_starting_views=max_starting_views)
+
+    def sweep(name, t0, round0, offset):
+        """Claim and collect one stage's followed seeds."""
         res = (refpoints_mod.sweep_seeds(
-            None, None, ctx, manager, seed_id_offset=2 * 10 ** 7,
+            None, None, ctx, manager, seed_id_offset=offset,
             precomputed=round0) if round0 is not None else None)
         if res is not None:
             pieces.append(res)
-            n = len(res[0])
-        stats.log("stage3_refpoints", t0, n)
+        stats.log(name, t0, 0 if res is None else len(res[0]))
+
+    if 1 in stages:
+        t0 = time.time()
+        groups1 = polyline_stages.similarity_match_sets(sfmd, ctx,
+                                                        stats=stats)
+        stats.log("stage1_similarity_graph", t0, len(groups1))
+        t0 = time.time()
+        sweep("stage1_sweep", t0,
+              polyline_stages.group_seeds_and_follow(groups1, ctx)[0], 0)
+    if 2 in stages:
+        t0 = time.time()
+        groups2 = polyline_stages.closeness_match_sets(sfmd, ctx)
+        stats.log("stage2_closeness_graph", t0, len(groups2))
+        t0 = time.time()
+        sweep("stage2_sweep", t0,
+              polyline_stages.group_seeds_and_follow(groups2, ctx)[0],
+              10 ** 7)
+    if 3 in stages:
+        t0 = time.time()
+        round0, _ = refpoints_mod.compute_and_follow_seeds(
+            sfmd, ctx, max_starting_views=max_starting_views)
+        sweep("stage3_refpoints", t0, round0, 2 * 10 ** 7)
 
     if not pieces:
         stats.counters.update(manager.counters)
@@ -255,3 +276,24 @@ def run_pipeline(
             n_edge_points=filtered.n_points - first_edgepoint,
             n_points_out=filtered.n_points, device=str(dev)))
     return filtered
+
+
+def edge_matching(images_folder: str, edges_folder: str,
+                  working_folder: str, sfm_data_file: str,
+                  output_json: str,
+                  config: EdgeGraphConfig = DEFAULT_CONFIG,
+                  max_starting_views: int | None = None,
+                  debug_images: bool = False,
+                  device="cuda") -> sfm_io.SfMData:
+    """File-level entry: read the OpenMVG JSON and the edge images, run
+    the pipeline, write the output JSON.  `images_folder` is accepted for
+    interface parity (RGB images only serve debug drawing)."""
+    stats = PipelineStats()
+    sfmd = sfm_io.read_sfm_data(sfm_data_file)
+    edge_images = load_edge_images(edges_folder, sfmd.image_paths)
+    out = run_pipeline(sfmd, edge_images, config, working_folder,
+                       max_starting_views, stats,
+                       debug_images=debug_images, device=device)
+    sfm_io.write_sfm_data(out, output_json)
+    print(stats.report())
+    return out

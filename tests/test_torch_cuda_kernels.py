@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels (K1-K4) against their plain-torch twins.
+"""Hand-written CUDA kernels (K1-K6) against their plain-torch twins.
 
 Runs only where a CUDA GPU and nvcc are present (marker `cuda`); the
 kernels are built from edgegraph3d_tpu_torch/csrc at first use.  This
@@ -21,8 +21,11 @@ import torch
 from edgegraph3d_tpu_torch import kernels
 from edgegraph3d_tpu_torch.config import EdgeGraphConfig
 from edgegraph3d_tpu_torch.core import synthetic
-from edgegraph3d_tpu_torch.matching import detection, following, refpoints
+from edgegraph3d_tpu_torch.matching import (communities, detection,
+                                            following, polyline_stages,
+                                            refpoints)
 from edgegraph3d_tpu_torch.ops import triangulation
+from edgegraph3d_tpu_torch.ops.gather import gather_rows
 from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
 
 pytestmark = pytest.mark.cuda
@@ -165,6 +168,59 @@ def test_follow_walk_kernel_matches_plain(scene):
     torch.testing.assert_close(got.t[live], ref.t[live], rtol=0, atol=1e-6)
 
 
+def _walk_with_negative_ids(coords, lengths, F_table, dev):
+    """follow_walk arguments where a third of the lanes carry pl = -1 and
+    seg = -1, every lane active, half of them driven from view 0.  Each
+    view's last polyline slot holds a copy of its longest polyline, so
+    the lanes with pl = -1 walk."""
+    V, P, L, _ = coords.shape
+    rng = np.random.default_rng(5)
+    longest = lengths.argmax(1)
+    coords = coords.clone()
+    lengths = lengths.clone()
+    coords[:, P - 1] = coords[torch.arange(V), longest]
+    lengths[:, P - 1] = lengths[torch.arange(V), longest]
+    S = 3000
+    cams = np.stack([rng.permutation(V)[:3] for _ in range(S)]) \
+        .astype(np.int32)
+    cams[::2, 0] = 0
+    cams[::2, 1:] = (cams[::2, 1:] % (V - 1)) + 1
+    lon = longest.cpu().numpy()
+    pl = lon[cams].astype(np.int32)
+    seg = np.zeros((S, 3), np.int32)
+    bad = rng.random(S) < 1 / 3
+    pl[bad], seg[bad] = -1, -1
+    c = coords.cpu().numpy()
+    xy = c[cams, np.where(pl < 0, P - 1, pl), 0]
+    t = rng.uniform(0, 0.2, (S, 3)).astype(np.float32)
+    dirs = rng.choice([-1, 1], (S, 3)).astype(np.int32)
+    dirs[:, 0] = 1
+    as_t = lambda a: torch.as_tensor(a, device=dev)
+    return bad, (coords.to(dev), lengths.to(dev), F_table.to(dev), as_t(cams),
+                 as_t(pl), as_t(seg), as_t(t), as_t(xy.astype(np.float32)),
+                 as_t(dirs), torch.ones(S, dtype=torch.bool, device=dev), 4,
+                 10.0, 5.0, 20.0, 0.965, 5.0)
+
+
+def test_follow_walk_kernel_wraps_negative_ids(scene):
+    """Lanes of invalid seeds (pl = -1, seg = -1, as chain extension
+    hands them to resolve_configuration's all-active trial step) read the
+    view's last polyline, as the twin's torch index does, and never read
+    outside the table."""
+    _, ctx = scene
+    bad, args = _walk_with_negative_ids(ctx.plg_coords, ctx.plg_length,
+                                        ctx.F_table, ctx.device)
+    got = following.follow_walk(*args)
+    ref = following._walk_plain(*args)
+    torch.cuda.synchronize()
+    assert ref.alive[torch.as_tensor(bad, device=ctx.device), 0].any()
+    assert torch.equal(got.alive, ref.alive)
+    live = ref.alive
+    assert torch.equal(got.seg[live], ref.seg[live])
+    torch.testing.assert_close(got.obs[live], ref.obs[live], rtol=0,
+                               atol=1e-5)
+
+
 def test_stage3_on_gpu_matches_cpu(scene):
     """The whole stage-3 slice on the card (kernels) against the same
     code on the CPU (plain twins): same points, same view sets."""
@@ -176,9 +232,188 @@ def test_stage3_on_gpu_matches_cpu(scene):
     kernels.reset_launch_counts()
     gpu = refpoints.reconstruct_from_refpoints(sfmd, ctx,
                                                max_starting_views=2)
-    assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    stage3 = ("grid_topm_query", "epipolar_topm_query", "triangulate_gn",
+              "follow_walk", "gather_rows")
+    assert all(kernels.LAUNCHES[k] > 0 for k in stage3), kernels.LAUNCHES
     cpu = refpoints.reconstruct_from_refpoints(sfmd, cpu_ctx,
                                                max_starting_views=2)
     assert len(gpu.X) == len(cpu.X) > 0
     np.testing.assert_array_equal(gpu.obs_mask, cpu.obs_mask)
     np.testing.assert_allclose(gpu.X, cpu.X, rtol=0, atol=1e-4)
+
+
+def _cpu_ctx(ctx):
+    return refpoints.MatchingContext(
+        *(t.cpu() for t in (ctx.plg_coords, ctx.plg_length, ctx.grids,
+                            ctx.P_mats, ctx.F_table)),
+        cell=ctx.cell, config=ctx.config, device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("R,W,S,offset", [(65536, 128, 16384, 0),
+                                          (4096, 128, 9999, 1),
+                                          (1000, 7, 3000, 0)])
+def test_gather_rows_kernel_matches_plain(cuda, R, W, S, offset):
+    """Bit-equal to table[rows]: the 16-byte path (W % 4 == 0, aligned)
+    and the scalar path (a table view 4 bytes off alignment, odd W)."""
+    g = torch.Generator(device=cuda).manual_seed(R + offset)
+    base = torch.randn(R * W + offset, generator=g, device=cuda)
+    table = base[offset:].view(R, W)
+    rows = torch.randint(0, R, (S,), generator=g, device=cuda)
+    n0 = kernels.LAUNCHES["gather_rows"]
+    got = gather_rows(table, rows)
+    assert kernels.LAUNCHES["gather_rows"] == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, table[rows])
+
+
+def test_gather_rows_out_of_range_raises(cuda):
+    table = torch.zeros((10, 8), device=cuda)
+    for bad in ([0, 10], [-1, 3]):
+        with pytest.raises(IndexError):
+            gather_rows(table, torch.tensor(bad, device=cuda))
+
+
+@pytest.fixture(scope="module")
+def groups(scene):
+    sfmd, ctx = scene
+    cpu = _cpu_ctx(ctx)
+    g = polyline_stages.similarity_match_sets(sfmd, cpu) \
+        + polyline_stages.closeness_match_sets(sfmd, cpu)
+    assert len(g) > 0
+    return g
+
+
+def test_group_seed_sample_kernel_matches_plain(scene, groups):
+    """K6 on the card against its plain twin on the card, every output
+    slot (crossings and the first-non-crossing fill slots)."""
+    _, ctx = scene
+    cam, pl, msk = (torch.as_tensor(a, device=ctx.device) for a in
+                    polyline_stages._member_table(groups, 8))
+    V, P, L, _ = ctx.plg_coords.shape
+    cs, ps = cam.clamp_min(0).long(), pl.clamp_min(0).long()
+    coords = gather_rows(ctx.plg_coords.reshape(V * P, 2 * L),
+                         (cs * P + ps).reshape(-1)).reshape(*cam.shape, L, 2)
+    lengths = torch.where(msk, ctx.plg_length[cs, ps], 0).to(torch.int32)
+    args = (coords, lengths, cam, msk, ctx.F_table, 24, 20.0, 0.965, 5.0)
+    n0 = kernels.LAUNCHES["group_seed_sample"]
+    got = polyline_stages.group_seed_sample(*args)
+    assert kernels.LAUNCHES["group_seed_sample"] == n0 + 1
+    ref = polyline_stages._group_seed_sample_plain(*args)
+    torch.cuda.synchronize()
+    assert ref[3].any() and ref[7].any()
+    for i in (1, 3, 5, 7):                  # s_seg, s_valid, i_seg, i_ok
+        assert torch.equal(got[i], ref[i]), i
+    for i in (0, 2, 4, 6):                  # s_xy, s_t, i_xy, i_t
+        torch.testing.assert_close(got[i], ref[i], rtol=1e-6, atol=1e-5,
+                                   equal_nan=True)
+
+
+def test_group_seeds_on_gpu_match_cpu(scene, groups):
+    sfmd, ctx = scene
+    sg, gg = polyline_stages.seeds_from_match_sets(groups, ctx)
+    sc, gc = polyline_stages.seeds_from_match_sets(groups, _cpu_ctx(ctx))
+    assert len(gc) > 0
+    np.testing.assert_array_equal(gg, gc)
+    for k in ("cams", "pl_id", "seg"):
+        np.testing.assert_array_equal(sg[k], sc[k], err_msg=k)
+    for k in ("t", "xy", "X"):
+        np.testing.assert_allclose(sg[k], sc[k], rtol=0, atol=1e-4,
+                                   err_msg=k)
+
+
+def test_similarity_edges_on_gpu_match_host(scene):
+    """The f64 matmul edge build on the card against the host clique
+    build: the same nodes and edges in the same order, the same f32
+    weights (so equal Jaccard fractions stay equal LP ties)."""
+    sfmd, ctx = scene
+    u_h, e_h, w_h = polyline_stages.similarity_graph(sfmd, ctx, host=True)
+    u_d, e_d, w_d = polyline_stages.similarity_graph(sfmd, ctx, host=False)
+    assert len(e_h) > 100
+    np.testing.assert_array_equal(u_d, u_h)
+    np.testing.assert_array_equal(e_d, e_h)
+    np.testing.assert_array_equal(w_d, w_h)
+
+
+def test_similarity_match_sets_on_gpu_match_cpu(scene):
+    """Stage-1 match sets on the card (K1, f64 edges, LP on the card)
+    equal the CPU context's (plain K1, host edges, LP on the CPU), set
+    for set."""
+    sfmd, ctx = scene
+    gpu = polyline_stages.similarity_match_sets(sfmd, ctx)
+    cpu = polyline_stages.similarity_match_sets(sfmd, _cpu_ctx(ctx))
+    assert len(gpu) == len(cpu) > 0
+    for a, b in zip(gpu, cpu):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_lp_bucket_sums_on_gpu_are_ordered(cuda):
+    """Each (receiver, label) bucket is summed in update order on the
+    card exactly as on the CPU: weights spanning 9 decades make every
+    other order round differently."""
+    rng = np.random.default_rng(0)
+    n, E = 500, 200000
+    src = torch.as_tensor(rng.integers(0, n, E))
+    dst = torch.as_tensor(rng.integers(0, n, E))
+    ww = torch.as_tensor((10.0 ** rng.uniform(-6, 3, E)).astype(np.float32))
+    labels = torch.as_tensor(rng.integers(0, 7, n))
+    cpu = communities._bucket_sums(src, dst, ww, labels, n)
+    gpu = communities._bucket_sums(src.to(cuda), dst.to(cuda), ww.to(cuda),
+                                   labels.to(cuda), n)
+    for a, b in zip(cpu, gpu):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("n_comm,size", [(40, 9), (2100, 8)])
+def test_label_propagation_on_gpu_matches_cpu(cuda, n_comm, size):
+    """LP on the card gives the CPU labels, on a small graph and on one
+    above 16,384 nodes, with equal weights where the tie rule decides."""
+    rng = np.random.default_rng(n_comm)
+    n = n_comm * size
+    intra = [(c * size + i, c * size + j) for c in range(n_comm)
+             for i in range(size) for j in range(i + 1, size)
+             if rng.random() < 0.85]
+    a, b = rng.integers(0, n, n // 2), rng.integers(0, n, n // 2)
+    edges = np.asarray(intra + [(x, y) for x, y in zip(a, b) if x != y],
+                       np.int64)
+    for weights in (np.full(len(edges), 0.5, np.float32),
+                    rng.choice([0.25, 1 / 3, 0.5], len(edges))
+                    .astype(np.float32)):
+        cpu = communities.label_propagation(torch.as_tensor(edges),
+                                            torch.as_tensor(weights), n)
+        gpu = communities.label_propagation(
+            torch.as_tensor(edges, device=cuda),
+            torch.as_tensor(weights, device=cuda), n)
+        assert torch.equal(gpu.cpu(), cpu)
+        assert len(torch.unique(cpu)) > n_comm // 4
+
+
+def test_default_stages_on_gpu(cuda):
+    """Stages 1, 2 and 3 on the card against the same code on the CPU,
+    on the cube scene where the relaxed closeness ratio makes stage-2
+    match sets: all six kernels launch, both group sweeps make points,
+    the stage counts, point count and per-point view lists are equal,
+    the points agree within 1e-4 and lie on the cube."""
+    from edgegraph3d_tpu_torch.pipeline import (PipelineStats,
+                                                reconstruct_all_stages)
+    sfmd, imgs, curves = synthetic.make_cube_scene(
+        n_cams=8, n_refpoints_per_edge=8, width=320, height_px=240,
+        focal=400.0, seed=7)
+    cfg = CFG.replace(closeness_max_dist_ratio=1e6)
+    ctx = refpoints.build_context(sfmd, extract_plgs(imgs, cfg), cfg,
+                                  device=cuda)
+    stats = PipelineStats()
+    kernels.reset_launch_counts()
+    pts = reconstruct_all_stages(sfmd, ctx, stats, max_starting_views=2)
+    assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert stats.counts["stage1_sweep"] > 0
+    assert stats.counts["stage2_sweep"] > 0
+    cpu_stats = PipelineStats()
+    cpu = reconstruct_all_stages(sfmd, _cpu_ctx(ctx), cpu_stats,
+                                 max_starting_views=2)
+    assert stats.counts == cpu_stats.counts
+    assert len(pts.X) == len(cpu.X)
+    np.testing.assert_array_equal(pts.obs_mask, cpu.obs_mask)
+    np.testing.assert_allclose(pts.X, cpu.X, rtol=0, atol=1e-4)
+    cc = np.concatenate(curves)
+    d = np.sqrt(((pts.X[:, None] - cc[None]) ** 2).sum(-1)).min(1)
+    assert len(pts.X) > 50 and np.median(d) < 0.03

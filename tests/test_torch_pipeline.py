@@ -1,6 +1,6 @@
-"""The stage-3 slice end to end: the port's `run_pipeline(stages=(3,),
-device="cpu")` against the JAX `run_pipeline(stages=(3,))` on the same
-scene, and the port's independence from jax.
+"""The pipeline end to end: the port's `run_pipeline(device="cpu")`
+against the JAX `run_pipeline` on the same scene, with stage 3 alone and
+with the default stages (1, 2, 3), and the port's independence from jax.
 
 Tolerance: the same number of output points, the same per-point view
 sets in the same order, and coordinates within 1e-4 (scene units; the
@@ -19,6 +19,7 @@ import torch
 
 from edgegraph3d_tpu.config import EdgeGraphConfig
 from edgegraph3d_tpu.core import synthetic
+from edgegraph3d_tpu.pipeline import PipelineStats as JStats
 from edgegraph3d_tpu.pipeline import run_pipeline as jax_run
 from edgegraph3d_tpu_torch import pipeline as tp
 from edgegraph3d_tpu_torch.config import EdgeGraphConfig as TConfig
@@ -56,17 +57,43 @@ def test_stage3_pipeline_matches_jax(cube, steps, msv):
     assert np.median(d) < 0.03
 
 
-def test_unported_options_raise(cube):
+def test_default_stages_match_jax(cube):
+    """Stages 1, 2 and 3 with one shared claim manager.  The relaxed
+    closeness ratio makes stage 2 produce match sets on this noise-free
+    scene (see tests/test_polyline_stages.py), so both group sweeps run."""
+    sfmd, imgs, _ = cube
+    kw = dict(max_follow_steps=64, closeness_max_dist_ratio=1e6, **KW)
+    js = JStats()
+    j = jax_run(sfmd, imgs, EdgeGraphConfig().replace(**kw),
+                max_starting_views=2, stats=js)
+    ts = tp.PipelineStats()
+    t = tp.run_pipeline(sfmd, imgs, TConfig().replace(**kw),
+                        max_starting_views=2, stats=ts, device="cpu")
+    n0 = sfmd.n_points
+    assert t.n_points == j.n_points > n0 + 20
+    assert [c.tolist() for c in t.obs_cam[n0:]] == \
+        [c.tolist() for c in j.obs_cam[n0:]]
+    np.testing.assert_allclose(t.points, j.points, rtol=0, atol=1e-4)
+    for name in ("stage1_similarity_graph", "stage1_sweep",
+                 "stage2_closeness_graph", "stage2_sweep",
+                 "stage3_refpoints", "expand_all_views"):
+        assert ts.counts[name] == js.counts[name], name
+    assert ts.counts["stage1_sweep"] > 0 and ts.counts["stage2_sweep"] > 0
+    for name in ("stage1_close", "stage1_graph", "stage1_communities"):
+        assert name in ts.timings
+
+
+@pytest.mark.parametrize("option", ["ba_steps", "debug_images", "mesh"])
+def test_unported_options_raise(cube, option):
+    """Stages 1 and 2 run now; joint BA, debug images and mesh sharding
+    still raise, naming their ROADMAP item."""
     sfmd, imgs, _ = cube
     cfg = TConfig().replace(**KW)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tp.run_pipeline(sfmd, imgs, cfg, device="cpu")      # stages 1, 2
-    with pytest.raises(NotImplementedError):
-        tp.run_pipeline(sfmd, imgs, cfg.replace(ba_steps=2), stages=(3,),
-                        device="cpu")
-    with pytest.raises(NotImplementedError):
-        tp.run_pipeline(sfmd, imgs, cfg, stages=(3,), debug_images=True,
-                        device="cpu")
+    kw = {"ba_steps": dict(config=cfg.replace(ba_steps=2)),
+          "debug_images": dict(config=cfg, debug_images=True),
+          "mesh": dict(config=cfg, mesh=object())}[option]
+    with pytest.raises(NotImplementedError, match="item (9|10)"):
+        tp.run_pipeline(sfmd, imgs, device="cpu", **kw)
 
 
 def test_cuda_request_without_gpu_raises(cube, monkeypatch):
@@ -90,8 +117,8 @@ def test_working_folder_outputs(cube, tmp_path):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Run the port's pipeline in a fresh interpreter where importing
-    jax (or the JAX package) fails."""
+    """Run the port's pipeline, default stages, in a fresh interpreter
+    where importing jax (or the JAX package) fails."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -100,6 +127,8 @@ def test_port_never_imports_jax(tmp_path):
         from edgegraph3d_tpu_torch.core import synthetic
         from edgegraph3d_tpu_torch.pipeline import run_pipeline
         import edgegraph3d_tpu_torch.quality, edgegraph3d_tpu_torch.kernels
+        import edgegraph3d_tpu_torch.cli.edge_graph_3d
+        import edgegraph3d_tpu_torch.cli.filter
         sfmd, imgs, curves = synthetic.make_cube_scene(
             n_cams=6, n_refpoints_per_edge=4, width=320, height_px=240,
             focal=400.0, seed=7)
@@ -107,7 +136,7 @@ def test_port_never_imports_jax(tmp_path):
                                         max_polyline_len=128,
                                         max_follow_steps=16)
         out = run_pipeline(sfmd, imgs, cfg, max_starting_views=2,
-                           stages=(3,), device="cpu")
+                           device="cpu")
         assert not any(m == "jax" or m.startswith("jax.")
                        for m, v in sys.modules.items() if v is not None)
         print("POINTS", out.n_points - sfmd.n_points)
