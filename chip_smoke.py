@@ -6,7 +6,7 @@ Needs one CUDA GPU (an H100: the kernels are built for sm_90a) and nvcc.
 Phases, each of which must pass or the script exits non-zero without
 its final `ok` line:
 
-  1. card and build: the card's name and power limit, then the six
+  1. card and build: the card's name and power limit, then the seven
      hand-written kernels built from edgegraph3d_tpu_torch/csrc (one nvcc
      per source, all started together);
   2. kernel vs plain torch on the card, at the main path's full-scale
@@ -15,15 +15,18 @@ its final `ok` line:
      built with --fmad=false and follow the twins' operation order),
      coordinates must agree within 1e-3 px (3D points 1e-4 relative).
      K5 gather_rows must be bit-equal to `table[rows]` at the Pallas
-     probe's shape and at the chain-extension shape; K6
-     group_seed_sample runs on the full scene's stage-1 match sets with 0
-     decision mismatches allowed.  The full-scale similarity graph built
-     on the card (f64 products) must have the host build's edges, with
-     weights within 1e-5 relative (the count of unequal weights is
-     printed), and its stage-1 match sets must equal those of the host
-     build with label propagation on the CPU; label propagation's bucket
-     sums must be bit-equal on the card and the CPU (the ordered sums
-     that keep its tie rule);
+     probe's shape (int32 indices) and at the chain-extension shape
+     (int64); K6 group_seed_sample runs on the full scene's stage-1
+     match sets and K7 expand_chains on the first 4,096-chain chunk of
+     the full scene's stage-3 chains, both with 0 decision mismatches
+     allowed (K7's plain version is the old per-view loop around K1 and
+     K3, so its time is the old path's).  The full-scale similarity
+     graph built on the card (f64 products) must have the host build's
+     edges, with weights within 1e-5 relative (the count of unequal
+     weights is printed), and its stage-1 match sets must equal those of
+     the host build with label propagation on the CPU; label
+     propagation's bucket sums must be bit-equal on the card and the CPU
+     (the ordered sums that keep its tie rule);
   3. the main path on the benchmark's 8-view cube trend workload:
      stage 3 alone (`run_pipeline(stages=(3,))`), the default stages
      (1, 2, 3) through the file entry `edge_matching` on files written
@@ -31,10 +34,15 @@ its final `ok` line:
      closeness_max_dist_ratio=1e6, which must make stage-2 match sets;
   4. the default stages (1, 2, 3) on the 49-view 1600x1200 full-scale
      workload (6,268 refpoints, every viewing camera starts): stage-1
-     match sets and stage-1 points > 0, and each of the six kernels'
+     match sets and stage-1 points > 0, and each of the seven kernels'
      launch count, which must be > 0;
   5. quality gates for phases 3 and 4: edge_points > 0, coverage >= 0.9
      and med_dist3d <= 0.01.
+
+Each kernel's bound is the larger of the bytes it must move (each input
+read once, each output written once) over 3.35 TB/s and its f32
+operations over 67 TFLOP/s (an H100 SXM's published peaks), both counted
+from this run's inputs with the per-item costs in FLOPS below.
 
 Prints one JSON line of per-kernel results and, as its last line,
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -54,6 +62,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FULL_VIEWS, FULL_REFPOINTS, WIDTH, HEIGHT = 49, 6268, 1600, 1200
 DECISION_TOL = 1e-4          # fraction of rows whose decisions may differ
 COORD_TOL_PX = 1e-3
+EXPAND_CHUNK = 4096          # refpoints.expand_and_assemble's chunk on the card
+PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+PEAK_F32_FLOPS = 67e12       # H100 SXM f32, outside the tensor cores
+#: f32 operations per item of work, counted from the kernels' arithmetic:
+#: a grid entry tested by K1 / K2, a GN iteration (per observation and per
+#: solve), a DLT (per observation and the 4x4 solve), a walk step of K4,
+#: a sampling step and a segment-line test of K6
+FLOPS = dict(grid_entry=21, epipolar_entry=35, gn_obs=85, gn_iter=70,
+             dlt_obs=80, dlt_solve=200, walk_step=350, sample_step=30,
+             crossing_seg=25, line=20)
 KERNEL_META = {
     "grid_topm_query": ("edgegraph3d_tpu_torch/csrc/grid_topm.cu",
                         "edgegraph3d_tpu/matching/detection.py:96"),
@@ -67,6 +85,8 @@ KERNEL_META = {
                     "tools/pallas_probe.py:145"),
     "group_seed_sample": ("edgegraph3d_tpu_torch/csrc/group_seed_sample.cu",
                           "edgegraph3d_tpu/matching/polyline_stages.py:434"),
+    "expand_chains": ("edgegraph3d_tpu_torch/csrc/expand_chains.cu",
+                      "edgegraph3d_tpu/matching/expansion.py:361"),
 }
 
 
@@ -88,11 +108,11 @@ def card_name() -> str:
     return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
 
 
-def cuda_time(fn, reps: int):
+def cuda_time(fn, reps: int, warmup: bool = True):
     """Mean ms per call of fn() on the current stream (after one warmup
-    call whose result is returned)."""
+    call whose result is returned, unless warmup is False)."""
     import torch
-    out = fn()
+    out = fn() if warmup else None
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -143,16 +163,82 @@ def _cand_diff(a, b):
     return int(bad.sum()), err, int(a.valid.shape[0])
 
 
+def bound(n_bytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    f32 operations over the f32 peak."""
+    t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_f = flops / PEAK_F32_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def grid_work(grids, view, pts, cell, radius_cells):
+    """(valid entries tested, distinct cell ids) of grid queries over the
+    (2r+1)^2 cells around each point, clipped as K1 / K2 clip them."""
+    import torch
+    V, GH, GW, Kc, _ = grids.shape
+    q = torch.nan_to_num(pts / cell, nan=0.0).clamp(-1e9, 1e9).trunc().long()
+    offs = torch.arange(-radius_cells, radius_cells + 1, device=pts.device)
+    xx = (q[:, 0:1].clamp(0, GW - 1) + offs).clamp(0, GW - 1)
+    yy = (q[:, 1:2].clamp(0, GH - 1) + offs).clamp(0, GH - 1)
+    cid = ((view.long()[:, None, None] * GH + yy[:, :, None]) * GW
+           + xx[:, None, :]).reshape(-1)
+    per_cell = (grids[..., 0] >= 0).sum(-1).reshape(-1)
+    return int(per_cell[cid].sum()), torch.unique(cid)
+
+
+def gn_iterations(P_mats, cams, xy, mask, X0, max_iters, epsilon, accept,
+                  sample=4096):
+    """Mean GN iterations a point runs before it freezes or turns
+    singular, on up to `sample` evenly spaced rows: the plain solver's
+    result after k iterations equals its final one from k = first on,
+    and the point runs min(first + 1, max_iters) iterations."""
+    import torch
+
+    from edgegraph3d_tpu_torch.ops import triangulation
+    n = mask.shape[0]
+    if n == 0:
+        return 0.0
+    idx = torch.arange(0, n, max(1, n // sample), device=mask.device)[:sample]
+    a = (P_mats, cams[idx], xy[idx], mask[idx])
+    X0s = None if X0 is None else X0[idx]
+    run = lambda k: triangulation._triangulate_gn_plain(
+        *a, X0s, k, epsilon, accept, 1e-5)
+    Xf, mf, _ = run(max_iters)
+    first = torch.full((len(idx),), max_iters, device=mask.device)
+    for k in range(max_iters - 1, -1, -1):
+        Xk, mk, _ = run(k)
+        same = (Xk == Xf).all(1) & (mk == mf)
+        first = torch.where(same, k, first)
+    return float((first + 1).clamp_max(max_iters).float().mean())
+
+
+def gn_flops(mask, iters, cold):
+    """f32 operations of GN (and DLT when cold) over the live
+    observations of every row, at `iters` mean iterations."""
+    live = float(mask.sum())
+    rows = mask.shape[0]
+    f = iters * (FLOPS["gn_obs"] * live + FLOPS["gn_iter"] * rows)
+    if cold:
+        f += FLOPS["dlt_obs"] * live + FLOPS["dlt_solve"] * rows
+    return f
+
+
 def record_into(results, name, mism, rows, err, ms, plain_ms, err_tol,
-                gated=None, exact=False):
+                gated=None, exact=False, work=(0.0, 0.0), library_ms=None):
     """Log and gate one kernel's comparison.  `gated` is the error held
     against err_tol (default: err); `exact` allows no decision mismatch
-    at all (else DECISION_TOL of the rows)."""
+    at all (else DECISION_TOL of the rows).  `work` is (bytes, f32
+    operations) for the bound."""
     gated = err if gated is None else gated
+    bound_ms, bound_by = bound(*work)
     log(f"  {name}: rows={rows} decision_mismatches={mism} "
         f"max_abs_err={err:.3g} gated_err={gated:.3g} kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f}")
-    results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f"plain_ms={plain_ms:.4f} bytes={work[0]:.6g} flops={work[1]:.6g} "
+        f"bound_ms={bound_ms:.6f} ({bound_by})"
+        + ("" if library_ms is None else f" library_ms={library_ms:.4f}"))
+    results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms)
     if mism > (0 if exact else DECISION_TOL * rows):
         fail(f"{name}: {mism} of {rows} rows differ in a decision")
     if gated > err_tol:
@@ -186,7 +272,11 @@ def compare_kernels(ctx, sfmd):
     got, ms = cuda_time(lambda: detection.grid_topm_query(*args), 10)
     ref, pms = cuda_time(lambda: detection._grid_topm_plain(*args), 1)
     mism, err, rows = _cand_diff(got, ref)
-    record("grid_topm_query", mism, rows, err, ms, pms, COORD_TOL_PX)
+    Kc = ctx.grids.shape[3]
+    entries, cells = grid_work(ctx.grids, view, pts, ctx.cell, 1)
+    record("grid_topm_query", mism, rows, err, ms, pms, COORD_TOL_PX,
+           work=(rows * (12 + 25 * M) + len(cells) * Kc * 24,
+                 FLOPS["grid_entry"] * entries))
 
     # K2 at the _seed_from_starts shape: the starts of one refpoint
     # chunk (1,024 refpoints, every viewing camera) x all views
@@ -205,13 +295,17 @@ def compare_kernels(ctx, sfmd):
     got, ms = cuda_time(lambda: detection.epipolar_topm_query(*args2), 5)
     ref, pms = cuda_time(lambda: detection._epipolar_topm_plain(*args2), 1)
     mism, err, rows = _cand_diff(got, ref)
-    record("epipolar_topm_query", mism, rows, err, ms, pms, COORD_TOL_PX)
+    entries, cells = grid_work(ctx.grids, view2, args2[2], ctx.cell, 2)
+    record("epipolar_topm_query", mism, rows, err, ms, pms, COORD_TOL_PX,
+           work=(rows * (28 + 25 * M) + len(cells) * Kc * 24,
+                 FLOPS["epipolar_entry"] * entries))
 
     # K3, O=3 cold start (seed pairs / post-walk GN) and O=V warm start
     # (the expansion GN), on triangulatable rows built from the scene
     gen = torch.Generator(device=dev).manual_seed(0)
     pts3 = torch.as_tensor(sfmd.points, dtype=torch.float32, device=dev)
     k3_err, k3_rel, k3_mism, k3_rows, k3_ms, k3_pms = 0.0, 0.0, 0, 0, 0.0, 0.0
+    k3_bytes, k3_flops = 0.0, 0.0
     for O, warm, iters, accept in ((3, False, cfg.gn_max_iters, 9.0),
                                    (V, True, cfg.follow_gn_iters, 9.0)):
         n = 1 << 20 if O == 3 else 1 << 18
@@ -236,8 +330,12 @@ def compare_kernels(ctx, sfmd):
         both = okk & okp
         diff = (Xk - Xp).abs()[both]
         rel = diff / Xp.abs().clamp_min(1e-3)[both]
+        its = gn_iterations(*a, X0, iters, cfg.gn_epsilon, accept)
+        k3_bytes += V * 48 + n * O * 13 + (n * 12 if warm else 0) + n * 17
+        k3_flops += gn_flops(mask, its, cold=not warm)
         log(f"  triangulate_gn O={O} warm={warm}: rows={n} "
-            f"valid={int(okp.sum())} kernel_ms={ms:.4f} plain_ms={pms:.4f}")
+            f"valid={int(okp.sum())} mean_iterations={its:.4f} "
+            f"kernel_ms={ms:.4f} plain_ms={pms:.4f}")
         if len(diff):
             k3_err = max(k3_err, float(diff.max()))
             k3_rel = max(k3_rel, float(rel.max()))
@@ -246,7 +344,7 @@ def compare_kernels(ctx, sfmd):
         k3_ms += ms
         k3_pms += pms
     record("triangulate_gn", k3_mism, k3_rows, k3_err, k3_ms, k3_pms, 1e-4,
-           gated=k3_rel)
+           gated=k3_rel, work=(k3_bytes, k3_flops))
 
     # K4 at the follow shape: the chunk's seeds, both driving
     # directions, after direction resolution, max_follow_steps steps
@@ -272,8 +370,14 @@ def compare_kernels(ctx, sfmd):
     bad = ((got.alive != ref.alive).any(1)
            | ((got.seg != ref.seg).any(-1) & live).any(1))
     err = float((got.obs - ref.obs).abs()[live].max()) if live.any() else 0.0
-    log(f"  follow_walk: lanes={2 * S} live_steps={int(ref.alive.sum())}")
-    record("follow_walk", int(bad.sum()), 2 * S, err, ms, pms, COORD_TOL_PX)
+    live_steps = int(ref.alive.sum())
+    log(f"  follow_walk: lanes={2 * S} live_steps={live_steps}")
+    _, Pn, L, _ = ctx.plg_coords.shape
+    polys = torch.unique(wargs[3].long() * Pn + wargs[4].long()).numel()
+    T = cfg.max_follow_steps
+    record("follow_walk", int(bad.sum()), 2 * S, err, ms, pms, COORD_TOL_PX,
+           work=(polys * (8 * L + 4) + 2 * S * (85 + 49 * T)
+                 + V * V * 36, FLOPS["walk_step"] * live_steps))
     return results
 
 
@@ -294,23 +398,28 @@ def compare_stage12_kernels(ctx, sfmd, results):
     V, P, L, _ = ctx.plg_coords.shape
 
     def check_gather(label, table, rows, reps):
+        """K5 against table[rows] (its plain version, and the one PyTorch
+        call that computes the same function)."""
         got, ms = cuda_time(lambda: gather.gather_rows(table, rows), reps)
-        ref, pms = cuda_time(lambda: gather._gather_rows_plain(table, rows),
-                             reps)
+        ref, pms = cuda_time(lambda: table[rows], reps)
         bad = int((got != ref).any(1).sum())
         err = float((got - ref).abs().max())
+        n_bytes = rows.numel() * (8 * table.shape[1] + rows.element_size())
         log(f"  gather_rows {label}: table={tuple(table.shape)} "
-            f"rows={len(rows)} mismatched_rows={bad} max_abs_err={err:.3g} "
-            f"kernel_ms={ms:.4f} plain_ms={pms:.4f}")
+            f"rows={len(rows)} ({rows.dtype}) mismatched_rows={bad} "
+            f"max_abs_err={err:.3g} kernel_ms={ms:.4f} "
+            f"table[rows]_ms={pms:.4f} bytes={n_bytes} "
+            f"bound_ms={bound(n_bytes, 0)[0]:.6f}")
         if bad:
             fail(f"gather_rows {label}: {bad} rows differ from table[rows]")
-        return err, ms, pms
+        return err, ms, pms, n_bytes
 
     # K5 at the Pallas probe's shape (R = V*P = 8 x 8192, W = 2L = 128)
     g = torch.Generator(device=dev).manual_seed(1)
     table = torch.randn((65536, 128), generator=g, device=dev)
-    rows = torch.randint(0, 65536, (16384,), generator=g, device=dev)
-    err, _, _ = check_gather("probe shape", table, rows, 20)
+    rows = torch.randint(0, 65536, (16384,), generator=g, device=dev,
+                         dtype=torch.int32)
+    err, _, _, _ = check_gather("probe shape", table, rows, 20)
     del table
     # K5 at the chain-extension shape: E x V rows of [L, 2] located by K1
     # (M=1) at every (refpoint, view) of the scene, E = the refpoints
@@ -322,10 +431,10 @@ def compare_stage12_kernels(ctx, sfmd, results):
                           .reshape(N * V, 2), ctx.cell,
                           cfg.extension_reanchor_px, 1)
     rows = view.long() * P + loc.pl_id[:, 0].clamp_min(0).long()
-    err2, ms, pms = check_gather("extension shape", ctx.plg_coords.reshape(
-        V * P, 2 * L), rows, 20)
-    results["gather_rows"] = dict(max_abs_err=max(err, err2), ms=ms,
-                                  plain_ms=pms)
+    err2, ms, pms, n_bytes = check_gather(
+        "extension shape", ctx.plg_coords.reshape(V * P, 2 * L), rows, 20)
+    record_into(results, "gather_rows", 0, len(rows), max(err, err2), ms,
+                pms, 0.0, exact=True, work=(n_bytes, 0.0), library_ms=pms)
 
     # the full scene's stage-1 graph: the card's f64 matmul build against
     # the host build from the same close sets, then the communities of
@@ -412,9 +521,108 @@ def compare_stage12_kernels(ctx, sfmd, results):
         err = max(err, float((got[4] - ref[4]).abs()[hit].max()))
     log(f"  group_seed_sample: groups={cam.shape[0]} lanes={lanes} "
         f"valid_samples={int(ref[3].sum())} crossings={int(ref[7].sum())}")
+    G, K = cam.shape
+    S = 24
+    segs = float((lengths - 1).clamp_min(0).sum(1).sum()) * K * S
+    n_bytes = (G * K * (8 * L + 9) + min(V * V, G * K * K) * 36
+               + G * K * S * 17 + G * K * S * K * 2 * 17)
+    flops = (G * K * (S - 1) * FLOPS["sample_step"]
+             + G * K * S * K * FLOPS["line"] + segs * FLOPS["crossing_seg"])
     record_into(results, "group_seed_sample", int(bad.sum()), lanes, err,
-                ms, pms, COORD_TOL_PX, exact=True)
+                ms, pms, COORD_TOL_PX, exact=True, work=(n_bytes, flops))
     return groups
+
+
+def compare_expansion(ctx, sfmd, results):
+    """K7 against its plain version (the per-view loop around K1 and K3)
+    on the first chunk of the full scene's stage-3 chains, laid out as
+    refpoints.expand_and_assemble lays them out.  The plain run is
+    counted (K1 grid entries, GN observations and iterations) for the
+    bound, then timed once more without the counting."""
+    import numpy as np
+    import torch
+
+    from edgegraph3d_tpu_torch.matching import expansion, matches
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+
+    cfg = ctx.config
+    dev = ctx.device
+    V, GH, GW, Kc, _ = ctx.grids.shape
+    t0 = time.time()
+    mgr = matches.MatchesManager(ctx.plg_length.cpu().numpy())
+    round0, _ = rp.compute_and_follow_seeds(sfmd, ctx)
+    X, obs3, cams3, _, seed_ids, orders = rp.sweep_seeds(
+        None, None, ctx, mgr, precomputed=round0)
+    T = 64
+    gather, vld = expansion.group_chains(seed_ids, orders, max_t=T)
+    C = min(EXPAND_CHUNK, len(gather))
+    gi, vl = gather[:C], vld[:C]
+    kidx = np.flatnonzero(vl.reshape(-1))
+    rows = gi.reshape(-1)[kidx]
+    K = len(kidx)
+    as_t = lambda a: torch.as_tensor(a, device=dev)
+    args = (ctx.plg_coords, ctx.grids, ctx.P_mats, ctx.F_table, ctx.cell,
+            as_t(np.asarray(X, np.float32)[rows]),
+            as_t(np.asarray(obs3, np.float32)[rows]),
+            as_t(cams3[gi[:, 0]].astype(np.int32)),
+            as_t((kidx // T).astype(np.int64)),
+            as_t((kidx % T).astype(np.int64)),
+            torch.ones(K, dtype=torch.bool, device=dev), as_t(vl), cfg, C, T)
+    log(f"  expand_chains: {len(gather)} chains of the full scene's "
+        f"{len(X)} stage-3 points; chunk of {C} chains, {K} points "
+        f"({time.time() - t0:.1f}s)")
+
+    # the plain run, counting its work
+    count = dict(entries=0, cells=[], gn_rows=0, gn_mask=[], gn_sample=[])
+    query, gn = expansion.grid_topm_query, expansion.triangulate_gn
+
+    def counted_query(grids, view, pts, cell, radius, M):
+        e, c = grid_work(grids, view, pts, cell, 1)
+        count["entries"] += e
+        count["cells"].append(c)
+        return query(grids, view, pts, cell, radius, M)
+
+    def counted_gn(P_mats, cams, xy, mask, X0=None, **kw):
+        count["gn_mask"].append(int(mask.sum()))
+        count["gn_rows"] += mask.shape[0]
+        step = max(1, mask.shape[0] // 128)
+        count["gn_sample"].append(tuple(
+            t[::step][:128] for t in (cams, xy, mask, X0)))
+        return gn(P_mats, cams, xy, mask, X0=X0, **kw)
+
+    expansion.grid_topm_query, expansion.triangulate_gn = (counted_query,
+                                                            counted_gn)
+    try:
+        ref = expansion._expand_chains_compact_plain(*args)
+    finally:
+        expansion.grid_topm_query, expansion.triangulate_gn = query, gn
+    _, pms = cuda_time(lambda: expansion._expand_chains_compact_plain(*args),
+                       1, warmup=False)
+    got, ms = cuda_time(lambda: expansion.expand_chains_compact(*args), 3)
+
+    Xk, xyk, okk = got
+    Xp, xyp, okp = ref
+    bad = (okk != okp).any(1)
+    both = okk & okp
+    err = float((xyk - xyp).abs()[both].max()) if both.any() else 0.0
+    rel = float(((Xk - Xp).abs() / Xp.abs().clamp_min(1e-3)).max())
+    added = int(okp.sum()) - 3 * K
+    samp = [torch.cat(t) for t in zip(*count["gn_sample"])]
+    its = gn_iterations(ctx.P_mats, *samp, cfg.follow_gn_iters,
+                        cfg.gn_epsilon, cfg.match_gn_max_mse)
+    live = sum(count["gn_mask"])
+    gn_f = its * (FLOPS["gn_obs"] * live + FLOPS["gn_iter"] * count["gn_rows"])
+    cells = torch.unique(torch.cat(count["cells"])).numel()
+    n_bytes = (K * (12 + 24) + C * (12 + 5 * T) + V * 48
+               + cells * Kc * 24 + K * 12 + K * V * 9)
+    flops = FLOPS["grid_entry"] * count["entries"] + gn_f
+    log(f"  expand_chains: views added={added} gn_tries={count['gn_rows']} "
+        f"gn_live_obs={live} mean_gn_iterations={its:.4f} "
+        f"grid_entries={count['entries']} X_max_rel_err={rel:.3g}")
+    if rel > 1e-4:
+        fail(f"expand_chains: X differs by {rel} relative (> 1e-4)")
+    record_into(results, "expand_chains", int(bad.sum()), K, err, ms, pms,
+                COORD_TOL_PX, exact=True, work=(n_bytes, flops))
 
 
 # ----------------------------------------------------------------------
@@ -539,6 +747,7 @@ def main() -> int:
         f"{tuple(ctx.plg_coords.shape)}")
     results = compare_kernels(ctx, full[0])
     compare_stage12_kernels(ctx, full[0], results)
+    compare_expansion(ctx, full[0], results)
     del ctx
     torch.cuda.empty_cache()
 
@@ -566,9 +775,7 @@ def main() -> int:
 
     kern = [dict(name=k, route="cuda", source=KERNEL_META[k][0],
                  replaces=KERNEL_META[k][1], launches=launches[k],
-                 max_abs_err=results[k]["max_abs_err"],
-                 ms=results[k]["ms"], plain_ms=results[k]["plain_ms"])
-            for k in kernels.KERNEL_NAMES]
+                 **results[k]) for k in kernels.KERNEL_NAMES]
     log(f"total smoke wall {time.time() - t_start:.1f}s")
     log(json.dumps({"kernels": kern}))
     log(card)

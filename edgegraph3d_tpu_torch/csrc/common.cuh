@@ -130,6 +130,28 @@ static __device__ __forceinline__ void epipolar(const float* F, float x,
   *l2 = c / ln;
 }
 
+// a * b + c with one rounding of the sum: the f64 product of two floats
+// is exact, so only the f64 sum rounds before the cast (the form of
+// ops.geometry._fma, bit for bit).
+static __device__ __forceinline__ float fma_f64(float a, float b, float c) {
+  return (float)((double)a * (double)b + (double)c);
+}
+
+// ops.geometry.epipolar_line_fma: the line as XLA's CPU dot contracts
+// it in the JAX stage-1/2 sweep, l_i = fma(F_i1, y, F_i0 x) + F_i2,
+// normalized by sqrt(fma(a, a, b b)).
+static __device__ __forceinline__ void epipolar_fma(const float* F, float x,
+                                                    float y, float* l0,
+                                                    float* l1, float* l2) {
+  const float a = fma_f64(F[1], y, F[0] * x) + F[2];
+  const float b = fma_f64(F[4], y, F[3] * x) + F[5];
+  const float c = fma_f64(F[7], y, F[6] * x) + F[8];
+  const float ln = nmax(sqrtf(fma_f64(a, a, b * b)), 1e-20f);
+  *l0 = a / ln;
+  *l1 = b / ln;
+  *l2 = c / ln;
+}
+
 // Top-M closest candidates with DISTINCT polyline ids, kept sorted by
 // (distance, arrival order).  Candidates must be offered in the order
 // the JAX reference gathers them (cell rows, cell columns, slots): a
@@ -204,13 +226,18 @@ struct TopM {
     }
   }
 
+  // entry i holds a candidate (the `valid` the wrappers store)
+  __device__ __forceinline__ bool ok(int i) const {
+    return (d[i] < BIG * 0.5f) && (pl[i] >= 0);
+  }
+
   __device__ __forceinline__ void store(int64_t q, int* pl_out, int* seg_out,
                                         float* t_out, float* xy_out,
                                         float* dist_out,
                                         uint8_t* valid_out) const {
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      const bool ok = (d[i] < BIG * 0.5f) && (pl[i] >= 0);
+      const bool ok = this->ok(i);
       const int64_t o = q * M + i;
       pl_out[o] = ok ? pl[i] : -1;
       seg_out[o] = ok ? seg[i] : 0;

@@ -9,7 +9,8 @@
 // One thread per query: read the 5x5 cells around the observation,
 // intersect every entry's segment with the query's normalized line,
 // keep crossings within the query's radius (optionally dropping
-// quasi-parallel segments), and keep the top-M distinct polylines.
+// quasi-parallel segments), and keep the top-M distinct polylines.  The
+// query body is grid_query.cuh epipolar_topm_one, which K7 shares.
 //
 // Bound on the H100: 25 cells x 8 entries x 24 B = 4.8 KB of gathered
 // grid per query against ~30 flops per entry — a gather-latency-bound
@@ -18,7 +19,7 @@
 // 49-view grid set at 1600x1200 is ~180 MB, more than the 50 MB L2, so
 // reuse across queries is partial.  No shared-memory staging yet.
 
-#include "common.cuh"
+#include "grid_query.cuh"
 
 namespace {
 
@@ -38,43 +39,9 @@ __global__ void epipolar_topm_kernel(
   const float l1 = lines[3 * q + 1];
   const float l2 = lines[3 * q + 2];
   const float rad = radius[q];
-  const int cx = eg3d::cell_of(ox, cell, GW);
-  const int cy = eg3d::cell_of(oy, cell, GH);
   eg3d::TopM<M> top;
-  top.init();
-  for (int dy = -2; dy <= 2; ++dy) {
-    const int yy = eg3d::clampi(cy + dy, 0, GH - 1);
-    for (int dx = -2; dx <= 2; ++dx) {
-      const int xx = eg3d::clampi(cx + dx, 0, GW - 1);
-      const float* e = grids + (((v * GH + yy) * GW + xx) * Kc) * 6;
-      for (int k = 0; k < Kc; ++k, e += 6) {
-        const int pl = (int)e[0];
-        if (pl < 0) continue;
-        const float ax = e[2], ay = e[3], bx = e[4], by = e[5];
-        const float sa = ax * l0 + ay * l1 + l2;
-        const float sb = bx * l0 + by * l1 + l2;
-        const float diff = sa - sb;
-        const bool parallel = fabsf(diff) < 1e-9f;
-        const float s = parallel ? 0.0f : sa / diff;
-        bool crosses = (sa * sb <= 0.0f) && !parallel && (s >= 0.0f) &&
-                       (s <= 1.0f);
-        const float abx = bx - ax;
-        const float aby = by - ay;
-        if (use_excl) {
-          const float len = eg3d::nmax(sqrtf(abx * abx + aby * aby), 1e-12f);
-          const float c = fabsf(abx * (-l1) + aby * l0) / len;
-          crosses = crosses && (c < excl_cos);
-        }
-        if (!crosses) continue;
-        const float x = ax + s * abx;
-        const float y = ay + s * aby;
-        const float ex = x - ox;
-        const float ey = y - oy;
-        const float d = sqrtf(ex * ex + ey * ey);
-        if (d <= rad) top.offer(d, pl, (int)e[1], s, x, y);
-      }
-    }
-  }
+  eg3d::epipolar_topm_one<M>(grids, GH, GW, Kc, v, ox, oy, l0, l1, l2, rad,
+                             cell, use_excl, excl_cos, top);
   top.store(q, pl_out, seg_out, t_out, xy_out, dist_out, valid_out);
 }
 

@@ -10,7 +10,8 @@
 // the image border, so border cells repeat exactly as the reference's
 // gather does), 8 entries (pl, seg, ax, ay, bx, by) per cell, take the
 // point-segment distance, keep entries within `radius`, and insert them
-// into a register top-M of distinct polylines (common.cuh).
+// into a register top-M of distinct polylines (common.cuh).  The query
+// body is grid_query.cuh grid_topm_one, which K7 shares.
 //
 // Bound on the H100: a query reads 9 cells x 8 entries x 24 B = 1.7 KB
 // of grid with data-dependent addresses and does ~20 flops per entry,
@@ -18,7 +19,7 @@
 // queries (consecutive refpoints / chain points) hit neighbouring cells,
 // so most reads come from L2; no shared-memory staging yet.
 
-#include "common.cuh"
+#include "grid_query.cuh"
 
 namespace {
 
@@ -35,32 +36,8 @@ __global__ void grid_topm_kernel(const float* __restrict__ grids, int GH,
   const int64_t v = view[q];
   const float px = pts[2 * q];
   const float py = pts[2 * q + 1];
-  const int cx = eg3d::cell_of(px, cell, GW);
-  const int cy = eg3d::cell_of(py, cell, GH);
   eg3d::TopM<M> top;
-  top.init();
-  for (int oy = -1; oy <= 1; ++oy) {
-    const int yy = eg3d::clampi(cy + oy, 0, GH - 1);
-    for (int ox = -1; ox <= 1; ++ox) {
-      const int xx = eg3d::clampi(cx + ox, 0, GW - 1);
-      const float* e = grids + (((v * GH + yy) * GW + xx) * Kc) * 6;
-      for (int k = 0; k < Kc; ++k, e += 6) {
-        const int pl = (int)e[0];
-        if (pl < 0) continue;
-        const float ax = e[2], ay = e[3], bx = e[4], by = e[5];
-        const float ux = bx - ax;
-        const float uy = by - ay;
-        const float denom = eg3d::nmax(ux * ux + uy * uy, 1e-12f);
-        const float t = eg3d::clip01(((px - ax) * ux + (py - ay) * uy) / denom);
-        const float qx = ax + t * ux;
-        const float qy = ay + t * uy;
-        const float dx = px - qx;
-        const float dy = py - qy;
-        const float d = sqrtf(dx * dx + dy * dy);
-        if (d <= radius) top.offer(d, pl, (int)e[1], t, qx, qy);
-      }
-    }
-  }
+  eg3d::grid_topm_one<M>(grids, GH, GW, Kc, v, px, py, cell, radius, top);
   top.store(q, pl_out, seg_out, t_out, xy_out, dist_out, valid_out);
 }
 

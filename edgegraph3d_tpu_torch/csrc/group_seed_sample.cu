@@ -5,7 +5,8 @@
 //   edgegraph3d_tpu/matching/polyline_stages.py `_group_seed_sweep`
 //   (:434-469, part of XLA program B12): ops/polyline_ops.py
 //   sample_interval_points (a scan of advance_by_distance) over every
-//   member, the normalized epipolar lines F[cam_k, cam_j] [x, y, 1], and
+//   member, the normalized epipolar lines F[cam_k, cam_j] [x, y, 1] (in
+//   the FMA form XLA's CPU dot gives them, common.cuh epipolar_fma), and
 //   polyline_line_intersections (the first two crossings in segment
 //   order) of each line with member j's polyline.
 //
@@ -94,8 +95,8 @@ __global__ void group_seed_sample_kernel(
     const int j = w % K;
     const int cam_j = cam_sh[j] < 0 ? 0 : cam_sh[j];
     float l0, l1, l2;
-    eg3d::epipolar(F_table + ((int64_t)cam_k * V + cam_j) * 9, sx[i], sy[i],
-                   &l0, &l1, &l2);
+    eg3d::epipolar_fma(F_table + ((int64_t)cam_k * V + cam_j) * 9, sx[i],
+                       sy[i], &l0, &l1, &l2);
     const float* pc = c_sh + j * L * 2;
     const int len = len_sh[j];
     int hit_seg[2] = {0, 0}, miss_seg[2] = {0, 0};

@@ -1,6 +1,6 @@
 """Build and bind the hand-written CUDA kernels (csrc/*.cu).
 
-All six kernels of the main path live in one shared library
+All seven kernels of the main path live in one shared library
 with a plain C interface, compiled by nvcc for Hopper (sm_90a) at first
 use into `_build/` and loaded with ctypes.  The library is rebuilt when
 any source is newer than it.  Each C entry launches on the caller's
@@ -9,8 +9,8 @@ stream and returns `cudaGetLastError()`; `check()` raises on non-zero.
 `LAUNCHES` holds one plain-integer launch count per kernel.  The
 wrappers (detection.grid_topm_query / epipolar_topm_query,
 triangulation.triangulate_gn, following.follow_walk, gather.gather_rows,
-polyline_stages.group_seed_sample) add one right after each launch of
-their kernel and nowhere else.
+polyline_stages.group_seed_sample, expansion.expand_chains_compact) add
+one right after each launch of their kernel and nowhere else.
 
 Arithmetic is compiled with `--fmad=false`: the plain-torch twins round
 after every multiply and add, and contracting `a*b+c` into one FMA would
@@ -37,7 +37,8 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
               "-fPIC"]
 
 KERNEL_NAMES = ("grid_topm_query", "epipolar_topm_query", "triangulate_gn",
-                "follow_walk", "gather_rows", "group_seed_sample")
+                "follow_walk", "gather_rows", "group_seed_sample",
+                "expand_chains")
 LAUNCHES = {k: 0 for k in KERNEL_NAMES}
 
 _LOCK = threading.Lock()
@@ -66,14 +67,20 @@ _SIGNATURES = {
     "eg3d_follow_walk": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                          _P, _I, _I, _F, _F, _F, _F, _F,
                          _P, _P, _P, _P, _P],
-    # table, R, W, rows (int64), S, out, stream
-    "eg3d_gather_rows": [_P, _L, _L, _P, _L, _P, _P],
+    # table, R, W, rows, idx64 (rows int64, else int32), S, out, stream
+    "eg3d_gather_rows": [_P, _L, _L, _P, _I, _L, _P, _P],
     # K, L, S -> dynamic shared-memory bytes of one block
     "eg3d_group_seed_sample_smem": [_I, _I, _I],
     # coords, lengths, cams, mask, G, K, L, F_table, V, S, spacing, qcos,
     # qdist, s_xy, s_seg, s_t, s_valid, i_xy, i_seg, i_t, i_ok, stream
     "eg3d_group_seed_sample": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _F,
                                _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # grids, V, GH, GW, Kc, cell, P_mats, F_table, obs3, cams3, slot_k,
+    # chain_valid, C, T, Omax, tol, epipolar, qp_cos, gn_iters, gn_eps,
+    # accept_mse, det_min, X, cam_buf, obs_x, obs_y, out_xy, out_ok, stream
+    "eg3d_expand_chains": [_P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _F, _I, _F, _I, _F, _F, _F,
+                           _P, _P, _P, _P, _P, _P, _P],
 }
 
 

@@ -3,12 +3,18 @@
 Port of edgegraph3d_tpu/matching/expansion.py (expand_chains_compact and
 group_chains; see the JAX module for the reference semantics).  Views
 are visited in order; for each view every chain point is projected, a
-candidate that is unique within 4 px is looked up with kernel K1
-(plus K2 in "epipolar" mode), same-polyline monotone runs along the
-chain are kept (>= 3 points, >= 2 at a chain end), and each surviving
-observation is re-validated by a warm-started GN over all the point's
-observations (kernel K3).  An accepted observation updates the point
-before the next view.  The dense twin expand_chains_sweep is not ported
+candidate that is unique within 4 px is looked up (K1's query, plus K2's
+in "epipolar" mode), same-polyline monotone runs along the chain are
+kept (>= 3 points, >= 2 at a chain end), and each surviving observation
+is re-validated by a warm-started GN over all the point's observations
+(K3's GN).  An accepted observation updates the point before the next
+view.
+
+On the card the whole view loop of a chunk is kernel K7
+`expand_chains` (csrc/expand_chains.cu), one launch per call.  The plain
+version `_expand_chains_compact_plain` is the same loop in torch around
+the K1 / K2 / K3 wrappers; `expand_chains_compact` takes it for CPU
+tensors only.  The dense twin expand_chains_sweep is not ported
 (ROADMAP queue A item 11).
 """
 
@@ -19,6 +25,7 @@ import math
 import numpy as np
 import torch
 
+from edgegraph3d_tpu_torch import kernels
 from edgegraph3d_tpu_torch.config import EdgeGraphConfig
 from edgegraph3d_tpu_torch.matching.detection import (epipolar_topm_query,
                                                       grid_topm_query)
@@ -81,15 +88,26 @@ def _monotone_runs(pl_id, pos, cand_ok, chain_valid):
     return run_len, touches
 
 
-def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
-                          X, obs3, cams3, chain_idx, t_idx, item_ok,
-                          chain_valid, cfg: EdgeGraphConfig, C: int, T: int):
-    """Expand K chain points (flat, each at slot (chain_idx, t_idx) of a
-    [C, T] chain layout) to all views.
+def _initial_outputs(obs3, cam_rows, item_ok, V: int):
+    """out_xy [K,V,2] and out_ok [K,V] holding each point's three tuple
+    observations (out_ok only where item_ok)."""
+    K = obs3.shape[0]
+    r = torch.arange(K, device=obs3.device)
+    out_xy = torch.zeros((K, V, 2), dtype=obs3.dtype, device=obs3.device)
+    out_ok = torch.zeros((K, V), dtype=torch.bool, device=obs3.device)
+    for k in range(3):
+        ck = cam_rows[:, k].long()
+        out_xy[r, ck] = obs3[:, k]
+        out_ok[r, ck] = item_ok
+    return out_xy, out_ok
 
-    X [K,3], obs3 [K,3,2] tuple-view observations, cams3 [C,3] i32,
-    chain_idx / t_idx [K] (in range), item_ok [K], chain_valid [C,T].
-    Returns (X' [K,3], out_xy [K,V,2], out_ok [K,V])."""
+
+def _expand_chains_compact_plain(plg_coords, grids, P_mats, F_table,
+                                 cell: float, X, obs3, cams3, chain_idx,
+                                 t_idx, item_ok, chain_valid,
+                                 cfg: EdgeGraphConfig, C: int, T: int):
+    """Plain version of K7: the view loop in torch around the K1 / K2 /
+    K3 wrappers, one host sync per view."""
     V = P_mats.shape[0]
     K = X.shape[0]
     dev = X.device
@@ -102,7 +120,6 @@ def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
     ci_ok, ti_ok = ci[item_ok], ti[item_ok]
     cam_rows = cams3[ci]                                  # [K,3]
     vs = cam_rows[:, 0].long()
-    r = torch.arange(K, device=dev)
 
     cam_buf = torch.zeros((K, Omax), dtype=torch.int32, device=dev)
     cam_buf[:, :3] = cam_rows
@@ -112,14 +129,7 @@ def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
     obs_y[:, :3] = obs3[..., 1]
     obs_mask = torch.zeros((K, Omax), dtype=torch.bool, device=dev)
     obs_mask[:, :3] = item_ok[:, None]
-    out_x = torch.zeros((K, V), dtype=f, device=dev)
-    out_y = torch.zeros((K, V), dtype=f, device=dev)
-    out_ok = torch.zeros((K, V), dtype=torch.bool, device=dev)
-    for k in range(3):
-        ck = cam_rows[:, k].long()
-        out_x[r, ck] = obs3[:, k, 0]
-        out_y[r, ck] = obs3[:, k, 1]
-        out_ok[r, ck] = item_ok
+    out_xy, out_ok = _initial_outputs(obs3, cam_rows, item_ok, V)
     n_chain = chain_valid.sum(1)
     epipolar = cfg.expand_correspondence_mode == "epipolar"
 
@@ -173,10 +183,77 @@ def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
         obs_x[acc] = x_try[ok]
         obs_y[acc] = y_try[ok]
         obs_mask[acc] = m_try[ok]
-        out_x[acc, v] = c_xy[acc, 0]
-        out_y[acc, v] = c_xy[acc, 1]
+        out_xy[acc, v] = c_xy[acc]
         out_ok[acc, v] = True
-    return X, torch.stack([out_x, out_y], dim=-1), out_ok
+    return X, out_xy, out_ok
+
+
+def _chain_slots(chain_idx, t_idx, item_ok, C: int, T: int):
+    """[C, T] int32: the point at each chain slot, -1 where none.  Rows
+    with item_ok False are left out (scattered to a dropped extra slot),
+    so no host sync is needed."""
+    dev = chain_idx.device
+    flat = torch.where(item_ok, chain_idx.long() * T + t_idx.long(), C * T)
+    slots = torch.full((C * T + 1,), -1, dtype=torch.int32, device=dev)
+    slots[flat] = torch.arange(len(flat), dtype=torch.int32, device=dev)
+    return slots[:C * T].view(C, T)
+
+
+def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
+                          X, obs3, cams3, chain_idx, t_idx, item_ok,
+                          chain_valid, cfg: EdgeGraphConfig, C: int, T: int):
+    """Expand K chain points (flat, each at slot (chain_idx, t_idx) of a
+    [C, T] chain layout, one point per slot) to all views.
+
+    X [K,3], obs3 [K,3,2] tuple-view observations, cams3 [C,3] i32,
+    chain_idx / t_idx [K] (in range), item_ok [K], chain_valid [C,T].
+    Returns (X' [K,3], out_xy [K,V,2], out_ok [K,V]).  CUDA tensors
+    launch kernel K7 once (T <= 64); CPU tensors take the plain
+    version."""
+    if X.device.type == "cpu":
+        return _expand_chains_compact_plain(
+            plg_coords, grids, P_mats, F_table, cell, X, obs3, cams3,
+            chain_idx, t_idx, item_ok, chain_valid, cfg, C, T)
+    if not 1 <= T <= 64:
+        raise ValueError(f"expand_chains: chains of T={T} slots (kernel K7 "
+                         f"takes T <= 64, one warp per chain)")
+    V, GH, GW, Kc, _ = grids.shape
+    K = X.shape[0]
+    Omax = min(V, max(cfg.max_obs_per_point, 4))
+    X = X.clone(memory_format=torch.contiguous_format)
+    grids, P_mats, F_table, obs3, cams3, chain_valid = (
+        t.contiguous() for t in (grids, P_mats, F_table, obs3, cams3,
+                                 chain_valid))
+    kernels.require(grids, "grids", torch.float32, (V, GH, GW, Kc, 6))
+    kernels.require(P_mats, "P_mats", torch.float32, (V, 3, 4))
+    kernels.require(F_table, "F_table", torch.float32, (V, V, 3, 3))
+    kernels.require(X, "X", torch.float32, (K, 3))
+    kernels.require(obs3, "obs3", torch.float32, (K, 3, 2))
+    kernels.require(cams3, "cams3", torch.int32, (C, 3))
+    kernels.require(chain_valid, "chain_valid", torch.bool, (C, T))
+    dev = X.device
+    out_xy, out_ok = _initial_outputs(obs3, cams3[chain_idx.long()],
+                                      item_ok, V)
+    if K == 0 or C == 0:
+        return X, out_xy, out_ok
+    slots = _chain_slots(chain_idx, t_idx, item_ok, C, T)
+    cam_buf = torch.empty((K, Omax), dtype=torch.int32, device=dev)
+    obs_x = torch.empty((K, Omax), dtype=torch.float32, device=dev)
+    obs_y = torch.empty((K, Omax), dtype=torch.float32, device=dev)
+    rc = kernels.lib().eg3d_expand_chains(
+        grids.data_ptr(), V, GH, GW, Kc, float(cell), P_mats.data_ptr(),
+        F_table.data_ptr(), obs3.data_ptr(), cams3.data_ptr(),
+        slots.data_ptr(), chain_valid.data_ptr(), C, T, Omax,
+        float(math.sqrt(cfg.expand_max_projection_distsq)),
+        int(cfg.expand_correspondence_mode == "epipolar"),
+        float(cfg.quasiparallel_cos),
+        cfg.follow_gn_iters, float(cfg.gn_epsilon),
+        float(cfg.match_gn_max_mse), 1e-5, X.data_ptr(), cam_buf.data_ptr(),
+        obs_x.data_ptr(), obs_y.data_ptr(), out_xy.data_ptr(),
+        out_ok.data_ptr(), kernels.stream_of(X))
+    kernels.check(rc, "expand_chains")
+    kernels.LAUNCHES["expand_chains"] += 1
+    return X, out_xy, out_ok
 
 
 def group_chains(seed_ids: np.ndarray, orders: np.ndarray,

@@ -39,7 +39,7 @@ from edgegraph3d_tpu_torch.matching.detection import (Candidates,
                                                       grid_topm_query)
 from edgegraph3d_tpu_torch.ops import polyline_ops as po
 from edgegraph3d_tpu_torch.ops.gather import gather_rows
-from edgegraph3d_tpu_torch.ops.geometry import epipolar_line
+from edgegraph3d_tpu_torch.ops.geometry import epipolar_line_fma
 from edgegraph3d_tpu_torch.ops.triangulation import triangulate_gn
 
 #: polyline_line_intersections' own defaults, which the JAX sweep uses
@@ -350,8 +350,8 @@ def _group_seed_sample_plain(coords, lengths, cams, mask, F_table,
     s_valid = s_valid.reshape(G, K, S) & mask[..., None]
     cs = cams.clamp_min(0).long()
     F_pair = F_table[cs[:, :, None], cs[:, None, :]]           # [G,K,K,3,3]
-    lines = epipolar_line(F_pair[:, :, None],
-                          s_xy[:, :, :, None, :])              # [G,K,S,K,3]
+    lines = epipolar_line_fma(F_pair[:, :, None],
+                              s_xy[:, :, :, None, :])          # [G,K,S,K,3]
     i_xy, i_seg, i_t, i_ok = po.polyline_line_intersections(
         coords[:, None, None].expand(G, K, S, K, L, 2).reshape(-1, L, 2),
         lengths[:, None, None].expand(G, K, S, K).reshape(-1),

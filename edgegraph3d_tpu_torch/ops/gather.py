@@ -20,26 +20,27 @@ def _gather_rows_plain(table: torch.Tensor, rows: torch.Tensor):
 
 
 def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """Kernel K5.  table [R, W] f32, rows [S] integer indices in [0, R)
-    -> [S, W], row s = table[rows[s]].  An index outside [0, R) raises
-    (on the CUDA path this reads the index range back to the host)."""
+    """Kernel K5.  table [R, W] f32, rows [S] int32 or int64 indices in
+    [0, R) -> [S, W], row s = table[rows[s]].  An index outside [0, R)
+    raises: IndexError on the CPU; on the card a device-side assert, as
+    `table[rows]` gives there, reported at the next synchronise (no
+    read back to the host)."""
     if table.device.type == "cpu":
         return _gather_rows_plain(table, rows)
     R, W = table.shape
     table = table.contiguous()
-    rows = rows.to(torch.int64).contiguous()
+    if rows.dtype not in (torch.int32, torch.int64):
+        rows = rows.to(torch.int64)
+    rows = rows.contiguous()
     kernels.require(table, "table", torch.float32, (R, W))
-    kernels.require(rows, "rows", torch.int64, (rows.numel(),))
+    kernels.require(rows, "rows", rows.dtype, (rows.numel(),))
     S = rows.shape[0]
     out = torch.empty((S, W), dtype=torch.float32, device=table.device)
     if S == 0:
         return out
-    lo, hi = torch.stack(torch.aminmax(rows)).tolist()   # one sync
-    if lo < 0 or hi >= R:
-        raise IndexError(f"gather_rows: row index out of range [0, {R}): "
-                         f"min {lo}, max {hi}")
     rc = kernels.lib().eg3d_gather_rows(
-        table.data_ptr(), R, W, rows.data_ptr(), S, out.data_ptr(),
+        table.data_ptr(), R, W, rows.data_ptr(),
+        int(rows.dtype == torch.int64), S, out.data_ptr(),
         kernels.stream_of(table))
     kernels.check(rc, "gather_rows")
     kernels.LAUNCHES["gather_rows"] += 1

@@ -68,3 +68,25 @@ def epipolar_line(F: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                   for i in range(3)]
     n = torch.clamp_min(torch.sqrt(l0 * l0 + l1 * l1), 1e-20)
     return torch.stack([l0 / n, l1 / n, l2 / n], dim=-1)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c with one rounding of the sum: the f64 product of two f32
+    values is exact, so only the f64 sum rounds before the cast back."""
+    return (a.double() * b.double() + c.double()).to(a.dtype)
+
+
+def epipolar_line_fma(F: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """`epipolar_line` with the contractions XLA's CPU dot makes in the
+    JAX stage-1/2 sweep (polyline_stages._group_seed_sweep):
+    l_i = fma(F_i1, y, F_i0 x) + F_i2 and a^2 + b^2 = fma(a, a, b b).
+    The square root is taken in f64, which rounds to the correctly
+    rounded f32 root (torch's vectorized f32 sqrt on the CPU is off by an
+    ULP on some inputs).  Kernel K6 computes the same form
+    (common.cuh epipolar_fma)."""
+    px, py = x[..., 0], x[..., 1]
+    l0, l1, l2 = [_fma(F[..., i, 1], py, F[..., i, 0] * px) + F[..., i, 2]
+                  for i in range(3)]
+    n = torch.clamp_min(torch.sqrt(_fma(l0, l0, l1 * l1).double())
+                        .to(l0.dtype), 1e-20)
+    return torch.stack([l0 / n, l1 / n, l2 / n], dim=-1)

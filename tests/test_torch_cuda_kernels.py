@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels (K1-K6) against their plain-torch twins.
+"""Hand-written CUDA kernels (K1-K7) against their plain-torch twins.
 
 Runs only where a CUDA GPU and nvcc are present (marker `cuda`); the
 kernels are built from edgegraph3d_tpu_torch/csrc at first use.  This
@@ -14,6 +14,11 @@ flags) must agree exactly and coordinates to 1e-5 px (X to 1e-4
 relative).
 """
 
+import os
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 import torch
@@ -22,8 +27,8 @@ from edgegraph3d_tpu_torch import kernels
 from edgegraph3d_tpu_torch.config import EdgeGraphConfig
 from edgegraph3d_tpu_torch.core import synthetic
 from edgegraph3d_tpu_torch.matching import (communities, detection,
-                                            following, polyline_stages,
-                                            refpoints)
+                                            expansion, following, matches,
+                                            polyline_stages, refpoints)
 from edgegraph3d_tpu_torch.ops import triangulation
 from edgegraph3d_tpu_torch.ops.gather import gather_rows
 from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
@@ -249,28 +254,54 @@ def _cpu_ctx(ctx):
         cell=ctx.cell, config=ctx.config, device=torch.device("cpu"))
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("R,W,S,offset", [(65536, 128, 16384, 0),
                                           (4096, 128, 9999, 1),
                                           (1000, 7, 3000, 0)])
-def test_gather_rows_kernel_matches_plain(cuda, R, W, S, offset):
+def test_gather_rows_kernel_matches_plain(cuda, R, W, S, offset, dtype):
     """Bit-equal to table[rows]: the 16-byte path (W % 4 == 0, aligned)
-    and the scalar path (a table view 4 bytes off alignment, odd W)."""
+    and the scalar path (a table view 4 bytes off alignment, odd W),
+    with int32 and int64 indices."""
     g = torch.Generator(device=cuda).manual_seed(R + offset)
     base = torch.randn(R * W + offset, generator=g, device=cuda)
     table = base[offset:].view(R, W)
-    rows = torch.randint(0, R, (S,), generator=g, device=cuda)
+    rows = torch.randint(0, R, (S,), generator=g, device=cuda).to(dtype)
     n0 = kernels.LAUNCHES["gather_rows"]
     got = gather_rows(table, rows)
     assert kernels.LAUNCHES["gather_rows"] == n0 + 1
     torch.cuda.synchronize()
-    assert torch.equal(got, table[rows])
+    assert torch.equal(got, table[rows.long()])
 
 
-def test_gather_rows_out_of_range_raises(cuda):
-    table = torch.zeros((10, 8), device=cuda)
-    for bad in ([0, 10], [-1, 3]):
-        with pytest.raises(IndexError):
-            gather_rows(table, torch.tensor(bad, device=cuda))
+_OUT_OF_RANGE = textwrap.dedent("""
+    import sys
+    import torch
+    from edgegraph3d_tpu_torch.ops.gather import gather_rows
+    table = torch.zeros((10, 8), device="cuda")
+    gather_rows(table, torch.tensor({bad}, device="cuda",
+                                    dtype=torch.{dtype}))
+    try:
+        torch.cuda.synchronize()
+    except Exception as e:            # torch.AcceleratorError on 2.8+
+        print("RAISED", e)
+        sys.exit(3)
+    print("NO ERROR")
+""")
+
+
+@pytest.mark.parametrize("bad,dtype", [([0, 10], "int64"), ([-1, 3], "int32")])
+def test_gather_rows_out_of_range_raises(cuda, bad, dtype):
+    """An index outside [0, R) fails the kernel's device-side assert, as
+    table[rows] does on the card, reported at the next synchronise.  It
+    runs in a child process: the assert poisons the CUDA context of the
+    process it fires in."""
+    kernels.lib()                           # build before the child runs
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-c", _OUT_OF_RANGE.format(bad=bad, dtype=dtype)],
+        capture_output=True, text=True, timeout=300, cwd=root)
+    assert res.returncode == 3, (res.stdout, res.stderr[-2000:])
+    assert "device-side assert" in res.stdout
 
 
 @pytest.fixture(scope="module")
@@ -285,7 +316,8 @@ def groups(scene):
 
 def test_group_seed_sample_kernel_matches_plain(scene, groups):
     """K6 on the card against its plain twin on the card, every output
-    slot (crossings and the first-non-crossing fill slots)."""
+    slot (crossings and the first-non-crossing fill slots); both compute
+    the epipolar lines in the FMA form (geometry.epipolar_line_fma)."""
     _, ctx = scene
     cam, pl, msk = (torch.as_tensor(a, device=ctx.device) for a in
                     polyline_stages._member_table(groups, 8))
@@ -306,6 +338,52 @@ def test_group_seed_sample_kernel_matches_plain(scene, groups):
     for i in (0, 2, 4, 6):                  # s_xy, s_t, i_xy, i_t
         torch.testing.assert_close(got[i], ref[i], rtol=1e-6, atol=1e-5,
                                    equal_nan=True)
+
+
+@pytest.fixture(scope="module")
+def chains(scene):
+    """The scene's swept stage-3 chains (CPU context), one chunk in the
+    layout expand_and_assemble hands to expand_chains_compact."""
+    sfmd, ctx = scene
+    cpu = _cpu_ctx(ctx)
+    mgr = matches.MatchesManager(cpu.plg_length.numpy())
+    round0, _ = refpoints.compute_and_follow_seeds(sfmd, cpu,
+                                                   max_starting_views=2)
+    X, obs3, cams3, _, seed_ids, orders = refpoints.sweep_seeds(
+        None, None, cpu, mgr, precomputed=round0)
+    T = 64
+    gather, vld = expansion.group_chains(seed_ids, orders, max_t=T)
+    kidx = np.flatnonzero(vld.reshape(-1))
+    rows = gather.reshape(-1)[kidx]
+    dev = ctx.device
+    as_t = lambda a: torch.as_tensor(a, device=dev)
+    return len(gather), T, (
+        as_t(np.asarray(X, np.float32)[rows]),
+        as_t(np.asarray(obs3, np.float32)[rows]),
+        as_t(cams3[gather[:, 0]].astype(np.int32)),
+        as_t(kidx // T), as_t(kidx % T),
+        torch.ones(len(kidx), dtype=torch.bool, device=dev), as_t(vld))
+
+
+@pytest.mark.parametrize("mode", ["closest", "epipolar"])
+def test_expand_chains_kernel_matches_plain(scene, chains, mode):
+    """K7 (one launch) against its plain version (the view loop around
+    K1 / K2 / K3) on the card: the same acceptances, out_xy and X
+    bit-equal or within 1e-6 relative."""
+    _, ctx = scene
+    C, T, tensors = chains
+    cfg = ctx.config.replace(expand_correspondence_mode=mode)
+    args = (ctx.plg_coords, ctx.grids, ctx.P_mats, ctx.F_table, ctx.cell,
+            *tensors, cfg, C, T)
+    n0 = kernels.LAUNCHES["expand_chains"]
+    Xk, xyk, okk = expansion.expand_chains_compact(*args)
+    assert kernels.LAUNCHES["expand_chains"] == n0 + 1
+    Xp, xyp, okp = expansion._expand_chains_compact_plain(*args)
+    torch.cuda.synchronize()
+    assert okp.sum(1).max() > 3                 # views were added
+    assert torch.equal(okk, okp)
+    torch.testing.assert_close(xyk, xyp, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(Xk, Xp, rtol=1e-6, atol=1e-6)
 
 
 def test_group_seeds_on_gpu_match_cpu(scene, groups):
@@ -390,7 +468,7 @@ def test_label_propagation_on_gpu_matches_cpu(cuda, n_comm, size):
 def test_default_stages_on_gpu(cuda):
     """Stages 1, 2 and 3 on the card against the same code on the CPU,
     on the cube scene where the relaxed closeness ratio makes stage-2
-    match sets: all six kernels launch, both group sweeps make points,
+    match sets: all seven kernels launch, both group sweeps make points,
     the stage counts, point count and per-point view lists are equal,
     the points agree within 1e-4 and lie on the cube."""
     from edgegraph3d_tpu_torch.pipeline import (PipelineStats,

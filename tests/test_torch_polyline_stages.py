@@ -26,6 +26,8 @@ from edgegraph3d_tpu_torch.config import EdgeGraphConfig as TConfig
 from edgegraph3d_tpu_torch.matching import polyline_stages as tps
 from edgegraph3d_tpu_torch.matching import refpoints as trp
 from edgegraph3d_tpu_torch.ops import polyline_ops as tpo
+from edgegraph3d_tpu_torch.ops.geometry import (epipolar_line,
+                                                epipolar_line_fma)
 
 KW = dict(max_polylines_per_view=256, max_polyline_len=128,
           max_follow_steps=64, closeness_max_dist_ratio=1e6)
@@ -144,13 +146,55 @@ def test_group_seeds_match_jax(ctxs, group_chunk):
                                    err_msg=k)
 
 
+def test_sweep_lines_match_jax_bit_for_bit(ctxs):
+    """The stage-1/2 sweep's epipolar lines, from JAX's own samples of
+    the match-set members: `epipolar_line_fma` equals the JAX einsum +
+    normalization of polyline_stages._group_seed_sweep bit for bit (the
+    FMAs XLA's CPU code makes), where rounding every product does not."""
+    sfmd, jctx, _ = ctxs
+    groups = (jps.similarity_match_sets(sfmd, jctx)
+              + jps.closeness_match_sets(sfmd, jctx))
+    cam, pl, msk = tps._member_table(groups, 8)
+
+    @jax.jit
+    def jax_lines(plg_coords, plg_length, F_table, grp_cam, grp_pl,
+                  grp_mask):
+        # polyline_stages._group_seed_sweep up to its normalized lines
+        cam_safe = jnp.maximum(grp_cam, 0)
+        pl_safe = jnp.maximum(grp_pl, 0)
+        coords = plg_coords[cam_safe, pl_safe]
+        lengths = jnp.where(grp_mask, plg_length[cam_safe, pl_safe], 0)
+        s_xy = jax.vmap(jax.vmap(lambda c, n: jpo.sample_interval_points(
+            c, n, 20.0, 24)[0]))(coords, lengths)
+        xyh = jnp.concatenate([s_xy, jnp.ones(s_xy.shape[:-1] + (1,),
+                                              s_xy.dtype)], -1)
+        F_pair = F_table[cam_safe[:, :, None], cam_safe[:, None, :]]
+        lines = jnp.einsum("gkjab,gksb->gksja", F_pair, xyh,
+                           precision=jax.lax.Precision.HIGHEST)
+        ln = jnp.sqrt(lines[..., 0] ** 2 + lines[..., 1] ** 2)
+        return s_xy, F_pair, lines / jnp.maximum(ln, 1e-20)[..., None]
+
+    s_xy, F_pair, want = (np.asarray(a) for a in jax_lines(
+        jctx.plg_coords, jctx.plg_length, jctx.F_table, jnp.asarray(cam),
+        jnp.asarray(pl), jnp.asarray(msk)))
+    args = (torch.as_tensor(F_pair)[:, :, None],
+            torch.as_tensor(s_xy)[:, :, :, None, :])
+    got = epipolar_line_fma(*args).numpy()
+    assert want.size > 10000
+    np.testing.assert_array_equal(got, want)
+    assert (epipolar_line(*args).numpy() != want).any()
+
+
 def test_group_seed_follow_chunk_independent(ctxs):
     """The fused stage-1/2 phase (seeds + bidirectional follow): the same
     seeds as JAX's, and the same follows, rows and claim metadata at any
-    group chunk (a seed's global index decides its claims).  Against
-    JAX the follows agree on all but a few seeds: XLA's CPU dot computes
-    the epipolar lines with an FMA, the port rounds each product, and
-    a 1-ULP difference can flip a walk gate (3 of 275 seeds here)."""
+    group chunk (a seed's global index decides its claims), and the
+    same follows as JAX's on all but 3 of 275 seeds.  The port computes
+    the sweep's epipolar lines with the FMAs XLA's CPU dot makes
+    (geometry.epipolar_line_fma: bit-equal lines from equal samples, see
+    test_sweep_lines_match_jax_bit_for_bit), but XLA also contracts the
+    interval sampling's arithmetic, so some samples differ by an ULP and
+    3 walks flip a gate (ROADMAP queue C)."""
     sfmd, jctx, tctx = ctxs
     groups = (jps.similarity_match_sets(sfmd, jctx)
               + jps.closeness_match_sets(sfmd, jctx))
@@ -179,7 +223,7 @@ def test_group_seed_follow_chunk_independent(ctxs):
     ma, mj = cat(r0a, lambda x: x[3]), cat(r0j, lambda x: x[3])[:, :39]
     disc = [0, 1, 2, 3, 7, 8, 9, 13, 14] + list(range(27, 39))
     flip = np.flatnonzero((ma[:, disc] != mj[:, disc]).any(1))
-    assert len(flip) <= 0.02 * len(ma), flip
+    assert len(flip) <= 3, flip
     ok = np.setdiff1d(np.arange(len(ma)), flip)
     np.testing.assert_allclose(ma[ok][:, [4, 5, 6, 10, 11, 12]],
                                mj[ok][:, [4, 5, 6, 10, 11, 12]], rtol=0,
