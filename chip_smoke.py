@@ -14,16 +14,25 @@ its final `ok` line:
      may differ on at most 1e-4 of the rows (0 expected: the kernels are
      built with --fmad=false and follow the twins' operation order),
      coordinates must agree within 1e-3 px (3D points 1e-4 relative).
-     K5 gather_rows must be bit-equal to `table[rows]` at the Pallas
-     probe's shape (int32 indices) and at the chain-extension shape
-     (int64); K6 group_seed_sample runs on the full scene's stage-1
-     match sets and K7 expand_chains on the first 4,096-chain chunk of
-     the full scene's stage-3 chains, both with 0 decision mismatches
-     allowed (K7's plain version is the old per-view loop around K1 and
-     K3, so its time is the old path's).  The full-scale similarity
-     graph built on the card (f64 products) must have the host build's
-     edges, with weights within 1e-5 relative (the count of unequal
-     weights is printed), and its stage-1 match sets must equal those of
+     K2's launch alone runs in its 8-lane body and its one-thread body
+     (the one K7's "epipolar" mode runs, and K2's design before that) on
+     the queries in the caller's, the view and the (view, cell) order,
+     each identical to the wrapper's result.  K5 gather_rows must be bit-equal to
+     `table[rows]` at the Pallas probe's shape (int32 indices) and at
+     the chain-extension shape (int64); K6 group_seed_sample runs on the
+     full scene's stage-1 match sets, with 0 decision mismatches allowed.
+     K7 expand_chains runs the whole expansion of the full scene's
+     stage-3 chains and of the first chain-extension round's chains, in
+     the chunks refpoints.chain_chunks makes, in one launch per chunk
+     (the wrapper's way) and, for comparison, in one launch per tile
+     bucket (each chunk cut at its bucket edges), each bit-equal to its
+     plain version (the old per-view loop around K1 and K3, so its time
+     is the old path's), and alone on the chunk the one-warp-per-chain
+     design was timed on (the first 4,096 stage-3 chains).  The
+     full-scale similarity graph built on the card (f64 products) must
+     have the host build's edges, with weights within 1e-5 relative (the
+     count of unequal weights is printed), and its stage-1 match sets
+     must equal those of
      the host build with label propagation on the CPU; label
      propagation's bucket sums must be bit-equal on the card and the CPU
      (the ordered sums that keep its tie rule);
@@ -35,7 +44,8 @@ its final `ok` line:
   4. the default stages (1, 2, 3) on the 49-view 1600x1200 full-scale
      workload (6,268 refpoints, every viewing camera starts): stage-1
      match sets and stage-1 points > 0, and each of the seven kernels'
-     launch count, which must be > 0;
+     launch count, which must be > 0 (K7's calls are logged with their
+     chains by tile bucket);
   5. quality gates for phases 3 and 4: edge_points > 0, coverage >= 0.9
      and med_dist3d <= 0.01.
 
@@ -46,6 +56,13 @@ from this run's inputs with the per-item costs in FLOPS below.
 
 Prints one JSON line of per-kernel results and, as its last line,
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
+
+    python3 chip_smoke.py --time-k7-chunk ROOT
+
+times K7 alone on that 4,096-chain chunk with this script's `cuda_time`
+for the port checkout at ROOT (e.g. an unpacked `git archive` of an
+earlier commit), so that two versions of K7 are timed with one yardstick
+in one call; it prints one JSON line and skips every check.
 """
 
 from __future__ import annotations
@@ -62,7 +79,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FULL_VIEWS, FULL_REFPOINTS, WIDTH, HEIGHT = 49, 6268, 1600, 1200
 DECISION_TOL = 1e-4          # fraction of rows whose decisions may differ
 COORD_TOL_PX = 1e-3
-EXPAND_CHUNK = 4096          # refpoints.expand_and_assemble's chunk on the card
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32, outside the tensor cores
 #: f32 operations per item of work, counted from the kernels' arithmetic:
@@ -108,11 +124,20 @@ def card_name() -> str:
     return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
 
 
-def cuda_time(fn, reps: int, warmup: bool = True):
-    """Mean ms per call of fn() on the current stream (after one warmup
-    call whose result is returned, unless warmup is False)."""
+def cuda_time(fn, reps: int, warmup: bool = True, warm_s: float = 0.25):
+    """Mean ms per call of fn() on the current stream.  Unless warmup is
+    False, fn() first runs for at least warm_s seconds of wall (the
+    first call's result is returned): the card idles through the host
+    phases, and its clocks need that long of work to rise."""
     import torch
-    out = fn() if warmup else None
+    out = None
+    if warmup:
+        out = fn()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        while time.time() - t0 < warm_s:
+            fn()
+            torch.cuda.synchronize()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -245,6 +270,54 @@ def record_into(results, name, mism, rows, err, ms, plain_ms, err_tol,
         fail(f"{name}: coordinate error {gated} > {err_tol}")
 
 
+def k2_variants(ctx, args2, want):
+    """K2's launch alone in its 8-lane body and its one-thread body, on
+    the queries as the caller issues them (start-major; the one-thread
+    body in that order is K2's previous design), by view (the wrapper's
+    order) and by (view, grid cell); each identical to the wrapper's
+    result `want`.  The sorts are timed apart."""
+    import torch
+
+    from edgegraph3d_tpu_torch import kernels
+    from edgegraph3d_tpu_torch.matching import detection
+
+    grids, view, pts, lines, radius, cell, M = args2
+    V, GH, GW, Kc, _ = grids.shape
+    Q = len(view)
+    cells = torch.nan_to_num(pts / cell).clamp(0, max(GH, GW) - 1).int()
+    cell_key = (view * GH + cells[:, 1].clamp_max(GH - 1)) * GW \
+        + cells[:, 0].clamp_max(GW - 1)
+    sorts = {"view": lambda: detection._view_major_order(view, V),
+             "view+cell": lambda: torch.argsort(cell_key, stable=True)
+             .to(torch.int32)}
+    orders = {"start-major": None}
+    for name, sort in sorts.items():
+        orders[name], ms = cuda_time(sort, 5)
+        log(f"  epipolar_topm_query order by {name}: sort_ms={ms:.4f}")
+    out = detection._empty_outputs(Q, M, pts.device)
+
+    def launch(one_thread, order):
+        rc = kernels.lib().eg3d_epipolar_topm(
+            grids.data_ptr(), V, GH, GW, Kc, view.data_ptr(),
+            pts.data_ptr(), lines.data_ptr(), radius.data_ptr(),
+            None if order is None else order.data_ptr(), Q, float(cell), M,
+            one_thread, 0, 0.0, *detection._out_ptrs(out),
+            kernels.stream_of(pts))
+        kernels.check(rc, "epipolar_topm_query")
+
+    for lanes, one_thread in ((1, 1), (8, 0)):
+        for name, order in orders.items():
+            for t in out:
+                t.fill_(7)                # every slot must be rewritten
+            _, ms = cuda_time(lambda: launch(one_thread, order), 5)
+            same = all(torch.equal(a, b) for a, b in zip(out, want))
+            log(f"  epipolar_topm_query lanes_per_query={lanes} {name}: "
+                f"launch_ms={ms:.4f} identical={same}")
+            if not same:
+                fail(f"epipolar_topm_query: {lanes} lanes per query, "
+                     f"{name} order, differ from the wrapper's result")
+
+
 def compare_kernels(ctx, sfmd):
     import torch
 
@@ -295,6 +368,7 @@ def compare_kernels(ctx, sfmd):
     got, ms = cuda_time(lambda: detection.epipolar_topm_query(*args2), 5)
     ref, pms = cuda_time(lambda: detection._epipolar_topm_plain(*args2), 1)
     mism, err, rows = _cand_diff(got, ref)
+    k2_variants(ctx, args2, got)
     entries, cells = grid_work(ctx.grids, view2, args2[2], ctx.cell, 2)
     record("epipolar_topm_query", mism, rows, err, ms, pms, COORD_TOL_PX,
            work=(rows * (28 + 25 * M) + len(cells) * Kc * 24,
@@ -533,46 +607,81 @@ def compare_stage12_kernels(ctx, sfmd, results):
     return groups
 
 
-def compare_expansion(ctx, sfmd, results):
-    """K7 against its plain version (the per-view loop around K1 and K3)
-    on the first chunk of the full scene's stage-3 chains, laid out as
-    refpoints.expand_and_assemble lays them out.  The plain run is
-    counted (K1 grid entries, GN observations and iterations) for the
-    bound, then timed once more without the counting."""
+def tile_histogram(extent):
+    """Chains per K7 tile bucket (<= 8, <= 16, <= 32, <= 64 slots)."""
+    import numpy as np
+
+    from edgegraph3d_tpu_torch.matching import expansion
+    return np.bincount(np.searchsorted(expansion.TILE_SLOTS, extent),
+                       minlength=4).tolist()
+
+
+def _first_chains(ctx, X, obs3, cams3, seed_ids, orders, C=4096, T=64):
+    """expand_chains_compact's arguments and extents for the first C
+    chains in group_chains order, unsorted (the chunk the one-warp-per-
+    chain design of K7 was timed on)."""
     import numpy as np
     import torch
 
-    from edgegraph3d_tpu_torch.matching import expansion, matches
-    from edgegraph3d_tpu_torch.matching import refpoints as rp
-
-    cfg = ctx.config
+    from edgegraph3d_tpu_torch.matching import expansion
     dev = ctx.device
-    V, GH, GW, Kc, _ = ctx.grids.shape
-    t0 = time.time()
-    mgr = matches.MatchesManager(ctx.plg_length.cpu().numpy())
-    round0, _ = rp.compute_and_follow_seeds(sfmd, ctx)
-    X, obs3, cams3, _, seed_ids, orders = rp.sweep_seeds(
-        None, None, ctx, mgr, precomputed=round0)
-    T = 64
     gather, vld = expansion.group_chains(seed_ids, orders, max_t=T)
-    C = min(EXPAND_CHUNK, len(gather))
     gi, vl = gather[:C], vld[:C]
     kidx = np.flatnonzero(vl.reshape(-1))
     rows = gi.reshape(-1)[kidx]
-    K = len(kidx)
     as_t = lambda a: torch.as_tensor(a, device=dev)
-    args = (ctx.plg_coords, ctx.grids, ctx.P_mats, ctx.F_table, ctx.cell,
+    return (ctx.plg_coords, ctx.grids, ctx.P_mats, ctx.F_table, ctx.cell,
             as_t(np.asarray(X, np.float32)[rows]),
             as_t(np.asarray(obs3, np.float32)[rows]),
             as_t(cams3[gi[:, 0]].astype(np.int32)),
             as_t((kidx // T).astype(np.int64)),
             as_t((kidx % T).astype(np.int64)),
-            torch.ones(K, dtype=torch.bool, device=dev), as_t(vl), cfg, C, T)
-    log(f"  expand_chains: {len(gather)} chains of the full scene's "
-        f"{len(X)} stage-3 points; chunk of {C} chains, {K} points "
-        f"({time.time() - t0:.1f}s)")
+            torch.ones(len(kidx), dtype=torch.bool, device=dev), as_t(vl),
+            ctx.config, len(gi), T), vl.sum(1)
 
-    # the plain run, counting its work
+
+def bucket_pieces(args, extent):
+    """One refpoints.chain_chunks chunk cut at its tile-bucket edges: a
+    list of (args, extent), one per run of chains in one bucket.  The
+    chunk's chains are sorted by length and its points are in chain
+    order, `extent` of each (valid slots are a prefix), so a run of
+    chains owns a run of points, and the pieces' outputs concatenated
+    are the chunk's."""
+    import numpy as np
+
+    from edgegraph3d_tpu_torch.matching import expansion
+    head, (X, obs3, cams3, ci, ti, ok, vld, cfg, _, T) = args[:5], args[5:]
+    b = np.searchsorted(expansion.TILE_SLOTS, extent)
+    cuts = [0, *(np.flatnonzero(np.diff(b)) + 1).tolist(), len(extent)]
+    first = np.concatenate([[0], np.cumsum(extent)])
+    pieces = []
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        p0, p1 = int(first[lo]), int(first[hi])
+        pieces.append(((*head, X[p0:p1], obs3[p0:p1], cams3[lo:hi],
+                        ci[p0:p1] - lo, ti[p0:p1], ok[p0:p1], vld[lo:hi],
+                        cfg, hi - lo, T), extent[lo:hi]))
+    return pieces
+
+
+def check_expansion(ctx, label, chunks):
+    """K7 against its plain version over every chunk of one expansion,
+    laid out as refpoints.expand_and_assemble lays them out
+    (refpoints.chain_chunks): decisions, out_xy and X bit-equal.  The
+    plain run is counted (K1 grid entries, GN observations and
+    iterations) for the bound, then timed once more without the
+    counting; K7 is timed in one launch per chunk (the wrapper's way)
+    and, for comparison, in one launch per tile bucket (bucket_pieces).
+    Returns (mismatched rows, rows, max |out_xy - plain| over the
+    observations both accept, kernel ms, plain ms, (bytes, flops)) over
+    all chunks."""
+    import numpy as np
+    import torch
+
+    from edgegraph3d_tpu_torch.matching import expansion
+
+    cfg = ctx.config
+    V, GH, GW, Kc, _ = ctx.grids.shape
+    chunks = [(a, e) for _, a, e in chunks]
     count = dict(entries=0, cells=[], gn_rows=0, gn_mask=[], gn_sample=[])
     query, gn = expansion.grid_topm_query, expansion.triangulate_gn
 
@@ -590,39 +699,120 @@ def compare_expansion(ctx, sfmd, results):
             t[::step][:128] for t in (cams, xy, mask, X0)))
         return gn(P_mats, cams, xy, mask, X0=X0, **kw)
 
+    plain = lambda: [expansion._expand_chains_compact_plain(*a)
+                     for a, _ in chunks]
     expansion.grid_topm_query, expansion.triangulate_gn = (counted_query,
                                                             counted_gn)
     try:
-        ref = expansion._expand_chains_compact_plain(*args)
+        ref = plain()
     finally:
         expansion.grid_topm_query, expansion.triangulate_gn = query, gn
-    _, pms = cuda_time(lambda: expansion._expand_chains_compact_plain(*args),
-                       1, warmup=False)
-    got, ms = cuda_time(lambda: expansion.expand_chains_compact(*args), 3)
+    _, pms = cuda_time(plain, 1, warmup=False)
+    got, ms = cuda_time(lambda: [expansion.expand_chains_compact(
+        *a, extent=e) for a, e in chunks], 5)
+    pieces = [bucket_pieces(a, e) for a, e in chunks]
+    split, split_ms = cuda_time(lambda: [
+        [expansion.expand_chains_compact(*a, extent=e) for a, e in ps]
+        for ps in pieces], 5)
+    split = [tuple(torch.cat(t) for t in zip(*runs)) for runs in split]
 
-    Xk, xyk, okk = got
-    Xp, xyp, okp = ref
-    bad = (okk != okp).any(1)
-    both = okk & okp
-    err = float((xyk - xyp).abs()[both].max()) if both.any() else 0.0
-    rel = float(((Xk - Xp).abs() / Xp.abs().clamp_min(1e-3)).max())
-    added = int(okp.sum()) - 3 * K
+    exact = all(torch.equal(x, y) for run in (got, split)
+                for out, r in zip(run, ref) for x, y in zip(out, r))
+    bad = sum(int((g[2] != r[2]).any(1).sum()) for g, r in zip(got, ref))
+    err = 0.0
+    for g, r in zip(got, ref):
+        both = g[2] & r[2]
+        if both.any():
+            err = max(err, float((g[1] - r[1]).abs()[both].max()))
+    K = sum(a[5].shape[0] for a, _ in chunks)
+    C = sum(a[-2] for a, _ in chunks)
+    T = chunks[0][0][-1]
+    added = sum(int(r[2].sum()) for r in ref) - 3 * K
     samp = [torch.cat(t) for t in zip(*count["gn_sample"])]
     its = gn_iterations(ctx.P_mats, *samp, cfg.follow_gn_iters,
                         cfg.gn_epsilon, cfg.match_gn_max_mse)
     live = sum(count["gn_mask"])
     gn_f = its * (FLOPS["gn_obs"] * live + FLOPS["gn_iter"] * count["gn_rows"])
     cells = torch.unique(torch.cat(count["cells"])).numel()
-    n_bytes = (K * (12 + 24) + C * (12 + 5 * T) + V * 48
+    n_bytes = (K * (12 + 24) + C * (12 + 5 * T) + len(chunks) * V * 48
                + cells * Kc * 24 + K * 12 + K * V * 9)
     flops = FLOPS["grid_entry"] * count["entries"] + gn_f
-    log(f"  expand_chains: views added={added} gn_tries={count['gn_rows']} "
+    hist = np.sum([tile_histogram(e) for _, e in chunks], 0).tolist()
+    log(f"  expand_chains {label}: {C} chains in {len(chunks)} chunks, {K} "
+        f"points, chains by tile bucket (<=8, <=16, <=32, <=64 slots) "
+        f"{hist}; views added={added} gn_tries={count['gn_rows']} "
         f"gn_live_obs={live} mean_gn_iterations={its:.4f} "
-        f"grid_entries={count['entries']} X_max_rel_err={rel:.3g}")
-    if rel > 1e-4:
-        fail(f"expand_chains: X differs by {rel} relative (> 1e-4)")
-    record_into(results, "expand_chains", int(bad.sum()), K, err, ms, pms,
-                COORD_TOL_PX, exact=True, work=(n_bytes, flops))
+        f"grid_entries={count['entries']} bit_equal={exact} "
+        f"max_abs_err={err:.3g} kernel_ms one launch per chunk={ms:.4f} "
+        f"one per bucket ({sum(map(len, pieces))} launches)="
+        f"{split_ms:.4f} plain_ms={pms:.4f} bytes={n_bytes:.6g} "
+        f"flops={flops:.6g} bound_ms={bound(n_bytes, flops)[0]:.6f}")
+    if not exact:
+        fail(f"expand_chains {label}: not bit-equal to its plain version")
+    return bad, K, err, ms, pms, (n_bytes, flops)
+
+
+def compare_expansion(ctx, sfmd, results):
+    """K7 against its plain version over the whole expansion of the full
+    scene's stage-3 chains (recorded) and of the first chain-extension
+    round's chains (logged; they are longer), each in the chunks
+    refpoints.expand_and_assemble makes.  Also K7 alone on the chunk the
+    one-warp-per-chain design was timed on (the first 4,096 stage-3
+    chains, unsorted) and on the stage-3 chains in chunks of 4,096 and
+    16,384."""
+    from edgegraph3d_tpu_torch.matching import expansion, matches
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+
+    t0 = time.time()
+    mgr = matches.MatchesManager(ctx.plg_length.cpu().numpy())
+    round0, _ = rp.compute_and_follow_seeds(sfmd, ctx)
+    res = rp.sweep_seeds(None, None, ctx, mgr, precomputed=round0)
+    X, obs3, cams3, refs, seed_ids, orders = res
+    log(f"  expand_chains: the full scene's {len(X)} stage-3 points "
+        f"({time.time() - t0:.1f}s)")
+    args, extent = _first_chains(ctx, X, obs3, cams3, seed_ids, orders)
+    _, ms = cuda_time(lambda: expansion.expand_chains_compact(
+        *args, extent=extent), 5)
+    log(f"  expand_chains first 4096 chains, unsorted: "
+        f"chains by tile bucket {tile_histogram(extent)} kernel_ms={ms:.4f}")
+    del args
+    for size in (4096, 16384):           # the main path's chunk is 8,192
+        chunks = [(a, e) for _, a, e in rp.chain_chunks(
+            ctx, X, obs3, cams3, seed_ids, orders, chain_chunk=size)]
+        _, ms = cuda_time(lambda: [expansion.expand_chains_compact(
+            *a, extent=e) for a, e in chunks], 5)
+        log(f"  expand_chains stage 3 in chunks of {size} chains: "
+            f"{len(chunks)} launches, kernel_ms={ms:.4f}")
+    del chunks
+    mism, K, err, ms, pms, work = check_expansion(
+        ctx, "stage 3", rp.chain_chunks(ctx, X, obs3, cams3, seed_ids,
+                                        orders))
+    record_into(results, "expand_chains", mism, K, err, ms, pms,
+                COORD_TOL_PX, exact=True, work=work)
+
+    # the chain extension's chains: expand stage 3 in full, then capture
+    # the points the first extension round hands to expand_and_assemble
+    pts = rp.expand_and_assemble(ctx, *res)
+    seen = []
+    real = rp.expand_and_assemble
+
+    def capture(ctx_, X_, obs3_, cams3_, refs_, seed_ids_, orders_, *a,
+                **kw):
+        seen.append((X_, obs3_, cams3_, seed_ids_, orders_))
+        return real(ctx_, X_, obs3_, cams3_, refs_, seed_ids_, orders_, *a,
+                    **kw)
+
+    rp.expand_and_assemble = capture
+    try:
+        rp._extend_once(ctx, pts, mgr)
+    finally:
+        rp.expand_and_assemble = real
+    if not seen:
+        fail("the chain extension expanded no points")
+    mism, K, _, _, _, _ = check_expansion(ctx, "extension",
+                                          rp.chain_chunks(ctx, *seen[0]))
+    if mism:
+        fail(f"expand_chains extension: {mism} of {K} rows differ")
 
 
 # ----------------------------------------------------------------------
@@ -659,8 +849,18 @@ def run_main_path(name, scene, max_starting_views, stages=(1, 2, 3),
                                                 run_pipeline)
     from edgegraph3d_tpu_torch.quality import quality_metrics
 
+    from edgegraph3d_tpu_torch.matching import expansion
+
     sfmd, edges, curves = scene
     cfg = config or bench_config()
+    k7_calls = []
+    k7 = expansion.expand_chains_compact
+
+    def counted_k7(*a, extent):
+        k7_calls.append((a[-2], tile_histogram(extent)))
+        return k7(*a, extent=extent)
+
+    expansion.expand_chains_compact = counted_k7
     with tempfile.TemporaryDirectory() as tmp:
         if via_files:
             _write_scene_files(tmp, sfmd, edges)
@@ -683,6 +883,7 @@ def run_main_path(name, scene, max_starting_views, stages=(1, 2, 3),
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(kernels.LAUNCHES)
+        expansion.expand_chains_compact = k7
         if via_files:
             with open(os.path.join(work, "stats.json")) as f:
                 counts = json.load(f)["counts"]
@@ -703,6 +904,7 @@ def run_main_path(name, scene, max_starting_views, stages=(1, 2, 3),
     log(f"{name} stage counts: {json.dumps(counts)}")
     log(f"{name} quality: {json.dumps(qual)}")
     log(f"{name} launches: {json.dumps(launches)}")
+    log(f"{name} K7 calls (chains, chains by tile bucket): {k7_calls}")
     if qual["edge_points"] == 0 or not qual["coverage"] >= 0.9 \
             or not qual["med_dist3d"] <= 0.01:
         fail(f"{name}: quality gate (edge_points > 0, coverage >= 0.9, "
@@ -785,5 +987,49 @@ def main() -> int:
     return 0
 
 
+def time_k7_chunk(root: str) -> int:
+    """K7 alone on the first 4,096 stage-3 chains of the full scene
+    (unsorted, the chunk both K7 designs run), for the port checkout at
+    `root`: first after one warm-up call (the yardstick of earlier
+    versions of this script), then with `cuda_time`'s 0.25 s warm-up.
+    Prints one JSON line with both times and a digest of the outputs."""
+    import inspect
+
+    import torch
+    sys.path.insert(0, os.path.abspath(root))
+    from edgegraph3d_tpu_torch import kernels
+    from edgegraph3d_tpu_torch.matching import expansion, matches
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
+    if not torch.cuda.is_available():
+        fail("no CUDA GPU")
+    kernels.build()
+    kernels.lib()
+    sfmd, edges, _ = full_scene()
+    cfg = bench_config()
+    ctx = rp.build_context(sfmd, extract_plgs(edges, cfg), cfg,
+                           device="cuda")
+    mgr = matches.MatchesManager(ctx.plg_length.cpu().numpy())
+    round0, _ = rp.compute_and_follow_seeds(sfmd, ctx)
+    X, obs3, cams3, _, seed_ids, orders = rp.sweep_seeds(
+        None, None, ctx, mgr, precomputed=round0)
+    args, extent = _first_chains(ctx, X, obs3, cams3, seed_ids, orders)
+    params = inspect.signature(expansion.expand_chains_compact).parameters
+    kw = {"extent": extent} if "extent" in params else {}
+    run = lambda: expansion.expand_chains_compact(*args, **kw)
+    _, ms_one = cuda_time(run, 5, warm_s=0.0)
+    (Xk, xyk, okk), ms = cuda_time(run, 5)
+    log(json.dumps({
+        "root": root, "source": expansion.__file__, "card": card_name(),
+        "chains": args[-2], "points": int(Xk.shape[0]),
+        "ms_after_one_warmup_call": ms_one, "ms": ms,
+        "out_ok_sum": int(okk.sum()),
+        "out_xy_sum": float(xyk.double().sum()),
+        "X_sum": float(Xk.double().sum())}))
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-k7-chunk":
+        sys.exit(time_k7_chunk(sys.argv[2]))
     sys.exit(main())

@@ -53,10 +53,11 @@ _SIGNATURES = {
     # pl, seg, t, xy, dist, valid, stream
     "eg3d_grid_topm": [_P, _I, _I, _I, _I, _P, _P, _I, _F, _F, _I,
                        _P, _P, _P, _P, _P, _P, _P],
-    # grids, V, GH, GW, Kc, view, pts, lines, radius, Q, cell, M,
-    # use_excl, excl_cos, pl, seg, t, xy, dist, valid, stream
-    "eg3d_epipolar_topm": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _I,
-                           _I, _F, _P, _P, _P, _P, _P, _P, _P],
+    # grids, V, GH, GW, Kc, view, pts, lines, radius, order (nullable),
+    # Q, cell, M, one_thread, use_excl, excl_cos, pl, seg, t, xy, dist, valid,
+    # stream
+    "eg3d_epipolar_topm": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _F,
+                           _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P],
     # P_mats, V, cams, xy, mask, N, O, X0 (nullable), max_iters,
     # epsilon, accept_mse, det_min, X, mse, valid, stream
     "eg3d_triangulate_gn": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _F, _F, _F,
@@ -76,11 +77,12 @@ _SIGNATURES = {
     "eg3d_group_seed_sample": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _F,
                                _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # grids, V, GH, GW, Kc, cell, P_mats, F_table, obs3, cams3, slot_k,
-    # chain_valid, C, T, Omax, tol, epipolar, qp_cos, gn_iters, gn_eps,
-    # accept_mse, det_min, X, cam_buf, obs_x, obs_y, out_xy, out_ok, stream
+    # chain_valid, order, n8, n16, n32, n64, T, Omax, tol, epipolar,
+    # qp_cos, gn_iters, gn_eps, accept_mse, det_min, X, cam_buf, obs_x,
+    # obs_y, out_xy, out_ok, stream
     "eg3d_expand_chains": [_P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _F, _I, _F, _I, _F, _F, _F,
-                           _P, _P, _P, _P, _P, _P, _P],
+                           _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _F,
+                           _F, _F, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -173,9 +175,10 @@ def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def require(t, name: str, dtype, shape=None) -> None:
+def require(t, name: str, dtype, shape=None, align: int = 1) -> None:
     """Wrapper-side argument check for a CUDA launch: device, dtype,
-    contiguity and (optionally) shape."""
+    contiguity, (optionally) shape, and the data pointer's alignment in
+    bytes."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -185,3 +188,5 @@ def require(t, name: str, dtype, shape=None) -> None:
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: expected data aligned to {align} bytes")

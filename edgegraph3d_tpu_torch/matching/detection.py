@@ -8,7 +8,9 @@ Port of edgegraph3d_tpu/matching/detection.py.  Two hand kernels:
   * K2 `epipolar_topm_query` (csrc/epipolar_topm.cu) — crossings of each
     query's epipolar line with the segments of the 5x5 cells around its
     observation, within a per-query radius, top-M distinct polylines
-    (detect_epipolar_correspondences).
+    (detect_epipolar_correspondences).  A group of 8 lanes serves one
+    query, and the queries are visited in a stable view-major order
+    computed on the device (`_view_major_order`).
 
 Both take a whole [V, GH, GW, K, 6] grid stack plus a per-query view
 index, so one launch serves every view.  The plain-torch twins
@@ -150,7 +152,8 @@ def _out_ptrs(out: Candidates):
 def _check_grid_args(grids, view, pts):
     V, GH, GW, K, _ = grids.shape
     Q = pts.shape[0]
-    kernels.require(grids, "grids", torch.float32, (V, GH, GW, K, 6))
+    kernels.require(grids, "grids", torch.float32, (V, GH, GW, K, 6),
+                    align=8)
     kernels.require(view, "view", torch.int32, (Q,))
     kernels.require(pts, "pts", torch.float32, (Q, 2))
     return V, GH, GW, K, Q
@@ -179,6 +182,16 @@ def grid_topm_query(grids: torch.Tensor, view: torch.Tensor,
     return out
 
 
+def _view_major_order(view, V: int):
+    """[Q] int32: the queries in a stable order by view, computed on the
+    device.  It only schedules K2's reads; every result is written at
+    its query's own index.  (Ordering by grid cell within a view as well
+    measured no faster on the H100, and its wider sort key costs three
+    times the sort; PERF.md.)"""
+    key = view.to(torch.int16 if V <= 2 ** 15 else torch.int32)
+    return torch.argsort(key, stable=True).to(torch.int32)
+
+
 def epipolar_topm_query(grids: torch.Tensor, view: torch.Tensor,
                         pts: torch.Tensor, lines: torch.Tensor,
                         radius: torch.Tensor, cell: float, M: int,
@@ -199,9 +212,11 @@ def epipolar_topm_query(grids: torch.Tensor, view: torch.Tensor,
     if Q == 0:
         return out
     use = exclude_parallel_cos is not None
+    order = _view_major_order(view, V)
     rc = kernels.lib().eg3d_epipolar_topm(
         grids.data_ptr(), V, GH, GW, K, view.data_ptr(), pts.data_ptr(),
-        lines.data_ptr(), radius.data_ptr(), Q, float(cell), M, int(use),
+        lines.data_ptr(), radius.data_ptr(), order.data_ptr(), Q,
+        float(cell), M, 0, int(use),
         float(exclude_parallel_cos) if use else 0.0, *_out_ptrs(out),
         kernels.stream_of(pts))
     kernels.check(rc, "epipolar_topm_query")

@@ -11,7 +11,10 @@ is re-validated by a warm-started GN over all the point's observations
 view.
 
 On the card the whole view loop of a chunk is kernel K7
-`expand_chains` (csrc/expand_chains.cu), one launch per call.  The plain
+`expand_chains` (csrc/expand_chains.cu), one launch per call: each chain
+gets a tile of 8, 16 or 32 lanes (or 32 lanes with two slots each) by
+its slot extent, and the wrapper hands the chains over bucketed by that
+extent (`tile_buckets`), which callers know on the host.  The plain
 version `_expand_chains_compact_plain` is the same loop in torch around
 the K1 / K2 / K3 wrappers; `expand_chains_compact` takes it for CPU
 tensors only.  The dense twin expand_chains_sweep is not ported
@@ -105,9 +108,12 @@ def _initial_outputs(obs3, cam_rows, item_ok, V: int):
 def _expand_chains_compact_plain(plg_coords, grids, P_mats, F_table,
                                  cell: float, X, obs3, cams3, chain_idx,
                                  t_idx, item_ok, chain_valid,
-                                 cfg: EdgeGraphConfig, C: int, T: int):
+                                 cfg: EdgeGraphConfig, C: int, T: int,
+                                 extent=None):
     """Plain version of K7: the view loop in torch around the K1 / K2 /
-    K3 wrappers, one host sync per view."""
+    K3 wrappers, one host sync per view.  It needs no tile buckets and
+    ignores `extent`, which it accepts so that it can stand in for the
+    wrapper (profile_run.py --expansion plain swaps it in)."""
     V = P_mats.shape[0]
     K = X.shape[0]
     dev = X.device
@@ -199,24 +205,42 @@ def _chain_slots(chain_idx, t_idx, item_ok, C: int, T: int):
     return slots[:C * T].view(C, T)
 
 
+#: K7's tile buckets: a chain of at most TILE_SLOTS[b] slots takes a tile
+#: of 8, 16 or 32 lanes (one slot each), or 32 lanes with two slots each
+TILE_SLOTS = (8, 16, 32, 64)
+
+
+def tile_buckets(extent: np.ndarray):
+    """(order [C] int32, counts [4]): the chains in stable bucket order
+    and the number in each bucket, from each chain's slot extent (1 +
+    its last slot holding a point or marked valid; 0 for none)."""
+    b = np.searchsorted(TILE_SLOTS, np.asarray(extent))
+    if len(b) and b.max() >= len(TILE_SLOTS):
+        raise ValueError("expand_chains: a chain extent above 64 slots")
+    return (np.argsort(b, kind="stable").astype(np.int32),
+            np.bincount(b, minlength=len(TILE_SLOTS)))
+
+
 def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
                           X, obs3, cams3, chain_idx, t_idx, item_ok,
-                          chain_valid, cfg: EdgeGraphConfig, C: int, T: int):
+                          chain_valid, cfg: EdgeGraphConfig, C: int, T: int,
+                          extent: np.ndarray):
     """Expand K chain points (flat, each at slot (chain_idx, t_idx) of a
     [C, T] chain layout, one point per slot) to all views.
 
     X [K,3], obs3 [K,3,2] tuple-view observations, cams3 [C,3] i32,
     chain_idx / t_idx [K] (in range), item_ok [K], chain_valid [C,T].
-    Returns (X' [K,3], out_xy [K,V,2], out_ok [K,V]).  CUDA tensors
-    launch kernel K7 once (T <= 64); CPU tensors take the plain
-    version."""
+    `extent` [C] (host) is each chain's slot extent (see tile_buckets),
+    which the caller knows without reading the device.  Returns (X' [K,3],
+    out_xy [K,V,2], out_ok [K,V]).  CUDA tensors launch kernel K7 once
+    (T <= 64); CPU tensors take the plain version."""
     if X.device.type == "cpu":
         return _expand_chains_compact_plain(
             plg_coords, grids, P_mats, F_table, cell, X, obs3, cams3,
             chain_idx, t_idx, item_ok, chain_valid, cfg, C, T)
     if not 1 <= T <= 64:
         raise ValueError(f"expand_chains: chains of T={T} slots (kernel K7 "
-                         f"takes T <= 64, one warp per chain)")
+                         f"takes T <= 64)")
     V, GH, GW, Kc, _ = grids.shape
     K = X.shape[0]
     Omax = min(V, max(cfg.max_obs_per_point, 4))
@@ -224,7 +248,8 @@ def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
     grids, P_mats, F_table, obs3, cams3, chain_valid = (
         t.contiguous() for t in (grids, P_mats, F_table, obs3, cams3,
                                  chain_valid))
-    kernels.require(grids, "grids", torch.float32, (V, GH, GW, Kc, 6))
+    kernels.require(grids, "grids", torch.float32, (V, GH, GW, Kc, 6),
+                    align=8)
     kernels.require(P_mats, "P_mats", torch.float32, (V, 3, 4))
     kernels.require(F_table, "F_table", torch.float32, (V, V, 3, 3))
     kernels.require(X, "X", torch.float32, (K, 3))
@@ -236,21 +261,27 @@ def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
                                       item_ok, V)
     if K == 0 or C == 0:
         return X, out_xy, out_ok
+    if len(extent) != C:
+        raise ValueError(f"expand_chains: extent of {len(extent)} chains, "
+                         f"expected {C}")
     slots = _chain_slots(chain_idx, t_idx, item_ok, C, T)
+    order_np, counts = tile_buckets(extent)
+    order = torch.as_tensor(order_np, device=dev)
     cam_buf = torch.empty((K, Omax), dtype=torch.int32, device=dev)
     obs_x = torch.empty((K, Omax), dtype=torch.float32, device=dev)
     obs_y = torch.empty((K, Omax), dtype=torch.float32, device=dev)
     rc = kernels.lib().eg3d_expand_chains(
         grids.data_ptr(), V, GH, GW, Kc, float(cell), P_mats.data_ptr(),
         F_table.data_ptr(), obs3.data_ptr(), cams3.data_ptr(),
-        slots.data_ptr(), chain_valid.data_ptr(), C, T, Omax,
+        slots.data_ptr(), chain_valid.data_ptr(), order.data_ptr(),
+        *(int(n) for n in counts), T, Omax,
         float(math.sqrt(cfg.expand_max_projection_distsq)),
         int(cfg.expand_correspondence_mode == "epipolar"),
         float(cfg.quasiparallel_cos),
         cfg.follow_gn_iters, float(cfg.gn_epsilon),
-        float(cfg.match_gn_max_mse), 1e-5, X.data_ptr(), cam_buf.data_ptr(),
-        obs_x.data_ptr(), obs_y.data_ptr(), out_xy.data_ptr(),
-        out_ok.data_ptr(), kernels.stream_of(X))
+        float(cfg.match_gn_max_mse), 1e-5, X.data_ptr(),
+        cam_buf.data_ptr(), obs_x.data_ptr(), obs_y.data_ptr(),
+        out_xy.data_ptr(), out_ok.data_ptr(), kernels.stream_of(X))
     kernels.check(rc, "expand_chains")
     kernels.LAUNCHES["expand_chains"] += 1
     return X, out_xy, out_ok

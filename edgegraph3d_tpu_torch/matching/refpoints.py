@@ -539,6 +539,42 @@ def sweep_seeds(seeds_np: dict | None, seed_ref: np.ndarray | None,
             np.concatenate(all_seed), np.concatenate(all_order))
 
 
+def chain_chunks(ctx: MatchingContext, X, obs3, cams3, seed_ids, orders,
+                 chain_t: int = 64, chain_chunk: int | None = None):
+    """The swept chains as expand_chains_compact takes them, chunk by
+    chunk: yields (rows, args, extent), `rows` the flat points of the
+    chunk in slot order.  Chains are sorted by length (results are per
+    chain, so the order changes no output): each chunk then holds mostly
+    one of K7's tile buckets."""
+    from edgegraph3d_tpu_torch.matching import expansion
+
+    dev = ctx.device
+    gather, vld = expansion.group_chains(seed_ids, orders, max_t=chain_t)
+    extent = vld.sum(1)
+    by_len = np.argsort(extent, kind="stable")
+    gather, vld, extent = gather[by_len], vld[by_len], extent[by_len]
+    X32 = np.asarray(X, np.float32)
+    obs3_32 = np.asarray(obs3, np.float32)
+    if chain_chunk is None:
+        chain_chunk = 8192 if ctx.on_cuda else 256
+    for lo in range(0, len(gather), chain_chunk):
+        hi = min(lo + chain_chunk, len(gather))
+        gi = gather[lo:hi]
+        vl = vld[lo:hi]
+        kidx = np.flatnonzero(vl.reshape(-1))
+        rows = gi.reshape(-1)[kidx]
+        yield rows, (
+            ctx.plg_coords, ctx.grids, ctx.P_mats, ctx.F_table, ctx.cell,
+            torch.as_tensor(X32[rows], device=dev),
+            torch.as_tensor(obs3_32[rows], device=dev),
+            torch.as_tensor(cams3[gi[:, 0]].astype(np.int32), device=dev),
+            torch.as_tensor((kidx // chain_t).astype(np.int64), device=dev),
+            torch.as_tensor((kidx % chain_t).astype(np.int64), device=dev),
+            torch.ones(len(kidx), dtype=torch.bool, device=dev),
+            torch.as_tensor(vl, device=dev), ctx.config, hi - lo,
+            chain_t), extent[lo:hi]
+
+
 def expand_and_assemble(ctx: MatchingContext, X, obs3, cams3, refs,
                         seed_ids, orders, chain_t: int = 64,
                         chain_chunk: int | None = None) -> EdgePoints:
@@ -547,36 +583,16 @@ def expand_and_assemble(ctx: MatchingContext, X, obs3, cams3, refs,
     assembly.  Point coordinates take the per-view re-refined values."""
     from edgegraph3d_tpu_torch.matching import expansion
 
-    cfg = ctx.config
-    dev = ctx.device
     V = ctx.P_mats.shape[0]
     Np = len(X)
     if Np == 0:
         return _empty_points(V)
-    gather, vld = expansion.group_chains(seed_ids, orders, max_t=chain_t)
-    C = len(gather)
     obs_xy = np.zeros((Np, V, 2), dtype=np.float32)
     obs_mask = np.zeros((Np, V), dtype=bool)
     X_out = np.asarray(X, np.float64).copy()
-    X32 = np.asarray(X, np.float32)
-    obs3_32 = np.asarray(obs3, np.float32)
-    if chain_chunk is None:
-        chain_chunk = 4096 if ctx.on_cuda else 256
-    for lo in range(0, C, chain_chunk):
-        hi = min(lo + chain_chunk, C)
-        gi = gather[lo:hi]
-        vl = vld[lo:hi]
-        kidx = np.flatnonzero(vl.reshape(-1))
-        rows = gi.reshape(-1)[kidx]
-        Xr, oxy, ook = expansion.expand_chains_compact(
-            ctx.plg_coords, ctx.grids, ctx.P_mats, ctx.F_table, ctx.cell,
-            torch.as_tensor(X32[rows], device=dev),
-            torch.as_tensor(obs3_32[rows], device=dev),
-            torch.as_tensor(cams3[gi[:, 0]].astype(np.int32), device=dev),
-            torch.as_tensor((kidx // chain_t).astype(np.int64), device=dev),
-            torch.as_tensor((kidx % chain_t).astype(np.int64), device=dev),
-            torch.ones(len(kidx), dtype=torch.bool, device=dev),
-            torch.as_tensor(vl, device=dev), cfg, hi - lo, chain_t)
+    for rows, args, extent in chain_chunks(ctx, X, obs3, cams3, seed_ids,
+                                           orders, chain_t, chain_chunk):
+        Xr, oxy, ook = expansion.expand_chains_compact(*args, extent=extent)
         X_out[rows] = Xr.cpu().numpy()
         obs_xy[rows] = oxy.cpu().numpy()
         obs_mask[rows] = ook.cpu().numpy()

@@ -22,6 +22,14 @@ TPU-native redesign of the reference's sequential pixel scans
            crossing), split long loops, smooth-length component filter
            (parity: PolyLineGraph2DHMapImpl::optimize order,
             polyline_graph_2d_hmap_impl.cpp:255-266)
+
+The production path (`extract_plg(use_native=True)`) runs stages 1-4 in
+C++ (native/extraction.cpp) and raises when that library cannot be built
+or run.  This differs on purpose from the JAX package, which falls back
+to the numpy twin in silence: the twin's polylines differ
+(PARITY_EXTRACTION.md), so a failed build under concurrent first use
+would change the output without a word.  The numpy twin runs only when
+the caller asks for it (`use_native=False`).
 """
 
 from __future__ import annotations
@@ -632,15 +640,14 @@ def optimize_chains(chains: list[np.ndarray],
 # ----------------------------------------------------------------------
 
 def extract_chains_native(mask: np.ndarray,
-                          config: EdgeGraphConfig) -> list[np.ndarray] | None:
-    """C++ fast path for stages 1-4 (edgegraph3d_tpu/native/extraction.cpp);
-    returns None when the native library is unavailable."""
+                          config: EdgeGraphConfig) -> list[np.ndarray]:
+    """C++ fast path for stages 1-4 (native/extraction.cpp).  Raises
+    RuntimeError when the library cannot be built or loaded, or when the
+    call fails."""
     import ctypes
 
     from edgegraph3d_tpu_torch.native import get_extraction_lib
     lib = get_extraction_lib()
-    if lib is None:
-        return None
     m = np.ascontiguousarray(mask.astype(np.uint8))
     H, W = m.shape
     max_coords = int(m.sum()) * 2 + 16
@@ -660,7 +667,8 @@ def extract_chains_native(mask: np.ndarray,
         offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         max_chains, ctypes.byref(n_chains), ctypes.byref(n_coords))
     if rc != 0:
-        return None
+        raise RuntimeError(f"native extraction failed: eg3d_extract_chains "
+                           f"returned {rc}")
     nc = n_chains.value
     return [coords[offsets[i]:offsets[i + 1]].copy() for i in range(nc)]
 
@@ -672,14 +680,16 @@ def extract_plg(edge_image: np.ndarray,
     (parity: convertEdgeImagePolyLineGraph_optimized,
     convert_edge_images_pixel_to_segment.cpp:868-892).
 
-    The C++ fast path (native/extraction.cpp) is used when available;
-    the numpy implementation below defines the behavior and remains the
-    fallback."""
+    With use_native (the default, the production path) the optimized
+    chains come from the C++ fast path (native/extraction.cpp), and a
+    failure to build or run it raises: it never falls back to the numpy
+    twin below, whose polylines differ (PARITY_EXTRACTION.md).  The numpy
+    twin runs when the caller passes use_native=False, and for
+    optimize=False, which the C++ path does not implement."""
     mask = edge_image > 0 if edge_image.dtype != bool else edge_image
-    chains = None
     if optimize and use_native:
         chains = extract_chains_native(mask, config)
-    if chains is None:
+    else:
         mask = remove_useless_corners(mask)
         node_xy, edges = build_pixel_edges(
             mask, loop_check_dist=config.loop_check_dist)

@@ -16,6 +16,7 @@ from edgegraph3d_tpu.core import sfm as sfm_io
 from edgegraph3d_tpu.core import synthetic
 from edgegraph3d_tpu_torch.cli import edge_graph_3d as t_cli
 from edgegraph3d_tpu_torch.cli import filter as t_filter
+from test_torch_native import require_jax_native_lib
 
 
 def _same_json(a_path, b_path):
@@ -40,6 +41,7 @@ def _same_json(a_path, b_path):
 
 @pytest.fixture(scope="module")
 def scene_files(tmp_path_factory):
+    require_jax_native_lib()
     root = tmp_path_factory.mktemp("cube")
     sfmd, imgs, _ = synthetic.make_cube_scene(
         n_cams=8, n_refpoints_per_edge=8, width=320, height_px=240,

@@ -343,7 +343,8 @@ def test_group_seed_sample_kernel_matches_plain(scene, groups):
 @pytest.fixture(scope="module")
 def chains(scene):
     """The scene's swept stage-3 chains (CPU context), one chunk in the
-    layout expand_and_assemble hands to expand_chains_compact."""
+    layout expand_and_assemble hands to expand_chains_compact: (C, T,
+    each chain's slot extent, tensors)."""
     sfmd, ctx = scene
     cpu = _cpu_ctx(ctx)
     mgr = matches.MatchesManager(cpu.plg_length.numpy())
@@ -357,7 +358,7 @@ def chains(scene):
     rows = gather.reshape(-1)[kidx]
     dev = ctx.device
     as_t = lambda a: torch.as_tensor(a, device=dev)
-    return len(gather), T, (
+    return len(gather), T, vld.sum(1), (
         as_t(np.asarray(X, np.float32)[rows]),
         as_t(np.asarray(obs3, np.float32)[rows]),
         as_t(cams3[gather[:, 0]].astype(np.int32)),
@@ -367,16 +368,16 @@ def chains(scene):
 
 @pytest.mark.parametrize("mode", ["closest", "epipolar"])
 def test_expand_chains_kernel_matches_plain(scene, chains, mode):
-    """K7 (one launch) against its plain version (the view loop around
-    K1 / K2 / K3) on the card: the same acceptances, out_xy and X
-    bit-equal or within 1e-6 relative."""
+    """K7 (one launch over every tile bucket) against its plain version
+    (the view loop around K1 / K2 / K3) on the card: the same
+    acceptances, out_xy and X bit-equal or within 1e-6 relative."""
     _, ctx = scene
-    C, T, tensors = chains
+    C, T, extent, tensors = chains
     cfg = ctx.config.replace(expand_correspondence_mode=mode)
     args = (ctx.plg_coords, ctx.grids, ctx.P_mats, ctx.F_table, ctx.cell,
             *tensors, cfg, C, T)
     n0 = kernels.LAUNCHES["expand_chains"]
-    Xk, xyk, okk = expansion.expand_chains_compact(*args)
+    Xk, xyk, okk = expansion.expand_chains_compact(*args, extent)
     assert kernels.LAUNCHES["expand_chains"] == n0 + 1
     Xp, xyp, okp = expansion._expand_chains_compact_plain(*args)
     torch.cuda.synchronize()
@@ -384,6 +385,162 @@ def test_expand_chains_kernel_matches_plain(scene, chains, mode):
     assert torch.equal(okk, okp)
     torch.testing.assert_close(xyk, xyp, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(Xk, Xp, rtol=1e-6, atol=1e-6)
+
+
+LENGTHS = (1, 2, 3, 8, 9, 16, 17, 32, 33, 64)
+
+
+def _regrouped(chains):
+    """The fixture's chain points, in chain order and cycled as often as
+    needed, cut into new chains of every tile bucket's edge lengths
+    (LENGTHS); each new chain takes the tuple views of its first point's
+    chain."""
+    C, T, _, (X, obs3, cams3, ci, ti, ok, vld) = chains
+    order = torch.argsort(ci * T + ti)
+    lens = list(LENGTHS)
+    K = sum(lens)
+    rows = order[torch.arange(K, device=order.device) % len(order)]
+    new_c = np.repeat(np.arange(len(lens)), lens)
+    new_t = np.concatenate([np.arange(n) for n in lens])
+    first = rows[torch.as_tensor(np.cumsum([0] + lens[:-1]),
+                                 device=rows.device)]
+    dev = X.device
+    valid = torch.zeros((len(lens), T), dtype=torch.bool, device=dev)
+    valid[torch.as_tensor(new_c, device=dev),
+          torch.as_tensor(new_t, device=dev)] = True
+    return len(lens), T, np.asarray(lens), (
+        X[rows], obs3[rows], cams3[ci[first]],
+        torch.as_tensor(new_c, device=dev), torch.as_tensor(new_t, device=dev),
+        ok[rows], valid)
+
+
+@pytest.mark.parametrize("mode", ["closest", "epipolar"])
+def test_expand_chains_every_tile_width(scene, chains, mode):
+    """Chains of 1, 2, 3, 8, 9, 16, 17, 32, 33 and 64 points in one call
+    (all four tile buckets, each at its edges): K7, in one launch,
+    bit-equal to its plain version."""
+    _, ctx = scene
+    C, T, lens, tensors = _regrouped(chains)
+    cfg = ctx.config.replace(expand_correspondence_mode=mode)
+    args = (ctx.plg_coords, ctx.grids, ctx.P_mats, ctx.F_table, ctx.cell,
+            *tensors, cfg, C, T)
+    ref = expansion._expand_chains_compact_plain(*args)
+    n0 = kernels.LAUNCHES["expand_chains"]
+    got = expansion.expand_chains_compact(*args, lens)
+    assert kernels.LAUNCHES["expand_chains"] == n0 + 1
+    torch.cuda.synchronize()
+    assert ref[2].sum(1).max() > 3                 # views were added
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def _k2_one_thread(grids, view, pts, lines, radius, cell, M,
+                   exclude_parallel_cos=None):
+    """K2's one-thread-per-query body (the one K7's "epipolar" mode runs),
+    launched through the C entry as the wrapper launches its 8-lane body:
+    the same view-major order and outputs."""
+    grids, view, pts, lines, radius = (
+        t.contiguous() for t in (grids, view, pts, lines, radius))
+    V, GH, GW, Kc, _ = grids.shape
+    Q = len(view)
+    out = detection._empty_outputs(Q, M, pts.device)
+    if Q == 0:
+        return out
+    use = exclude_parallel_cos is not None
+    order = detection._view_major_order(view, V)
+    rc = kernels.lib().eg3d_epipolar_topm(
+        grids.data_ptr(), V, GH, GW, Kc, view.data_ptr(), pts.data_ptr(),
+        lines.data_ptr(), radius.data_ptr(), order.data_ptr(), Q,
+        float(cell), M, 1, int(use),
+        float(exclude_parallel_cos) if use else 0.0,
+        *detection._out_ptrs(out), kernels.stream_of(pts))
+    kernels.check(rc, "epipolar_topm_query")
+    return out
+
+
+def test_expand_chains_epipolar_under_both_k2_bodies(scene, chains,
+                                                     monkeypatch):
+    """K7's "epipolar" mode runs K2's one-thread body per point; its
+    plain version calls the K2 wrapper.  K7 equals the plain version with
+    K2 in its 8-lane body (the wrapper) and in its one-thread body."""
+    _, ctx = scene
+    C, T, extent, tensors = chains
+    cfg = ctx.config.replace(expand_correspondence_mode="epipolar")
+    args = (ctx.plg_coords, ctx.grids, ctx.P_mats, ctx.F_table, ctx.cell,
+            *tensors, cfg, C, T)
+    got = expansion.expand_chains_compact(*args, extent)
+    for body in ("8 lanes", "one thread"):
+        if body == "one thread":
+            monkeypatch.setattr(expansion, "epipolar_topm_query",
+                                _k2_one_thread)
+        ref = expansion._expand_chains_compact_plain(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), body
+
+
+def _tie_grid(rng, V, GH, GW, Kc=8):
+    """A grid stack with lattice endpoints, repeated polyline ids, empty
+    slots and duplicated entries: many equal distances."""
+    n = V * GH * GW * Kc
+    e = np.full((n, 6), -1.0, np.float32)
+    e[:, 0] = rng.integers(0, 12, n)
+    e[:, 1] = rng.integers(0, 4, n)
+    cy, cx = np.divmod((np.arange(n) // Kc) % (GH * GW), GW)
+    for c, base in ((2, cx), (3, cy), (4, cx), (5, cy)):
+        e[:, c] = base * 10 + rng.integers(-6, 16, n)
+    dup = rng.random(n) < 0.3
+    e[dup] = e[rng.integers(0, n, dup.sum())]
+    e[rng.random(n) < 0.2, 0] = -1
+    return e.reshape(V, GH, GW, Kc, 6)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("M", [1, 4, 8])
+def test_epipolar_topm_bodies_and_orders(scene, M, ties):
+    """K2's 8-lane body (the wrapper) and its one-thread body, on queries
+    given start-major (every view of one start side by side, as the
+    seeding issues them) and shuffled, with border queries (clamped
+    cells) and, on a lattice grid, forced distance ties: identical to the
+    plain version."""
+    _, ctx = scene
+    rng = np.random.default_rng(20 + M + ties)
+    grids = ctx.grids
+    if ties:
+        V, GH, GW, _, _ = grids.shape
+        grids = torch.as_tensor(_tie_grid(rng, V, GH, GW), device=ctx.device)
+    V, GH, GW = grids.shape[:3]
+    W, H = GW * ctx.cell, GH * ctx.cell
+    S = 600
+    starts = np.stack([rng.uniform(-8, W + 8, S),
+                       rng.uniform(-8, H + 8, S)], 1)
+    starts[:6] = [[0, 0], [W - 0.1, H - 0.1], [-4, H / 2], [W + 3, 5],
+                  [W / 2, -6], [0.5, H + 2]]
+    pts = np.repeat(starts, V, 0) + rng.normal(0, 3.0, (S * V, 2))
+    if ties:
+        pts = np.round(pts) + 0.5
+    view = np.tile(np.arange(V), S).astype(np.int32)
+    ang = rng.choice([0.0, np.pi / 2], S * V) if ties else \
+        rng.uniform(0, np.pi, S * V)
+    ab = np.stack([np.cos(ang), np.sin(ang)], 1).round(6)
+    c = -(ab * pts).sum(1) + rng.integers(-3, 4, S * V)
+    lines = np.concatenate([ab, c[:, None]], 1).astype(np.float32)
+    radius = rng.uniform(3.0, 30.0, S * V).astype(np.float32)
+    dev = ctx.device
+    as_t = lambda a: torch.as_tensor(a, device=dev)
+    a = (grids, as_t(view), as_t(pts.astype(np.float32)), as_t(lines),
+         as_t(radius), ctx.cell, M)
+    ref = detection._epipolar_topm_plain(*a)
+    perm = as_t(rng.permutation(S * V))
+    shuffled = (grids, *(t[perm] for t in a[1:5]), ctx.cell, M)
+    for body in (detection.epipolar_topm_query, _k2_one_thread):
+        got = body(*a)
+        got_s = body(*shuffled)
+        torch.cuda.synchronize()
+        for x, y, z in zip(got, ref, got_s):
+            assert torch.equal(x, y), body.__name__
+            assert torch.equal(z, y[perm]), body.__name__
+    assert ref.valid.any()
 
 
 def test_group_seeds_on_gpu_match_cpu(scene, groups):

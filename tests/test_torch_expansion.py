@@ -26,6 +26,7 @@ from edgegraph3d_tpu_torch.config import EdgeGraphConfig as TConfig
 from edgegraph3d_tpu_torch.matching import expansion as te
 from edgegraph3d_tpu_torch.matching import refpoints as tr
 from edgegraph3d_tpu_torch.ops import triangulation as tt
+from test_torch_native import require_jax_native_lib
 
 KW = dict(max_polylines_per_view=256, max_polyline_len=128,
           max_follow_steps=16)
@@ -33,6 +34,7 @@ KW = dict(max_polylines_per_view=256, max_polyline_len=128,
 
 @pytest.fixture(scope="module")
 def swept():
+    require_jax_native_lib()
     sfmd, imgs, _ = synthetic.make_cube_scene(
         n_cams=8, n_refpoints_per_edge=8, width=320, height_px=240,
         focal=400.0, seed=7)
@@ -90,7 +92,7 @@ def test_expand_chains_compact_matches_jax(swept, mode, monkeypatch):
         torch.as_tensor(X32), torch.as_tensor(o32), torch.as_tensor(cm),
         torch.as_tensor(ci), torch.as_tensor(ti),
         torch.ones(n_k, dtype=torch.bool), torch.as_tensor(vld),
-        tctx.config, C, T)
+        tctx.config, C, T, vld.sum(1))
     assert calls == [1]                 # the wrapper's CPU path is plain
     jok = np.asarray(jok)[:n_k]
     np.testing.assert_array_equal(tok.numpy(), jok)

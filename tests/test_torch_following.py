@@ -26,6 +26,7 @@ from edgegraph3d_tpu_torch.config import EdgeGraphConfig as TConfig
 from edgegraph3d_tpu_torch.matching import following as tf
 from edgegraph3d_tpu_torch.matching import matches as tm
 from edgegraph3d_tpu_torch.matching import refpoints as tr
+from test_torch_native import require_jax_native_lib
 
 KW = dict(max_polylines_per_view=256, max_polyline_len=128,
           max_follow_steps=16)
@@ -33,6 +34,7 @@ KW = dict(max_polylines_per_view=256, max_polyline_len=128,
 
 @pytest.fixture(scope="module")
 def setup():
+    require_jax_native_lib()
     sfmd, imgs, _ = synthetic.make_cube_scene(
         n_cams=8, n_refpoints_per_edge=8, width=320, height_px=240,
         focal=400.0, seed=7)

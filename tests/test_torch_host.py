@@ -25,6 +25,7 @@ from edgegraph3d_tpu_torch.filtering.density import density_filter as \
     t_density
 from edgegraph3d_tpu_torch.matching.grid import build_grids as t_grids
 from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs as t_extract
+from test_torch_native import require_jax_native_lib
 
 KW = dict(max_polylines_per_view=256, max_polyline_len=64)
 
@@ -46,6 +47,7 @@ def test_synthetic_scene_identical(scenes):
 
 
 def test_plg_extraction_identical(scenes):
+    require_jax_native_lib()
     (_, imgs, _), _ = scenes
     js = j_extract(imgs, EdgeGraphConfig().replace(**KW))
     ts = t_extract(imgs, TConfig().replace(**KW))

@@ -23,12 +23,14 @@ from edgegraph3d_tpu.pipeline import PipelineStats as JStats
 from edgegraph3d_tpu.pipeline import run_pipeline as jax_run
 from edgegraph3d_tpu_torch import pipeline as tp
 from edgegraph3d_tpu_torch.config import EdgeGraphConfig as TConfig
+from test_torch_native import require_jax_native_lib
 
 KW = dict(max_polylines_per_view=256, max_polyline_len=128)
 
 
 @pytest.fixture(scope="module")
 def cube():
+    require_jax_native_lib()
     return synthetic.make_cube_scene(n_cams=8, n_refpoints_per_edge=8,
                                      width=320, height_px=240, focal=400.0,
                                      seed=7)

@@ -28,6 +28,7 @@ from edgegraph3d_tpu_torch.matching import refpoints as trp
 from edgegraph3d_tpu_torch.ops import polyline_ops as tpo
 from edgegraph3d_tpu_torch.ops.geometry import (epipolar_line,
                                                 epipolar_line_fma)
+from test_torch_native import require_jax_native_lib
 
 KW = dict(max_polylines_per_view=256, max_polyline_len=128,
           max_follow_steps=64, closeness_max_dist_ratio=1e6)
@@ -85,6 +86,7 @@ def test_polyline_line_intersections_matches_jax():
 
 @pytest.fixture(scope="module")
 def ctxs():
+    require_jax_native_lib()
     cfg = EdgeGraphConfig().replace(**KW)
     sfmd, imgs, _ = synthetic.make_cube_scene(
         n_cams=8, n_refpoints_per_edge=8, width=320, height_px=240,
