@@ -17,7 +17,15 @@ its final `ok` line:
      K2's launch alone runs in its 8-lane body and its one-thread body
      (the one K7's "epipolar" mode runs, and K2's design before that) on
      the queries in the caller's, the view and the (view, cell) order,
-     each identical to the wrapper's result.  K5 gather_rows must be bit-equal to
+     each identical to the wrapper's result.  K3 runs its O = 3 register
+     body and its general body (O = 49, 30% of the observations present
+     at random), with the mean GN iterations and the mean of each warp's
+     slowest row logged; K4 runs both launches of one follow_seeds call
+     on the first refpoint chunk's seeds (the direction trials, GN warm
+     from the seed, T = 1; the walk, DLT + GN, max_follow_steps), each
+     against its plain twin (the walk, the GN over the live steps, the
+     cut at the first GN failure) with 0 decision mismatches allowed and
+     X within 1e-4 relative.  K5 gather_rows must be bit-equal to
      `table[rows]` at the Pallas probe's shape (int32 indices) and at
      the chain-extension shape (int64); K6 group_seed_sample runs on the
      full scene's stage-1 match sets, with 0 decision mismatches allowed.
@@ -63,6 +71,11 @@ times K7 alone on that 4,096-chain chunk with this script's `cuda_time`
 for the port checkout at ROOT (e.g. an unpacked `git archive` of an
 earlier commit), so that two versions of K7 are timed with one yardstick
 in one call; it prints one JSON line and skips every check.
+
+    python3 chip_smoke.py --time-follow ROOT
+
+does the same for K3 (phase 2's two shapes) and the follow (one
+follow_seeds call on phase 2's seeds, and each of its K4 launches).
 """
 
 from __future__ import annotations
@@ -212,29 +225,38 @@ def grid_work(grids, view, pts, cell, radius_cells):
 
 
 def gn_iterations(P_mats, cams, xy, mask, X0, max_iters, epsilon, accept,
-                  sample=4096):
-    """Mean GN iterations a point runs before it freezes or turns
-    singular, on up to `sample` evenly spaced rows: the plain solver's
-    result after k iterations equals its final one from k = first on,
-    and the point runs min(first + 1, max_iters) iterations."""
+                  warps=128):
+    """(mean, mean per-warp maximum) of the GN iterations a point runs
+    before it freezes or turns singular, on `warps` runs of 32
+    consecutive rows (a warp's rows in a one-thread-per-row launch),
+    evenly spaced: the plain solver's result after k iterations equals
+    its final one from k = first on, and the point runs min(first + 1,
+    max_iters) iterations.  A warp runs as long as its slowest row."""
     import torch
 
     from edgegraph3d_tpu_torch.ops import triangulation
     n = mask.shape[0]
     if n == 0:
-        return 0.0
-    idx = torch.arange(0, n, max(1, n // sample), device=mask.device)[:sample]
+        return 0.0, 0.0
+    dev = mask.device
+    lo = torch.arange(0, n, max(32, n // warps), device=dev)[:warps]
+    idx = (lo[:, None] + torch.arange(32, device=dev)).reshape(-1)
+    grp = torch.arange(len(idx), device=dev) // 32
+    grp, idx = grp[idx < n], idx[idx < n]
     a = (P_mats, cams[idx], xy[idx], mask[idx])
     X0s = None if X0 is None else X0[idx]
     run = lambda k: triangulation._triangulate_gn_plain(
         *a, X0s, k, epsilon, accept, 1e-5)
     Xf, mf, _ = run(max_iters)
-    first = torch.full((len(idx),), max_iters, device=mask.device)
+    first = torch.full((len(idx),), max_iters, device=dev)
     for k in range(max_iters - 1, -1, -1):
         Xk, mk, _ = run(k)
         same = (Xk == Xf).all(1) & (mk == mf)
         first = torch.where(same, k, first)
-    return float((first + 1).clamp_max(max_iters).float().mean())
+    its = (first + 1).clamp_max(max_iters).float()
+    warp_max = torch.zeros(int(grp[-1]) + 1, device=dev).scatter_reduce(
+        0, grp, its, "amax", include_self=False)
+    return float(its.mean()), float(warp_max.mean())
 
 
 def gn_flops(mask, iters, cold):
@@ -374,28 +396,14 @@ def compare_kernels(ctx, sfmd):
            work=(rows * (28 + 25 * M) + len(cells) * Kc * 24,
                  FLOPS["epipolar_entry"] * entries))
 
-    # K3, O=3 cold start (seed pairs / post-walk GN) and O=V warm start
-    # (the expansion GN), on triangulatable rows built from the scene
-    gen = torch.Generator(device=dev).manual_seed(0)
-    pts3 = torch.as_tensor(sfmd.points, dtype=torch.float32, device=dev)
-    k3_err, k3_rel, k3_mism, k3_rows, k3_ms, k3_pms = 0.0, 0.0, 0, 0, 0.0, 0.0
-    k3_bytes, k3_flops = 0.0, 0.0
-    for O, warm, iters, accept in ((3, False, cfg.gn_max_iters, 9.0),
-                                   (V, True, cfg.follow_gn_iters, 9.0)):
-        n = 1 << 20 if O == 3 else 1 << 18
-        rnd = lambda *s: torch.rand(*s, generator=gen, device=dev)
-        nrm = lambda *s: torch.randn(*s, generator=gen, device=dev)
-        Xg = pts3[(rnd(n) * len(pts3)).long().clamp_max(len(pts3) - 1)]
-        cams = torch.argsort(rnd(n, V), dim=1)[:, :O].to(torch.int32)
-        Pg = ctx.P_mats[cams.long()]                       # [n,O,3,4]
-        pr = (Pg[..., :3] * Xg[:, None, None, :]).sum(-1) + Pg[..., 3]
-        xy = pr[..., :2] / pr[..., 2:3] + nrm(n, O, 2)
-        xy[:, 0] += 25.0 * (rnd(n) < 0.2)[:, None]     # gross outliers
-        mask = rnd(n, O) < (1.0 if O == 3 else 0.3)
-        mask[:, :3] = True
-        a = (ctx.P_mats, cams, xy.contiguous(), mask)
-        X0 = (Xg + 0.01 * nrm(n, 3)) if warm else None
-        del Pg, pr
+    # K3 at its main-path callers' shapes: O = 3 cold (seed pairs, the
+    # register body) and O = V warm with 30% of the observations present
+    # at random (the outlier filter's general body)
+    k3 = dict(err=0.0, rel=0.0, mism=0, rows=0, ms=0.0, pms=0.0, bytes=0.0,
+              flops=0.0)
+    for O, warm in ((3, False), (V, True)):
+        a, X0, iters, n = k3_inputs(ctx, sfmd, O, warm)
+        accept = cfg.match_gn_max_mse
         (Xk, _, okk), ms = cuda_time(lambda: triangulation.triangulate_gn(
             *a, X0=X0, max_iters=iters, accept_mse=accept), 5)
         (Xp, _, okp), pms = cuda_time(
@@ -404,55 +412,176 @@ def compare_kernels(ctx, sfmd):
         both = okk & okp
         diff = (Xk - Xp).abs()[both]
         rel = diff / Xp.abs().clamp_min(1e-3)[both]
-        its = gn_iterations(*a, X0, iters, cfg.gn_epsilon, accept)
-        k3_bytes += V * 48 + n * O * 13 + (n * 12 if warm else 0) + n * 17
-        k3_flops += gn_flops(mask, its, cold=not warm)
-        log(f"  triangulate_gn O={O} warm={warm}: rows={n} "
+        its, warp_its = gn_iterations(*a, X0, iters, cfg.gn_epsilon, accept)
+        k3["bytes"] += V * 48 + n * O * 13 + (n * 12 if warm else 0) + n * 17
+        k3["flops"] += gn_flops(a[3], its, cold=not warm)
+        log(f"  triangulate_gn O={O} warm={warm} "
+            f"({'registers' if O == 3 else 'live observations'}): rows={n} "
             f"valid={int(okp.sum())} mean_iterations={its:.4f} "
+            f"mean_per_warp_max_iterations={warp_its:.4f} "
+            f"decision_mismatches={int((okk != okp).sum())} "
             f"kernel_ms={ms:.4f} plain_ms={pms:.4f}")
         if len(diff):
-            k3_err = max(k3_err, float(diff.max()))
-            k3_rel = max(k3_rel, float(rel.max()))
-        k3_mism += int((okk != okp).sum())
-        k3_rows += n
-        k3_ms += ms
-        k3_pms += pms
-    record("triangulate_gn", k3_mism, k3_rows, k3_err, k3_ms, k3_pms, 1e-4,
-           gated=k3_rel, work=(k3_bytes, k3_flops))
+            k3["err"] = max(k3["err"], float(diff.max()))
+            k3["rel"] = max(k3["rel"], float(rel.max()))
+        k3["mism"] += int((okk != okp).sum())
+        k3["rows"] += n
+        k3["ms"] += ms
+        k3["pms"] += pms
+        del a, X0, Xk, Xp, okk, okp
+    record("triangulate_gn", k3["mism"], k3["rows"], k3["err"], k3["ms"],
+           k3["pms"], 1e-4, gated=k3["rel"], exact=True,
+           work=(k3["bytes"], k3["flops"]))
 
-    # K4 at the follow shape: the chunk's seeds, both driving
-    # directions, after direction resolution, max_follow_steps steps
-    seeds = rp._seed_from_starts(ctx, starts, oxc, om, M)
-    st = rp._seed_tuple(seeds)
+    # K4 at the follow shape: the chunk's seeds in both driving
+    # directions, as one follow_seeds call launches it: the direction
+    # trials (warm, T = 1) and the walk (cold, max_follow_steps)
+    both, drive = follow_seed_tuples(ctx, starts, oxc, om, M)
+    k4 = dict(mism=0, lanes=0, err=0.0, rel=0.0, ms=0.0, pms=0.0, bytes=0.0,
+              flops=0.0)
+    for mode, fargs in zip(("warm", "cold"),
+                           captured_follow_walks(ctx, both, drive)):
+        args, T = fargs[:12], fargs[12]
+        got, ms = cuda_time(lambda: following.follow_walk(*fargs), 10)
+        walk, gn = following.follow_params(cfg, mode == "warm")
+        ref, pms = cuda_time(lambda: following._follow_plain(
+            *args, T, *walk, *gn), 1)
+        mism, err, rel = follow_diff(got, ref)
+        work, counts = follow_work(ctx, args, T, walk, gn, ref)
+        log(f"  follow_walk {mode}: lanes={len(args[4])} T={T} "
+            f"decision_mismatches={mism} max_abs_err={err:.3g} "
+            f"X_max_rel_err={rel:.3g} kernel_ms={ms:.4f} plain_ms={pms:.4f} "
+            f"bytes={work[0]:.6g} flops={work[1]:.6g} "
+            f"bound_ms={bound(*work)[0]:.6f} {json.dumps(counts)}")
+        for key, v in (("mism", mism), ("lanes", len(args[4])), ("ms", ms),
+                       ("pms", pms), ("bytes", work[0]), ("flops", work[1])):
+            k4[key] += v
+        k4["err"], k4["rel"] = max(k4["err"], err), max(k4["rel"], rel)
+    if k4["rel"] > 1e-4:
+        fail(f"follow_walk: X relative error {k4['rel']} > 1e-4")
+    record("follow_walk", k4["mism"], k4["lanes"], k4["err"], k4["ms"],
+           k4["pms"], COORD_TOL_PX, exact=True,
+           work=(k4["bytes"], k4["flops"]))
+    return results
+
+
+def k3_inputs(ctx, sfmd, O, warm):
+    """K3's phase-2 rows at width O, from a fixed seed: scene points seen
+    by O random cameras with 1 px noise and a fifth gross outliers; O = 3
+    all present (the seed pairs), else 30% present at random with the
+    first three always (the outlier filter's rows).  Returns ((P_mats,
+    cams, xy, mask), X0 or None, iterations, rows)."""
+    import torch
+    cfg = ctx.config
+    dev = ctx.device
+    V = ctx.P_mats.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(0 if O == 3 else 1)
+    pts3 = torch.as_tensor(sfmd.points, dtype=torch.float32, device=dev)
+    n = 1 << 20 if O == 3 else 1 << 18
+    rnd = lambda *s: torch.rand(*s, generator=gen, device=dev)
+    nrm = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    Xg = pts3[(rnd(n) * len(pts3)).long().clamp_max(len(pts3) - 1)]
+    cams = torch.argsort(rnd(n, V), dim=1)[:, :O].to(torch.int32)
+    Pg = ctx.P_mats[cams.long()]                       # [n,O,3,4]
+    pr = (Pg[..., :3] * Xg[:, None, None, :]).sum(-1) + Pg[..., 3]
+    xy = pr[..., :2] / pr[..., 2:3] + nrm(n, O, 2)
+    xy[:, 0] += 25.0 * (rnd(n) < 0.2)[:, None]     # gross outliers
+    mask = rnd(n, O) < (1.0 if O == 3 else 0.3)
+    mask[:, :3] = True
+    X0 = (Xg + 0.01 * nrm(n, 3)) if warm else None
+    iters = cfg.follow_gn_iters if warm else cfg.gn_max_iters
+    return (ctx.P_mats, cams, xy.contiguous(), mask), X0, iters, n
+
+
+def follow_seed_tuples(ctx, starts, oxc, om, M):
+    """The seeds of one refpoint chunk's starts, doubled for both driving
+    directions as follow_seeds_bidirectional doubles them: (seeds,
+    drive)."""
+    import torch
+
+    from edgegraph3d_tpu_torch.matching import following
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    st = rp._seed_tuple(rp._seed_from_starts(ctx, starts, oxc, om, M))
     S = len(st.cams)
     both = following.SeedTuple(*[torch.cat([a, a]) for a in st])
-    drive = torch.cat([torch.ones(S, dtype=torch.int32, device=dev),
-                       -torch.ones(S, dtype=torch.int32, device=dev)])
-    perm, dirs, dok = following.resolve_configuration(
-        both, ctx.plg_coords, ctx.plg_length, ctx.P_mats, ctx.F_table,
-        drive, cfg)
-    P_ = following._permute
-    wargs = (ctx.plg_coords, ctx.plg_length, ctx.F_table,
-             P_(both.cams, perm), P_(both.pl_id, perm), P_(both.seg, perm),
-             P_(both.t, perm), P_(both.xy, perm), dirs, dok,
-             cfg.max_follow_steps, cfg.follow_first_image_dist_px,
-             cfg.follow_min_dist_px, cfg.follow_max_dist_px,
-             cfg.quasiparallel_cos, cfg.quasiparallel_dist_px)
-    got, ms = cuda_time(lambda: following.follow_walk(*wargs), 10)
-    ref, pms = cuda_time(lambda: following._walk_plain(*wargs), 1)
-    live = ref.alive & got.alive
-    bad = ((got.alive != ref.alive).any(1)
-           | ((got.seg != ref.seg).any(-1) & live).any(1))
-    err = float((got.obs - ref.obs).abs()[live].max()) if live.any() else 0.0
-    live_steps = int(ref.alive.sum())
-    log(f"  follow_walk: lanes={2 * S} live_steps={live_steps}")
-    _, Pn, L, _ = ctx.plg_coords.shape
-    polys = torch.unique(wargs[3].long() * Pn + wargs[4].long()).numel()
-    T = cfg.max_follow_steps
-    record("follow_walk", int(bad.sum()), 2 * S, err, ms, pms, COORD_TOL_PX,
-           work=(polys * (8 * L + 4) + 2 * S * (85 + 49 * T)
-                 + V * V * 36, FLOPS["walk_step"] * live_steps))
-    return results
+    ones = torch.ones(S, dtype=torch.int32, device=ctx.device)
+    return both, torch.cat([ones, -ones])
+
+
+def captured_follow_walks(ctx, seeds, drive):
+    """The arguments of the follow_walk calls of one follow_seeds call on
+    `seeds`: [the direction trials', the walk's]."""
+    from edgegraph3d_tpu_torch.matching import following
+    calls = []
+    real = following.follow_walk
+
+    def spy(*a):
+        calls.append(a)
+        return real(*a)
+
+    following.follow_walk = spy
+    try:
+        following.follow_seeds(seeds, ctx.plg_coords, ctx.plg_length,
+                               ctx.P_mats, ctx.F_table, drive, ctx.config,
+                               ctx.config.max_follow_steps)
+    finally:
+        following.follow_walk = real
+    if len(calls) != 2:
+        fail(f"follow_seeds made {len(calls)} follow_walk calls, not 2")
+    return calls
+
+
+def follow_diff(got, ref):
+    """(lanes whose decisions differ, max coordinate error of the others,
+    max relative X error of their accepted steps) of two Follows."""
+    bad = ((got.valid != ref.valid).any(1) | (got.n_steps != ref.n_steps)
+           | (got.final_seg != ref.final_seg).any(1)
+           | (got.seg != ref.seg).flatten(1).any(1))
+    ok = ~bad
+    top = lambda x: float(x.max()) if x.numel() else 0.0
+    err = max(top((got.obs - ref.obs).abs()[ok]),
+              top((got.t - ref.t).abs()[ok]),
+              top((got.final_t - ref.final_t).abs()[ok]))
+    d = (got.X - ref.X).abs() / ref.X.abs().clamp_min(1e-3)
+    return int(bad.sum()), err, top(d[ref.valid & ok[:, None]])
+
+
+def follow_work(ctx, args, T, walk, gn, ref):
+    """(bytes, f32 operations) of one K4 call from this run's counts, and
+    the counts: the walk steps tried, the GN runs (one per walked step up
+    to the cut) and their mean iterations."""
+    import torch
+
+    from edgegraph3d_tpu_torch.matching import following
+    coords, lengths, F_table, P_mats, cams, pl = args[:6]
+    active0, X0 = args[10], args[11]
+    w = following._walk_plain(coords, lengths, F_table, *args[4:11], T, *walk)
+    S = len(cams)
+    ar = torch.arange(T, device=cams.device)
+    ran_gn = w.alive & (ar[None, :] <= ref.n_steps[:, None])
+    last = ref.n_steps.clamp_max(T - 1).long()
+    walk_failed = (active0 & (ref.n_steps < T)
+                   & ~w.alive[torch.arange(S, device=cams.device), last])
+    tried = int(ran_gn.sum()) + int(walk_failed.sum())
+    rows = torch.nonzero(ran_gn.reshape(-1)).flatten()
+    lane = rows // T
+    its, _ = gn_iterations(
+        P_mats, cams[lane], w.obs.reshape(S * T, 3, 2)[rows],
+        torch.ones((len(rows), 3), dtype=torch.bool, device=cams.device),
+        None if X0 is None else X0[lane], *gn)
+    n_gn = len(rows)
+    flops = (FLOPS["walk_step"] * tried
+             + n_gn * its * (3 * FLOPS["gn_obs"] + FLOPS["gn_iter"]))
+    if X0 is None:
+        flops += n_gn * (3 * FLOPS["dlt_obs"] + FLOPS["dlt_solve"])
+    V, Pn, L, _ = coords.shape
+    polys = torch.unique(cams.long() * Pn + pl.long()).numel()
+    n_bytes = (polys * (8 * L + 4) + S * (85 + 28 + (12 if X0 is not None
+                                                       else 0))
+               + S * T * 61 + V * 48 + V * V * 36)
+    return (n_bytes, flops), dict(walk_steps=tried, gn_runs=n_gn,
+                                  mean_gn_iterations=round(its, 4),
+                                  accepted=int(ref.valid.sum()))
 
 
 def compare_stage12_kernels(ctx, sfmd, results):
@@ -729,8 +858,8 @@ def check_expansion(ctx, label, chunks):
     T = chunks[0][0][-1]
     added = sum(int(r[2].sum()) for r in ref) - 3 * K
     samp = [torch.cat(t) for t in zip(*count["gn_sample"])]
-    its = gn_iterations(ctx.P_mats, *samp, cfg.follow_gn_iters,
-                        cfg.gn_epsilon, cfg.match_gn_max_mse)
+    its, _ = gn_iterations(ctx.P_mats, *samp, cfg.follow_gn_iters,
+                           cfg.gn_epsilon, cfg.match_gn_max_mse)
     live = sum(count["gn_mask"])
     gn_f = its * (FLOPS["gn_obs"] * live + FLOPS["gn_iter"] * count["gn_rows"])
     cells = torch.unique(torch.cat(count["cells"])).numel()
@@ -1029,7 +1158,68 @@ def time_k7_chunk(root: str) -> int:
     return 0
 
 
+def time_follow(root: str) -> int:
+    """K3 and the follow for the port checkout at `root`, on phase 2's
+    inputs (the same seeds and the same K3 rows): K3 in its O = 3 and
+    O = V bodies, follow_seeds on the first refpoint chunk's seeds in both
+    driving directions (the direction trials, the walk and whatever the
+    checkout runs between them), and each K4 launch of that call alone
+    with its arguments as captured (in an earlier checkout K4 walks
+    only, and K3 then triangulates).  Prints one JSON line with the
+    times, the launches of one follow_seeds call and digests."""
+    import torch
+    sys.path.insert(0, os.path.abspath(root))
+    from edgegraph3d_tpu_torch import kernels
+    from edgegraph3d_tpu_torch.matching import following
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    from edgegraph3d_tpu_torch.ops import triangulation
+    from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
+    if not torch.cuda.is_available():
+        fail("no CUDA GPU")
+    kernels.build()
+    kernels.lib()
+    sfmd, edges, _ = full_scene()
+    cfg = bench_config()
+    ctx = rp.build_context(sfmd, extract_plgs(edges, cfg), cfg,
+                           device="cuda")
+    out = {"root": root, "source": following.__file__, "card": card_name()}
+    V = ctx.P_mats.shape[0]
+    for O, warm in ((3, False), (V, True)):
+        a, X0, iters, n = k3_inputs(ctx, sfmd, O, warm)
+        (X, _, ok), ms = cuda_time(lambda: triangulation.triangulate_gn(
+            *a, X0=X0, max_iters=iters, accept_mse=cfg.match_gn_max_mse), 5)
+        out[f"k3_O{O}_ms"] = ms
+        out[f"k3_O{O}_digest"] = [int(ok.sum()),
+                                  float(X[ok].double().sum())]
+    M = cfg.max_candidates_per_view
+    obs_xy, obs_mask = rp.dense_observations(sfmd)
+    om = torch.as_tensor(obs_mask[:1024], device=ctx.device)
+    oxc = torch.as_tensor(obs_xy[:1024], device=ctx.device)
+    starts = rp._start_sweep(ctx, oxc, om, cfg.detection_starting_dist_px, M)
+    both, drive = follow_seed_tuples(ctx, starts, oxc, om, M)
+    run = lambda: following.follow_seeds(
+        both, ctx.plg_coords, ctx.plg_length, ctx.P_mats, ctx.F_table, drive,
+        cfg, cfg.max_follow_steps)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    out["follow_seeds_launches"] = {k: kernels.LAUNCHES[k] for k in (
+        "follow_walk", "triangulate_gn")}
+    res, out["follow_seeds_ms"] = cuda_time(run, 10)
+    out["follow_digest"] = [int(res.n_steps.sum()),
+                            float(res.X[res.valid].double().sum())]
+    out["follow_lanes"] = len(both.cams)
+    for i, fargs in enumerate(captured_follow_walks(ctx, both, drive)):
+        _, out[f"k4_launch{i}_ms"] = cuda_time(
+            lambda: following.follow_walk(*fargs), 10)
+    log(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k7-chunk":
         sys.exit(time_k7_chunk(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-follow":
+        sys.exit(time_follow(sys.argv[2]))
     sys.exit(main())

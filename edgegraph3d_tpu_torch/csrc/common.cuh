@@ -41,10 +41,20 @@ struct Poly {
   int len;
 };
 
+// a * b + c with one rounding of the sum: the f64 product of two floats
+// is exact, so only the f64 sum rounds before the cast (the form of
+// ops.geometry._fma, bit for bit).
+static __device__ __forceinline__ float fma_f64(float a, float b, float c) {
+  return (float)((double)a * (double)b + (double)c);
+}
+
 // polyline_ops.advance_by_distance_xy for one lane: the first segment in
 // walk order (from `seg`) whose far end lies at least `radius` from
 // (cx, cy), then the circle-segment root in the walk direction.  Returns
-// found; writes the new position only when found.
+// found; writes the new position only when found.  The multiply-adds are
+// the ones XLA's CPU code fuses in the JAX sampling scan and in the JAX
+// follow's walk loop, each in one rounding (fma_f64): K6 samples and K4
+// walks with it.
 static __device__ __forceinline__ bool advance(const Poly& p, int seg,
                                                float cx, float cy, int dir,
                                                float radius, int* nseg,
@@ -57,13 +67,13 @@ static __device__ __forceinline__ bool advance(const Poly& p, int seg,
     for (int j = seg < 0 ? 0 : seg; j < p.len - 1; ++j) {
       const float fx = p.c[2 * (j + 1)] - cx;
       const float fy = p.c[2 * (j + 1) + 1] - cy;
-      if (fx * fx + fy * fy >= r2) { k = j; break; }
+      if (fma_f64(fx, fx, fy * fy) >= r2) { k = j; break; }
     }
   } else {
     for (int j = (seg < p.len - 2 ? seg : p.len - 2); j >= 0; --j) {
       const float fx = p.c[2 * j] - cx;
       const float fy = p.c[2 * j + 1] - cy;
-      if (fx * fx + fy * fy >= r2) { k = j; break; }
+      if (fma_f64(fx, fx, fy * fy) >= r2) { k = j; break; }
     }
   }
   if (k < 0) return false;
@@ -72,17 +82,17 @@ static __device__ __forceinline__ bool advance(const Poly& p, int seg,
   const float uy = p.c[2 * (k + 1) + 1] - ay;
   const float fx = ax - cx;
   const float fy = ay - cy;
-  const float A = nmax(ux * ux + uy * uy, 1e-12f);
-  const float B = 2.0f * (ux * fx + uy * fy);
-  const float C = fx * fx + fy * fy - r2;
-  const float disc = nmax(B * B - 4.0f * A * C, 0.0f);
+  const float A = nmax(fma_f64(ux, ux, uy * uy), 1e-12f);
+  const float B = 2.0f * fma_f64(ux, fx, uy * fy);
+  const float C = fma_f64(fx, fx, fy * fy) - r2;
+  const float disc = nmax(fma_f64(B, B, -((4.0f * A) * C)), 0.0f);
   const float sq = sqrtf(disc);
   float s = fwd ? (-B + sq) / (2.0f * A) : (-B - sq) / (2.0f * A);
   s = clip01(s);
   *nseg = k;
   *nt = s;
-  *nx = ax + s * ux;
-  *ny = ay + s * uy;
+  *nx = fma_f64(s, ux, ax);
+  *ny = fma_f64(s, uy, ay);
   return true;
 }
 
@@ -128,13 +138,6 @@ static __device__ __forceinline__ void epipolar(const float* F, float x,
   *l0 = a / ln;
   *l1 = b / ln;
   *l2 = c / ln;
-}
-
-// a * b + c with one rounding of the sum: the f64 product of two floats
-// is exact, so only the f64 sum rounds before the cast (the form of
-// ops.geometry._fma, bit for bit).
-static __device__ __forceinline__ float fma_f64(float a, float b, float c) {
-  return (float)((double)a * (double)b + (double)c);
 }
 
 // ops.geometry.epipolar_line_fma: the line as XLA's CPU dot contracts

@@ -13,8 +13,10 @@
 // One block per (group, member) lane.  The block stages the group's K
 // member polylines (already gathered by K5 into [G, K, L, 2]) in shared
 // memory.  Thread 0 walks the lane's `S` samples: the first at coords[0],
-// then S - 1 forward steps of `spacing` px (common.cuh advance); a lane
-// keeps its last position once a step fails.  Then the block's threads
+// then S - 1 forward steps of `spacing` px (common.cuh advance, the
+// multiply-adds XLA's CPU code fuses in the JAX scan, so the samples
+// equal JAX's bit for bit); a lane keeps its last position once a step
+// fails.  Then the block's threads
 // take the (sample, member j) pairs: the epipolar line of the sample into
 // member j's view, then a scan over j's segments with common.cuh seg_line
 // that keeps the first two crossings.  Slots past the last crossing hold

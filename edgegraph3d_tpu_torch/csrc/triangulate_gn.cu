@@ -3,38 +3,52 @@
 // Replaces (JAX): edgegraph3d_tpu/ops/triangulation.py
 //   triangulate_dlt_soa and gauss_newton_soa (and their tensor wrappers
 //   triangulate_dlt / gauss_newton_batched), as called by
-//   refpoints._seed_from_starts, following.follow_seeds (post-walk GN),
-//   following.resolve_configuration (warm start), the per-view GN of
-//   expansion.expand_chains_compact and outliers.gauss_newton_filter.
+//   refpoints._seed_from_starts and polyline_stages._group_seed_sweep
+//   (O = 3, cold) and outliers.gauss_newton_filter (warm, O = the most
+//   observations of any point, prefix masks).  The follow path's GN runs
+//   inside K4 and the expansion's inside K7, on the same device code.
 //
-// One thread per point, all state in registers.  Cameras come as an
-// index [N, O] into P_mats [V, 3, 4] (never a materialized [N, O, 3, 4]).
-//   * DLT (when X0 is null): A^T A from the row-normalized DLT rows,
-//     ridge 1e-7 * trace, closed-form 4x4 Cholesky, 4 rounds of inverse
-//     iteration from (1, 1, 1, 1.5) / |.|.
-//   * GN: up to max_iters steps of the 3x3 Cramer solve.  A point stops
-//     when it freezes (|mse - last_mse| < epsilon) or turns singular
-//     (absolute and scale-relative det guards); the JAX loop keeps
-//     iterating such points as no-ops until every point is done, so
-//     stopping the thread early is exact.  valid = !singular &&
-//     last_mse < accept_mse && sum(mask) >= 2, with last_mse updated
-//     only on non-frozen iterations, as in the reference.
-// Masked observations go through the same arithmetic with weight 0
-// (they add exact zeros), so the result does not depend on O padding.
-// The GN loop is gn.cuh gauss_newton, which K7 shares.
+// One thread per point.  Cameras come as an index [N, O] into P_mats
+// [V, 3, 4].  DLT when X0 is null (gn.cuh dlt), then up to max_iters
+// steps of gn.cuh gauss_newton; a point stops when it freezes or turns
+// singular (exact: the JAX loop keeps iterating such points as no-ops).
+// valid = !singular && last_mse < accept_mse && sum(mask) >= 2.
 //
-// Bound on the H100: arithmetic.  A GN iteration costs ~60 flops per
-// observation (O = 3 on the seeding / follow path, O = V = 49 in
-// expansion) and the per-point loop is sequential; reads are the point's
-// own xy/mask (re-read each iteration from L1) and the tiny P table,
-// which stays in L1/L2.
+// Two bodies, picked by the O of the call:
+//   * O = 3: the point's three cameras' P rows, points and weights are
+//     loaded into registers once (gn.cuh LocalObs), so neither the DLT
+//     nor the GN loop loads anything.  Masked observations keep the
+//     padded form (weight 0).  No lane refill: the slowest row of a warp
+//     sets its pace (29.9 GN iterations against a mean of 11.4 on
+//     chip_smoke.py's rows), but a body that refilled after every
+//     iteration ran 2.5x slower on an H100, since nearly every pass then
+//     also runs some lane's loads and DLT (PERF.md).
+//   * any other O: the block stages the P table in shared memory, and the
+//     DLT and GN walk only the point's present observations, in
+//     ascending o.  A masked observation adds exact zeros to the padded
+//     sums while its intermediates are finite, so skipping it is
+//     bit-equal.  Two guards keep the padded (JAX) result where that
+//     fails: a point whose masked observations could overflow at any X
+//     below 2^40 (a camera with an entry above 2^41, or a point beyond
+//     2^60 or not finite) runs the padded loop; and the live GN carries
+//     one extra weight-0 "probe" observation (camera row V of the staged
+//     table) whose projection overflows once a coordinate of X reaches
+//     2^40, so a trajectory that leaves the box where the masked terms
+//     are provably finite ends in NaN, and the point is redone padded.
+//
+// Bound on the H100: arithmetic (~85 flops per observation and GN
+// iteration), with a sequential per-point loop.
 
 #include "gn.cuh"
 
 namespace {
 
-// Observation o of one point: [O] camera indices, [O, 2] points and an
-// [O] mask, as K3's callers lay them out.
+constexpr float TAME_P = 2199023255552.0f;          // 2^41
+constexpr float TAME_XY = 1152921504606846976.0f;   // 2^60
+constexpr float PROBE_SCALE = 309485009821345068724781056.0f;  // 2^88
+
+// Observation o of one point, padded: [O] camera indices, [O, 2] points
+// and an [O] mask, as K3's callers lay them out.
 struct MaskedObs {
   const int* cam;
   const float* xy;
@@ -48,92 +62,46 @@ struct MaskedObs {
   }
 };
 
-__global__ void triangulate_gn_kernel(
-    const float* __restrict__ P_mats, const int* __restrict__ cams,
-    const float* __restrict__ xy, const uint8_t* __restrict__ mask, int N,
-    int O, const float* __restrict__ X0, int max_iters, float epsilon,
-    float accept_mse, float det_min, float* X_out, float* mse_out,
-    uint8_t* valid_out) {
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const int* cam = cams + n * O;
-  const float* ob = xy + n * O * 2;
-  const uint8_t* mk = mask + n * O;
-
-  float mask_sum = 0.0f;
-  for (int o = 0; o < O; ++o) mask_sum = mask_sum + (mk[o] ? 1.0f : 0.0f);
-
-  float x, y, z;
-  if (X0 != nullptr) {
-    x = X0[3 * n];
-    y = X0[3 * n + 1];
-    z = X0[3 * n + 2];
-  } else {
-    float a00 = 0.f, a01 = 0.f, a02 = 0.f, a03 = 0.f, a11 = 0.f, a12 = 0.f,
-          a13 = 0.f, a22 = 0.f, a23 = 0.f, a33 = 0.f;
-    for (int o = 0; o < O; ++o) {
-      const float* p = P_mats + (int64_t)cam[o] * 12;
-      const float m = mk[o] ? 1.0f : 0.0f;
-      for (int prow = 0; prow < 2; ++prow) {
-        const float coord = ob[2 * o + prow];
-        float r0 = coord * p[8] - p[4 * prow + 0];
-        float r1 = coord * p[9] - p[4 * prow + 1];
-        float r2 = coord * p[10] - p[4 * prow + 2];
-        float r3 = coord * p[11] - p[4 * prow + 3];
-        const float nrm = sqrtf(r0 * r0 + r1 * r1 + r2 * r2 + r3 * r3);
-        const float scale = m / eg3d::nmax(nrm, 1e-12f);
-        r0 = r0 * scale;
-        r1 = r1 * scale;
-        r2 = r2 * scale;
-        r3 = r3 * scale;
-        a00 = a00 + r0 * r0; a01 = a01 + r0 * r1; a02 = a02 + r0 * r2;
-        a03 = a03 + r0 * r3; a11 = a11 + r1 * r1; a12 = a12 + r1 * r2;
-        a13 = a13 + r1 * r3; a22 = a22 + r2 * r2; a23 = a23 + r2 * r3;
-        a33 = a33 + r3 * r3;
+// The point's present observations in ascending o, then (when `probe` is
+// set) the probe: camera `probe`, point (0, 0), weight 0.  Callers visit
+// k = 0, 1, 2, ... in order, so the accessor keeps a cursor over the
+// mask; any other order restarts the scan.
+struct LiveObs {
+  const int* cam;
+  const float* xy;
+  const uint8_t* mask;
+  int n_live;
+  int probe;  // camera index of the probe row, or -1
+  mutable int k_at, o_at;
+  __device__ __forceinline__ void operator()(int k, int* c, float* ox,
+                                             float* oy, float* m) const {
+    if (k >= n_live) {
+      *c = probe;
+      *ox = 0.0f;
+      *oy = 0.0f;
+      *m = 0.0f;
+      return;
+    }
+    int o = (k == k_at + 1) ? o_at + 1 : 0;
+    int skip = (k == k_at + 1) ? 0 : k;
+    for (;; ++o) {
+      if (mask[o]) {
+        if (skip == 0) break;
+        --skip;
       }
     }
-    const float tr = a00 + a11 + a22 + a33;
-    const float eps = 1e-7f * tr + 1e-30f;
-    a00 = a00 + eps; a11 = a11 + eps; a22 = a22 + eps; a33 = a33 + eps;
-    const float L11 = sqrtf(eg3d::nmax(a00, 1e-30f));
-    const float L21 = a01 / L11;
-    const float L31 = a02 / L11;
-    const float L41 = a03 / L11;
-    const float L22 = sqrtf(eg3d::nmax(a11 - L21 * L21, 1e-30f));
-    const float L32 = (a12 - L31 * L21) / L22;
-    const float L42 = (a13 - L41 * L21) / L22;
-    const float L33 = sqrtf(eg3d::nmax(a22 - L31 * L31 - L32 * L32, 1e-30f));
-    const float L43 = (a23 - L41 * L31 - L42 * L32) / L33;
-    const float L44 =
-        sqrtf(eg3d::nmax(a33 - L41 * L41 - L42 * L42 - L43 * L43, 1e-30f));
-    const double nv = sqrt(1.0 + 1.0 + 1.0 + 1.5 * 1.5);
-    float v0 = (float)(1.0 / nv), v1 = v0, v2 = v0, v3 = (float)(1.5 / nv);
-    for (int it = 0; it < 4; ++it) {
-      const float y1 = v0 / L11;
-      const float y2 = (v1 - L21 * y1) / L22;
-      const float y3 = (v2 - L31 * y1 - L32 * y2) / L33;
-      const float y4 = (v3 - L41 * y1 - L42 * y2 - L43 * y3) / L44;
-      const float x4 = y4 / L44;
-      const float x3 = (y3 - L43 * x4) / L33;
-      const float x2 = (y2 - L32 * x3 - L42 * x4) / L22;
-      const float x1 = (y1 - L21 * x2 - L31 * x3 - L41 * x4) / L11;
-      const float nn =
-          eg3d::nmax(sqrtf(x1 * x1 + x2 * x2 + x3 * x3 + x4 * x4), 1e-30f);
-      v0 = x1 / nn;
-      v1 = x2 / nn;
-      v2 = x3 / nn;
-      v3 = x4 / nn;
-    }
-    const float w =
-        (fabsf(v3) < 1e-12f) ? ((v3 < 0.0f) ? -1e-12f : 1e-12f) : v3;
-    x = v0 / w;
-    y = v1 / w;
-    z = v2 / w;
+    k_at = k;
+    o_at = o;
+    *c = cam[o];
+    *ox = xy[2 * o];
+    *oy = xy[2 * o + 1];
+    *m = 1.0f;
   }
+};
 
-  const eg3d::GNResult r = eg3d::gauss_newton(
-      P_mats, MaskedObs{cam, ob, mk}, O, mask_sum, x, y, z, max_iters,
-      epsilon, accept_mse, det_min);
+__device__ __forceinline__ void store(int64_t n, const eg3d::GNResult& r,
+                                      float* X_out, float* mse_out,
+                                      uint8_t* valid_out) {
   X_out[3 * n] = r.x;
   X_out[3 * n + 1] = r.y;
   X_out[3 * n + 2] = r.z;
@@ -141,7 +109,119 @@ __global__ void triangulate_gn_kernel(
   valid_out[n] = r.valid ? 1 : 0;
 }
 
+__global__ void triangulate_gn3_kernel(
+    const float* __restrict__ P_mats, const int* __restrict__ cams,
+    const float* __restrict__ xy, const uint8_t* __restrict__ mask, int N,
+    const float* __restrict__ X0, int max_iters, float epsilon,
+    float accept_mse, float det_min, float* X_out, float* mse_out,
+    uint8_t* valid_out) {
+  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  eg3d::LocalObs<3> ob;
+  float mask_sum = 0.0f;
+#pragma unroll
+  for (int o = 0; o < 3; ++o) {
+    const float* p = P_mats + (int64_t)cams[3 * n + o] * 12;
+#pragma unroll
+    for (int k = 0; k < 12; ++k) ob.P[12 * o + k] = p[k];
+    ob.x[o] = xy[6 * n + 2 * o];
+    ob.y[o] = xy[6 * n + 2 * o + 1];
+    ob.m[o] = mask[3 * n + o] ? 1.0f : 0.0f;
+    mask_sum = mask_sum + ob.m[o];
+  }
+  float x, y, z;
+  if (X0 != nullptr) {
+    x = X0[3 * n];
+    y = X0[3 * n + 1];
+    z = X0[3 * n + 2];
+  } else {
+    eg3d::dlt(ob.P, ob, 3, &x, &y, &z);
+  }
+  store(n, eg3d::gauss_newton(ob.P, ob, 3, mask_sum, x, y, z, max_iters,
+                              epsilon, accept_mse, det_min),
+        X_out, mse_out, valid_out);
+}
+
+__global__ void triangulate_gn_kernel(
+    const float* __restrict__ P_mats, int V, const int* __restrict__ cams,
+    const float* __restrict__ xy, const uint8_t* __restrict__ mask, int N,
+    int O, const float* __restrict__ X0, int max_iters, float epsilon,
+    float accept_mse, float det_min, float* X_out, float* mse_out,
+    uint8_t* valid_out) {
+  extern __shared__ float P_sh[];               // [V + 1, 3, 4]
+  uint8_t* tame = (uint8_t*)(P_sh + (V + 1) * 12);   // [V]
+  for (int i = threadIdx.x; i < V * 12; i += blockDim.x) P_sh[i] = P_mats[i];
+  if (threadIdx.x < 12) {      // the probe row [[s,0,0,0],[0,s,s,0],[0,0,0,1]]
+    const int k = threadIdx.x;
+    P_sh[V * 12 + k] =
+        (k == 0 || k == 5 || k == 6) ? PROBE_SCALE : (k == 11 ? 1.0f : 0.0f);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < V; c += blockDim.x) {
+    bool ok = true;
+    for (int k = 0; k < 12; ++k) ok = ok && fabsf(P_sh[12 * c + k]) <= TAME_P;
+    tame[c] = ok ? 1 : 0;
+  }
+  __syncthreads();
+
+  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const int* cam = cams + n * O;
+  const float* ob = xy + n * O * 2;
+  const uint8_t* mk = mask + n * O;
+
+  // one pass over the row: the weight sum (in o order, as the padded
+  // form sums it), the present count, and whether a masked observation
+  // could leave the box where its padded terms are provably zero
+  float mask_sum = 0.0f;
+  int n_live = 0;
+  bool padded = false;
+  for (int o = 0; o < O; ++o) {
+    if (mk[o]) {
+      mask_sum = mask_sum + 1.0f;
+      ++n_live;
+    } else {
+      const int c = cam[o];
+      padded = padded || c < 0 || c >= V || !tame[c] ||
+               !(fabsf(ob[2 * o]) <= TAME_XY) ||
+               !(fabsf(ob[2 * o + 1]) <= TAME_XY);
+    }
+  }
+  const MaskedObs all{cam, ob, mk};
+  const LiveObs live{cam, ob, mk, n_live, V, -2, -1};
+  float x, y, z;
+  if (X0 != nullptr) {
+    x = X0[3 * n];
+    y = X0[3 * n + 1];
+    z = X0[3 * n + 2];
+  } else if (padded) {
+    eg3d::dlt(P_sh, all, O, &x, &y, &z);
+  } else {
+    eg3d::dlt(P_sh, live, n_live, &x, &y, &z);
+  }
+  eg3d::GNResult r;
+  if (!padded) {
+    r = eg3d::gauss_newton(P_sh, live, n_live + 1, mask_sum, x, y, z,
+                           max_iters, epsilon, accept_mse, det_min);
+    padded = r.mse != r.mse || r.x != r.x || r.y != r.y || r.z != r.z;
+  }
+  if (padded) {
+    r = eg3d::gauss_newton(P_sh, all, O, mask_sum, x, y, z, max_iters,
+                           epsilon, accept_mse, det_min);
+  }
+  store(n, r, X_out, mse_out, valid_out);
+}
+
+int gn_smem_bytes(int V) {
+  return (V + 1) * 12 * (int)sizeof(float) + V;
+}
+
 }  // namespace
+
+// Dynamic shared memory of the general body's block (0 for O = 3).
+extern "C" int eg3d_triangulate_gn_smem(int V, int O) {
+  return O == 3 ? 0 : gn_smem_bytes(V);
+}
 
 extern "C" int eg3d_triangulate_gn(const float* P_mats, int V, const int* cams,
                                    const float* xy, const uint8_t* mask, int N,
@@ -149,11 +229,17 @@ extern "C" int eg3d_triangulate_gn(const float* P_mats, int V, const int* cams,
                                    float epsilon, float accept_mse,
                                    float det_min, float* X, float* mse,
                                    uint8_t* valid, void* stream) {
-  (void)V;
   const int threads = 128;
   const int blocks = (N + threads - 1) / threads;
-  triangulate_gn_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      P_mats, cams, xy, mask, N, O, X0, max_iters, epsilon, accept_mse,
-      det_min, X, mse, valid);
+  if (O == 3) {
+    triangulate_gn3_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        P_mats, cams, xy, mask, N, X0, max_iters, epsilon, accept_mse,
+        det_min, X, mse, valid);
+  } else {
+    triangulate_gn_kernel<<<blocks, threads, gn_smem_bytes(V),
+                            (cudaStream_t)stream>>>(
+        P_mats, V, cams, xy, mask, N, O, X0, max_iters, epsilon, accept_mse,
+        det_min, X, mse, valid);
+  }
   return (int)cudaGetLastError();
 }

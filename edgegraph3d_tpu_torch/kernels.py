@@ -62,12 +62,16 @@ _SIGNATURES = {
     # epsilon, accept_mse, det_min, X, mse, valid, stream
     "eg3d_triangulate_gn": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _F, _F, _F,
                             _P, _P, _P, _P],
-    # coords, lengths, V, P, L, F_table, cams, pl, seg0, t0, xy0, dirs,
-    # active0, S, T, step, min_d, max_d, qcos, qdist,
-    # obs, seg, t, alive, stream
+    # V, O -> dynamic shared-memory bytes of a block of K3's general body
+    "eg3d_triangulate_gn_smem": [_I, _I],
+    # coords, lengths, V, P, L, F_table, P_mats, cams, pl, seg0, t0, xy0,
+    # dirs, active0, X0 (nullable), S, T, step, min_d, max_d, qcos, qdist,
+    # gn_iters, epsilon, accept_mse, det_min, counter,
+    # valid, n_steps, X, obs, seg, t, final_seg, final_t, stream
     "eg3d_follow_walk": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _I, _I, _F, _F, _F, _F, _F,
-                         _P, _P, _P, _P, _P],
+                         _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
+                         _I, _F, _F, _F, _P,
+                         _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # table, R, W, rows, idx64 (rows int64, else int32), S, out, stream
     "eg3d_gather_rows": [_P, _L, _L, _P, _I, _L, _P, _P],
     # K, L, S -> dynamic shared-memory bytes of one block

@@ -1,16 +1,19 @@
 """PLG following: sweeping 3D edge chains from seed matches.
 
-Port of edgegraph3d_tpu/matching/following.py.  The walk is kernel K4
-(`follow_walk`, csrc/follow_walk.cu): one CUDA thread per seed lane
-loops up to `max_steps` times — advance 10 px on the driving view,
-intersect the two epipolar lines on the other tuple views within
-[5, 20] px — and records every step.  Triangulation does not feed back
-into the walk, so the GN acceptance (kernel K3) runs once afterwards on
-the live steps, and each chain is cut at its first GN failure.
+Port of edgegraph3d_tpu/matching/following.py.  One call of kernel K4
+(`follow_walk`, csrc/follow_walk.cu) is the whole follow: one CUDA thread
+per seed lane loops up to `max_steps` times — advance 10 px on the
+driving view, intersect the two epipolar lines on the other tuple views
+within [5, 20] px, triangulate the three observations (DLT + GN, or GN
+warm-started from the seed) — and the chain ends at its first walk or GN
+failure, as in the reference's walk.  The JAX package runs the GN once
+after the walk over the live steps and cuts each chain at its first
+failure; the result is the same, and `_follow_plain` (the CPU path) is
+that composition.
 
 Direction resolution tries 3 driving views x 4 direction combos for one
-step each (K4 with max_steps=1, then K3 warm-started from the seed) and
-keeps the first valid configuration, d-major then combos.
+step each (K4 with max_steps=1, GN warm-started from the seed) and keeps
+the first valid configuration, d-major then combos.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ import torch
 from edgegraph3d_tpu_torch import kernels
 from edgegraph3d_tpu_torch.ops import polyline_ops as po
 from edgegraph3d_tpu_torch.ops.geometry import epipolar_line
-from edgegraph3d_tpu_torch.ops.triangulation import triangulate_gn
+from edgegraph3d_tpu_torch.ops.triangulation import _triangulate_gn_plain
+
+DET_MIN = 1e-5      # the GN's singular guard (triangulation defaults)
 
 
 class SeedTuple(NamedTuple):
@@ -54,10 +59,25 @@ class Walk(NamedTuple):
     alive: torch.Tensor      # [S,T] bool (zeros after a lane's death)
 
 
+class Follow(NamedTuple):
+    """K4's output, in the lanes' permuted tuple order.  Steps after the
+    cut are zero, except that the step whose GN failed keeps its walk
+    observation, seg and t (with valid False)."""
+    valid: torch.Tensor      # [S,T] bool, accepted steps (a prefix)
+    n_steps: torch.Tensor    # [S] int32
+    X: torch.Tensor          # [S,T,3]
+    obs: torch.Tensor        # [S,T,3,2]
+    seg: torch.Tensor        # [S,T,3] int32
+    t: torch.Tensor          # [S,T,3]
+    final_seg: torch.Tensor  # [S,3] int32, the last accepted position
+    final_t: torch.Tensor    # [S,3]   (the start when none)
+
+
 def _walk_plain(coords, lengths, F_table, cams, pl, seg0, t0, xy0, dirs,
                 active0, T: int, step: float, min_d: float, max_d: float,
                 qcos: float, qdist: float) -> Walk:
-    """Plain twin of K4: the same walk, vectorized over lanes."""
+    """The walk alone, vectorized over lanes: every step until a lane's
+    first walk failure, without triangulating."""
     S = cams.shape[0]
     dev = xy0.device
     ci, pi = cams.long(), pl.long()
@@ -101,25 +121,85 @@ def _walk_plain(coords, lengths, F_table, cams, pl, seg0, t0, xy0, dirs,
     return Walk(obs=obs, seg=segb, t=tb, alive=alive)
 
 
-def follow_walk(coords, lengths, F_table, cams, pl, seg0, t0, xy0, dirs,
-                active0, T: int, step: float, min_d: float, max_d: float,
-                qcos: float, qdist: float) -> Walk:
+def _follow_plain(coords, lengths, F_table, P_mats, cams, pl, seg0, t0, xy0,
+                  dirs, active0, X0, T: int, step: float, min_d: float,
+                  max_d: float, qcos: float, qdist: float, gn_iters: int,
+                  epsilon: float, accept_mse: float) -> Follow:
+    """Plain twin of K4, the JAX package's composition: the walk, then
+    the plain DLT + GN (or GN from X0) over the walk's live steps, then
+    each chain cut at its first GN failure."""
+    walk = _walk_plain(coords, lengths, F_table, cams, pl, seg0, t0, xy0,
+                       dirs, active0, T, step, min_d, max_d, qcos, qdist)
+    S = cams.shape[0]
+    dev = xy0.device
+    rows = torch.nonzero(walk.alive.reshape(-1)).flatten()
+    gn_ok = torch.zeros(S * T, dtype=torch.bool, device=dev)
+    Xs = torch.zeros((S * T, 3), dtype=xy0.dtype, device=dev)
+    if len(rows):
+        lane = rows // T
+        Xr, _, ok = _triangulate_gn_plain(
+            P_mats, cams[lane], walk.obs.reshape(S * T, 3, 2)[rows],
+            torch.ones((len(rows), 3), dtype=torch.bool, device=dev),
+            None if X0 is None else X0[lane], gn_iters, epsilon,
+            accept_mse, DET_MIN)
+        gn_ok[rows] = ok
+        Xs[rows] = Xr
+    gn_ok = gn_ok.reshape(S, T)
+    valid = walk.alive & torch.cumprod((gn_ok | ~walk.alive)
+                                       .to(torch.int32), dim=1).bool()
+    n_steps = valid.sum(1).to(torch.int32)
+    keep = walk.alive & (torch.arange(T, device=dev)[None, :]
+                         <= n_steps[:, None])
+    ar = torch.arange(S, device=dev)
+    last = torch.clamp_min(n_steps - 1, 0).long()
+    moved = (n_steps > 0)[:, None]
+    return Follow(
+        valid=valid, n_steps=n_steps,
+        X=torch.where(valid[..., None], Xs.reshape(S, T, 3), 0.0),
+        obs=torch.where(keep[..., None, None], walk.obs, 0.0),
+        seg=torch.where(keep[..., None], walk.seg, 0),
+        t=torch.where(keep[..., None], walk.t, 0.0),
+        final_seg=torch.where(moved, walk.seg[ar, last], seg0),
+        final_t=torch.where(moved, walk.t[ar, last], t0))
+
+
+def follow_params(cfg, warm: bool):
+    """(walk, gn) parameters of K4 and its plain twin from `cfg`: the walk
+    distances and quasi-parallel gates, then (iterations, epsilon,
+    accepted MSE) of the GN, warm (from X0) or cold (DLT first)."""
+    walk = (cfg.follow_first_image_dist_px, cfg.follow_min_dist_px,
+            cfg.follow_max_dist_px, cfg.quasiparallel_cos,
+            cfg.quasiparallel_dist_px)
+    gn = (cfg.follow_gn_iters if warm else cfg.gn_max_iters, cfg.gn_epsilon,
+          cfg.match_gn_max_mse)
+    return walk, gn
+
+
+def follow_walk(coords, lengths, F_table, P_mats, cams, pl, seg0, t0, xy0,
+                dirs, active0, X0, T: int, cfg) -> Follow:
     """Kernel K4.  coords [V,P,L,2] f32, lengths [V,P] i32, F_table
-    [V,V,3,3] f32; per lane (permuted tuple order, driving view first):
-    cams/pl/seg0/dirs [S,3] i32, t0 [S,3], xy0 [S,3,2], active0 [S] bool.
-    Returns the per-step buffers of a walk of at most T steps."""
+    [V,V,3,3] f32, P_mats [V,3,4] f32; per lane (permuted tuple order,
+    driving view first): cams/pl/seg0/dirs [S,3] i32, t0 [S,3], xy0
+    [S,3,2], active0 [S] bool, X0 [S,3] or None.  Follows every lane for
+    at most T steps with the walk distances and GN gates of `cfg`: cold
+    (X0 None) DLT + cfg.gn_max_iters GN iterations per step, warm (GN
+    from X0) cfg.follow_gn_iters.  CUDA tensors launch the kernel; CPU
+    tensors take the plain twin."""
+    walk, gn = follow_params(cfg, X0 is not None)
     if xy0.device.type == "cpu":
-        return _walk_plain(coords, lengths, F_table, cams, pl, seg0, t0,
-                           xy0, dirs, active0, T, step, min_d, max_d, qcos,
-                           qdist)
+        return _follow_plain(coords, lengths, F_table, P_mats, cams, pl,
+                             seg0, t0, xy0, dirs, active0, X0, T, *walk,
+                             *gn)
     V, P, L, _ = coords.shape
     S = cams.shape[0]
-    args = [t.contiguous() for t in (coords, lengths, F_table, cams, pl,
-                                     seg0, t0, xy0, dirs, active0)]
-    coords, lengths, F_table, cams, pl, seg0, t0, xy0, dirs, active0 = args
+    args = [t.contiguous() for t in (coords, lengths, F_table, P_mats, cams,
+                                     pl, seg0, t0, xy0, dirs, active0)]
+    coords, lengths, F_table, P_mats, cams, pl, seg0, t0, xy0, dirs, \
+        active0 = args
     kernels.require(coords, "coords", torch.float32, (V, P, L, 2))
     kernels.require(lengths, "lengths", torch.int32, (V, P))
     kernels.require(F_table, "F_table", torch.float32, (V, V, 3, 3))
+    kernels.require(P_mats, "P_mats", torch.float32, (V, 3, 4))
     for name, a, dt in (("cams", cams, torch.int32), ("pl", pl, torch.int32),
                         ("seg0", seg0, torch.int32),
                         ("t0", t0, torch.float32),
@@ -127,31 +207,33 @@ def follow_walk(coords, lengths, F_table, cams, pl, seg0, t0, xy0, dirs,
         kernels.require(a, name, dt, (S, 3))
     kernels.require(xy0, "xy0", torch.float32, (S, 3, 2))
     kernels.require(active0, "active0", torch.bool, (S,))
+    if X0 is not None:
+        X0 = X0.contiguous()
+        kernels.require(X0, "X0", torch.float32, (S, 3))
     dev = xy0.device
-    out = Walk(obs=torch.empty((S, T, 3, 2), dtype=torch.float32, device=dev),
-               seg=torch.empty((S, T, 3), dtype=torch.int32, device=dev),
-               t=torch.empty((S, T, 3), dtype=torch.float32, device=dev),
-               alive=torch.empty((S, T), dtype=torch.bool, device=dev))
-    if S == 0 or T == 0:
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    out = Follow(valid=torch.zeros((S, T), dtype=torch.bool, device=dev),
+                 n_steps=torch.empty(S, **i32),
+                 X=torch.zeros((S, T, 3), **f32),
+                 obs=torch.zeros((S, T, 3, 2), **f32),
+                 seg=torch.zeros((S, T, 3), **i32),
+                 t=torch.zeros((S, T, 3), **f32),
+                 final_seg=torch.empty((S, 3), **i32),
+                 final_t=torch.empty((S, 3), **f32))
+    if S == 0:
         return out
+    counter = torch.zeros(1, **i32)
     rc = kernels.lib().eg3d_follow_walk(
         coords.data_ptr(), lengths.data_ptr(), V, P, L, F_table.data_ptr(),
-        cams.data_ptr(), pl.data_ptr(), seg0.data_ptr(), t0.data_ptr(),
-        xy0.data_ptr(), dirs.data_ptr(), active0.data_ptr(), S, T,
-        float(step), float(min_d), float(max_d), float(qcos), float(qdist),
-        out.obs.data_ptr(), out.seg.data_ptr(), out.t.data_ptr(),
-        out.alive.data_ptr(), kernels.stream_of(xy0))
+        P_mats.data_ptr(), cams.data_ptr(), pl.data_ptr(), seg0.data_ptr(),
+        t0.data_ptr(), xy0.data_ptr(), dirs.data_ptr(), active0.data_ptr(),
+        kernels.ptr(X0), S, T, *(float(w) for w in walk), int(gn[0]),
+        float(gn[1]), float(gn[2]), DET_MIN, counter.data_ptr(),
+        *(a.data_ptr() for a in out), kernels.stream_of(xy0))
     kernels.check(rc, "follow_walk")
     kernels.LAUNCHES["follow_walk"] += 1
     return out
-
-
-def _walk(plg_coords, plg_length, F_table, cams, pl, seg, t, xy, dirs,
-          active, T: int, cfg) -> Walk:
-    return follow_walk(plg_coords, plg_length, F_table, cams, pl, seg, t, xy,
-                       dirs, active, T, cfg.follow_first_image_dist_px,
-                       cfg.follow_min_dist_px, cfg.follow_max_dist_px,
-                       cfg.quasiparallel_cos, cfg.quasiparallel_dist_px)
 
 
 _PERMS = ((0, 1, 2), (1, 0, 2), (2, 0, 1))
@@ -189,17 +271,10 @@ def resolve_configuration(seeds: SeedTuple, plg_coords, plg_length, P_mats,
         rep(drive_dir.to(torch.int32).expand(S)),
         cfgs[:, 1:2].expand(n_cfg, S).reshape(-1),
         cfgs[:, 2:3].expand(n_cfg, S).reshape(-1)], 1)
-    walk = _walk(plg_coords, plg_length, F_table, cams, pl, seg, t, xy, dirs,
-                 torch.ones(n_cfg * S, dtype=torch.bool, device=dev), 1, cfg)
-    rows = torch.nonzero(walk.alive[:, 0]).flatten()
-    oks = torch.zeros(n_cfg * S, dtype=torch.bool, device=dev)
-    if len(rows):
-        _, _, ok = triangulate_gn(
-            P_mats, cams[rows], walk.obs[rows, 0],
-            torch.ones((len(rows), 3), dtype=torch.bool, device=dev),
-            X0=rep(seeds.X)[rows], max_iters=cfg.follow_gn_iters,
-            epsilon=cfg.gn_epsilon, accept_mse=cfg.match_gn_max_mse)
-        oks[rows] = ok
+    oks = follow_walk(plg_coords, plg_length, F_table, P_mats, cams, pl,
+                      seg, t, xy, dirs,
+                      torch.ones(n_cfg * S, dtype=torch.bool, device=dev),
+                      rep(seeds.X), 1, cfg).valid[:, 0]
     oks = oks.reshape(n_cfg, S)
     any_ok = oks.any(0)
     ids = torch.arange(n_cfg, device=dev)[:, None]
@@ -235,43 +310,16 @@ def follow_seeds(seeds: SeedTuple, plg_coords, plg_length, P_mats, F_table,
     xy0 = _permute(seeds.xy, perm)
     pl = _permute(seeds.pl_id, perm)
     inv_perm = torch.argsort(perm, dim=1)
-
-    walk = _walk(plg_coords, plg_length, F_table, cams, pl, seg0, t0, xy0,
-                 dirs, seeds.valid & dir_ok, max_steps, cfg)
-
-    # GN acceptance over the live steps (s-major order), then a prefix
-    # cut of each chain at its first failure
-    T = max_steps
-    alive_flat = walk.alive.reshape(-1)
-    rows = torch.nonzero(alive_flat).flatten()
-    gn_ok = torch.zeros(S * T, dtype=torch.bool, device=dev)
-    Xs = torch.zeros((S * T, 3), dtype=seeds.xy.dtype, device=dev)
-    if len(rows):
-        Xr, _, ok = triangulate_gn(
-            P_mats, cams[rows // T], walk.obs.reshape(S * T, 3, 2)[rows],
-            torch.ones((len(rows), 3), dtype=torch.bool, device=dev),
-            max_iters=cfg.gn_max_iters, epsilon=cfg.gn_epsilon,
-            accept_mse=cfg.match_gn_max_mse)
-        gn_ok[rows] = ok
-        Xs[rows] = Xr
-    gn_ok = gn_ok.reshape(S, T)
-    ok_or_dead = gn_ok | ~walk.alive
-    alive = walk.alive & torch.cumprod(ok_or_dead.to(torch.int32),
-                                       dim=1).bool()
-    n_steps = alive.sum(1).to(torch.int32)
-
-    ar = torch.arange(S, device=dev)
-    last = torch.clamp_min(n_steps - 1, 0).long()
-    moved = (n_steps > 0)[:, None]
-    fseg = torch.where(moved, walk.seg[ar, last], seg0)
-    ft = torch.where(moved, walk.t[ar, last], t0)
+    f = follow_walk(plg_coords, plg_length, F_table, P_mats, cams, pl, seg0,
+                    t0, xy0, dirs, seeds.valid & dir_ok, None, max_steps,
+                    cfg)
     obs = torch.take_along_dim(
-        walk.obs, inv_perm.long()[:, None, :, None].expand(S, T, 3, 2),
+        f.obs, inv_perm.long()[:, None, :, None].expand(S, max_steps, 3, 2),
         dim=2)
     return FollowResult(
-        X=Xs.reshape(S, T, 3), obs_xy=obs, valid=alive, n_steps=n_steps,
-        final_seg=_permute(fseg, inv_perm), final_t=_permute(ft, inv_perm),
-        perm=perm, dirs=dirs)
+        X=f.X, obs_xy=obs, valid=f.valid, n_steps=f.n_steps,
+        final_seg=_permute(f.final_seg, inv_perm),
+        final_t=_permute(f.final_t, inv_perm), perm=perm, dirs=dirs)
 
 
 # pack_follow_outputs meta layout: [total(1), fwd final_seg(3),

@@ -21,6 +21,8 @@ from typing import NamedTuple
 
 import torch
 
+from edgegraph3d_tpu_torch.ops.geometry import _fma
+
 BIG = 1e30
 
 
@@ -51,12 +53,20 @@ def advance_by_distance_xy(px, py, length, seg, xy, direction,
     """The next point along the walk at euclidean distance `radius` from
     the current point: the first segment (in walk order, from `seg`)
     whose far end is at least `radius` away, then the circle-segment
-    root in the walk direction."""
+    root in the walk direction.
+
+    The step takes the multiply-adds XLA's CPU code fuses inside the JAX
+    sampling scan (sample_interval_points) and the JAX follow's walk
+    loop, each with one rounding: d2 = fma(fx, fx, fy fy), A = fma(ux,
+    ux, uy uy), B = 2 fma(ux, fx, uy fy), C = fma(fx, fx, fy fy) - r2,
+    disc = fma(B, B, -(4A C)), xy = fma(s, u, a), with the root taken in
+    f64 (the correctly rounded f32 root).  Kernels K4 and K6 step the
+    same way (common.cuh advance)."""
     L = px.shape[1]
     cx, cy = xy[:, 0:1], xy[:, 1:2]
     fx_all = px - cx
     fy_all = py - cy
-    d2 = fx_all * fx_all + fy_all * fy_all                    # [S, L]
+    d2 = _fma(fx_all, fx_all, fy_all * fy_all)                # [S, L]
     r2 = radius * radius
     idx = torch.arange(L - 1, device=px.device)
     fwd = direction > 0
@@ -71,14 +81,14 @@ def advance_by_distance_xy(px, py, length, seg, xy, direction,
     uy = _take(py, k + 1) - ay
     fx = ax - xy[:, 0]
     fy = ay - xy[:, 1]
-    A = torch.clamp_min(ux * ux + uy * uy, 1e-12)
-    B = 2.0 * (ux * fx + uy * fy)
-    C = fx * fx + fy * fy - r2
-    disc = torch.clamp_min(B * B - 4.0 * A * C, 0.0)
-    sq = torch.sqrt(disc)
+    A = torch.clamp_min(_fma(ux, ux, uy * uy), 1e-12)
+    B = 2.0 * _fma(ux, fx, uy * fy)
+    C = _fma(fx, fx, fy * fy) - r2
+    disc = torch.clamp_min(_fma(B, B, -((4.0 * A) * C)), 0.0)
+    sq = torch.sqrt(disc.double()).to(disc.dtype)
     s = torch.where(fwd, (-B + sq) / (2.0 * A), (-B - sq) / (2.0 * A))
     s = torch.clamp(s, 0.0, 1.0)
-    xy_new = torch.stack([ax + s * ux, ay + s * uy], dim=-1)
+    xy_new = torch.stack([_fma(s, ux, ax), _fma(s, uy, ay)], dim=-1)
     return Step(seg=k.to(torch.int32), t=s, xy=xy_new, found=any_hit)
 
 
@@ -178,8 +188,9 @@ def sample_interval_points(coords, length, spacing: float,
                            max_samples: int):
     """Points along each polyline coords [S, L, 2] at euclidean `spacing`
     from each other, starting at coords[:, 0] (valid iff length >= 2):
-    `max_samples - 1` forward advance_by_distance steps.  Once a step
-    fails the lane keeps its last position with valid False.
+    `max_samples - 1` forward advance_by_distance steps (bit-equal to the
+    JAX scan's samples).  Once a step fails the lane keeps its last
+    position with valid False.
 
     Returns (xy [S, n, 2], seg [S, n] i32, t [S, n], valid [S, n])."""
     S = coords.shape[0]

@@ -3,9 +3,11 @@
 Port of edgegraph3d_tpu/ops/triangulation.py.  The hot path is kernel
 K3 (`triangulate_gn`, csrc/triangulate_gn.cu): one CUDA thread per point
 runs the optional DLT init and the GN loop with cameras given as an
-index into P_mats.  The plain-torch functions below carry the same
-semantics in the kernel's operation order; `triangulate_gn` uses them
-for CPU tensors only.
+index into P_mats; at O = 3 from registers, otherwise over the point's
+present observations only, with the P table in shared memory.  The
+plain-torch functions below carry the same semantics in the kernel's
+operation order (the padded form, which the kernel equals bit for bit);
+`triangulate_gn` uses them for CPU tensors only.
 
 Semantics (em_GaussNewton parity, see the JAX module): mse = sum r^2 /
 (2 n_obs); a point freezes when |mse - last_mse| < epsilon; a step is
@@ -185,8 +187,9 @@ def triangulate_gn(P_mats: torch.Tensor, cams: torch.Tensor,
 
     P_mats [V, 3, 4] f32, cams [N, O] i32 camera index per observation,
     xy [N, O, 2] f32, mask [N, O] bool, X0 [N, 3] f32 or None ->
-    (X [N, 3], mse [N], valid [N] bool).  CUDA tensors launch the kernel;
-    CPU tensors take the plain-torch twin."""
+    (X [N, 3], mse [N], valid [N] bool).  CUDA tensors launch the kernel
+    (raising for O != 3 and a P table beyond 48 KiB of shared memory,
+    about 1,000 cameras); CPU tensors take the plain-torch twin."""
     if xy.device.type == "cpu":
         return _triangulate_gn_plain(P_mats, cams, xy, mask, X0, max_iters,
                                      epsilon, accept_mse, det_min)
@@ -207,6 +210,10 @@ def triangulate_gn(P_mats: torch.Tensor, cams: torch.Tensor,
     valid = torch.empty(N, dtype=torch.bool, device=dev)
     if N == 0:
         return X, mse, valid
+    smem = kernels.lib().eg3d_triangulate_gn_smem(V, O)
+    if smem > 48 * 1024:
+        raise ValueError(f"triangulate_gn: a {V}-camera table needs {smem} "
+                         f"B of shared memory (> 48 KiB)")
     rc = kernels.lib().eg3d_triangulate_gn(
         P_mats.data_ptr(), V, cams.data_ptr(), xy.data_ptr(),
         mask.data_ptr(), N, O, kernels.ptr(X0), max_iters, epsilon,

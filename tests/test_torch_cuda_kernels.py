@@ -109,75 +109,209 @@ def test_epipolar_topm_kernel_matches_plain(scene, exclude):
     _assert_same_candidates(got, ref)
 
 
-@pytest.mark.parametrize("O,warm", [(2, False), (3, False), (3, True),
-                                    (8, True), (8, False)])
-def test_triangulate_gn_kernel_matches_plain(scene, O, warm):
-    sfmd, ctx = scene
-    rng = np.random.default_rng(O + 10 * warm)
-    N = 8192
-    V = ctx.P_mats.shape[0]
+def _gn_problem(sfmd, P, N, O, rng, mask_p=0.85):
+    """N points of the scene seen by O random cameras of P [V, 3, 4]
+    (numpy), with 1.5 px noise, a fifth gross outliers and random
+    (non-prefix) masks."""
+    V = len(P)
     X = sfmd.points[rng.integers(0, sfmd.n_points, N)] \
         + rng.normal(0, 0.01, (N, 3))
     cams = np.stack([rng.permutation(V)[:O] for _ in range(N)]) \
         .astype(np.int32)
-    P = sfmd.P[cams]                                         # [N,O,3,4]
     Xh = np.concatenate([X, np.ones((N, 1))], 1)
-    proj = np.einsum("noij,nj->noi", P, Xh)
+    proj = np.einsum("noij,nj->noi", P[cams], Xh)
     xy = proj[..., :2] / proj[..., 2:3] + rng.normal(0, 1.5, (N, O, 2))
     xy[rng.random(N) < 0.2, 0] += 25.0          # gross outliers: rejects
-    mask = rng.random((N, O)) < 0.85
+    mask = rng.random((N, O)) < mask_p
+    return X, cams, xy.astype(np.float32), mask
+
+
+@pytest.mark.parametrize("O,warm,case", [
+    (2, False, "random"), (3, False, "random"), (3, True, "random"),
+    (3, False, "masked"), (3, False, "many rows"), (3, True, "many rows"),
+    (8, True, "random"), (8, False, "random"), (8, False, "inf masked"),
+    (8, True, "inf masked")])
+def test_triangulate_gn_kernel_matches_plain(scene, O, warm, case):
+    """K3's O = 3 register body (with masked observations at 30% in
+    "masked"; with 200,003 rows in "many rows", a count that is no
+    multiple of the block) and its
+    general body, which walks only the present observations of random
+    non-prefix masks, against the padded plain twin.  "inf masked" puts
+    inf at every masked observation, so the padded sums turn NaN
+    (0 * inf): the general body must redo such rows padded and give the
+    plain twin's NaN mse and decisions."""
+    sfmd, ctx = scene
+    rng = np.random.default_rng(O + 10 * warm + 100 * len(case))
+    N = 200003 if case == "many rows" else 8192
+    X, cams, xy, mask = _gn_problem(sfmd, sfmd.P, N, O, rng,
+                                    0.7 if case == "masked" else 0.85)
+    if case == "inf masked":
+        xy[~mask] = np.inf
     dev = ctx.device
     args = (ctx.P_mats, torch.as_tensor(cams, device=dev),
-            torch.as_tensor(xy.astype(np.float32), device=dev),
-            torch.as_tensor(mask, device=dev))
+            torch.as_tensor(xy, device=dev), torch.as_tensor(mask, device=dev))
     X0 = (torch.as_tensor((X + rng.normal(0, 0.02, X.shape))
                           .astype(np.float32), device=dev) if warm else None)
     kw = dict(X0=X0, max_iters=8 if warm else 30, accept_mse=9.0)
+    n0 = kernels.LAUNCHES["triangulate_gn"]
     Xk, msek, okk = triangulation.triangulate_gn(*args, **kw)
+    assert kernels.LAUNCHES["triangulate_gn"] == n0 + 1
     Xp, msep, okp = triangulation._triangulate_gn_plain(
         *args, X0, kw["max_iters"], 5e-7, 9.0, 1e-5)
     torch.cuda.synchronize()
     assert okp.any() and not okp.all()
     assert torch.equal(okk, okp)
+    assert torch.equal(msek.isnan(), msep.isnan())
+    if case == "inf masked":
+        assert msep.isnan().any()
     torch.testing.assert_close(Xk[okp], Xp[okp], rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(msek[okp], msep[okp], rtol=1e-4, atol=1e-6)
 
 
-def test_follow_walk_kernel_matches_plain(scene):
+def test_triangulate_gn_kernel_large_camera_table(scene):
+    """The general body stages the P table in shared memory: a 1,100-
+    camera table does not fit its 48 KiB and the wrapper raises before
+    launching, while the O = 3 body (no table staged) takes it."""
     sfmd, ctx = scene
+    rng = np.random.default_rng(4)
+    V = ctx.P_mats.shape[0]
+    reps = -(-1100 // V)
+    P_big = np.tile(sfmd.P, (reps, 1, 1))[:1100]
+    dev = ctx.device
+    P_t = torch.as_tensor(P_big.astype(np.float32), device=dev)
+    for O in (3, 4):
+        _, cams, xy, mask = _gn_problem(sfmd, sfmd.P, 4096, O, rng)
+        cams = cams + V * rng.integers(0, 1100 // V, cams.shape,
+                                       dtype=np.int32)
+        args = (P_t, torch.as_tensor(cams, device=dev),
+                torch.as_tensor(xy, device=dev),
+                torch.as_tensor(mask, device=dev))
+        if O == 4:
+            with pytest.raises(ValueError, match="shared memory"):
+                triangulation.triangulate_gn(*args)
+            continue
+        Xk, _, okk = triangulation.triangulate_gn(*args)
+        Xp, _, okp = triangulation._triangulate_gn_plain(*args, None, 30,
+                                                         5e-7, 9.0, 1e-5)
+        torch.cuda.synchronize()
+        assert okp.any() and torch.equal(okk, okp)
+        torch.testing.assert_close(Xk[okp], Xp[okp], rtol=1e-4, atol=1e-6)
+
+
+def _plain_follow(args, T, cfg):
+    """K4's plain twin on the same (card) tensors as the kernel."""
+    walk, gn = following.follow_params(cfg, args[-1] is not None)
+    return following._follow_plain(*args, T, *walk, *gn)
+
+
+def _assert_same_follow(got, ref):
+    """K4 against its plain twin: every decision equal, every slot
+    (zeros beyond the cut) within 1e-5 px, X within 1e-4 relative."""
+    for f in ("valid", "n_steps", "seg", "final_seg"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    for f in ("obs", "t", "final_t"):
+        torch.testing.assert_close(getattr(got, f), getattr(ref, f), rtol=0,
+                                   atol=1e-5, msg=f)
+    torch.testing.assert_close(got.X, ref.X, rtol=1e-4, atol=1e-6)
+
+
+def _scene_seeds(sfmd, ctx):
     obs_xy, obs_mask = refpoints.dense_observations(sfmd)
     dev = ctx.device
     seeds = refpoints.compute_seeds_chunk(
         ctx, torch.as_tensor(obs_xy, device=dev),
         torch.as_tensor(obs_mask, device=dev),
         torch.as_tensor(obs_mask, device=dev))
+    assert len(seeds["cams"]) > 0
+    return seeds
+
+
+def _follow_args(ctx, seeds, rows, dirs, active, warm):
+    """follow_walk's positional arguments up to X0 for the seeds `rows`."""
+    pick = lambda k, dt=None: (seeds[k][rows] if dt is None
+                               else seeds[k][rows].to(dt))
+    i32 = torch.int32
+    return (ctx.plg_coords, ctx.plg_length, ctx.F_table, ctx.P_mats,
+            pick("cams", i32), pick("pl_id", i32), pick("seg", i32),
+            pick("t"), pick("xy"), dirs, active,
+            pick("X") if warm else None)
+
+
+@pytest.mark.parametrize("warm,T,accept", [(False, 32, 9.0), (False, 8, 0.2),
+                                           (True, 1, 9.0), (True, 4, 0.2)])
+def test_follow_walk_kernel_matches_plain(scene, warm, T, accept):
+    """The fused K4 (walk plus the GN acceptance of every step, cold: DLT
+    and 30 iterations; warm: 8 iterations from the seed's X) against its
+    plain twin (the walk, the GN over its live steps, the prefix cut).
+    The tight MSE gate (0.2) cuts chains at a GN failure."""
+    sfmd, ctx = scene
+    cfg = ctx.config.replace(match_gn_max_mse=accept)
+    seeds = _scene_seeds(sfmd, ctx)
     S = len(seeds["cams"])
-    assert S > 0
-    rng = np.random.default_rng(0)
+    dev = ctx.device
+    rng = np.random.default_rng(T)
     dirs = torch.as_tensor(rng.choice([-1, 1], (S, 3)).astype(np.int32),
                            device=dev)
-    args = (ctx.plg_coords, ctx.plg_length, ctx.F_table,
-            seeds["cams"].to(torch.int32), seeds["pl_id"].to(torch.int32),
-            seeds["seg"].to(torch.int32), seeds["t"], seeds["xy"], dirs,
-            torch.ones(S, dtype=torch.bool, device=dev), 32, 10.0, 5.0,
-            20.0, 0.965, 5.0)
-    got = following.follow_walk(*args)
-    ref = following._walk_plain(*args)
+    args = _follow_args(ctx, seeds, torch.arange(S, device=dev), dirs,
+                        torch.ones(S, dtype=torch.bool, device=dev), warm)
+    n0 = kernels.LAUNCHES["follow_walk"]
+    got = following.follow_walk(*args, T, cfg)
+    assert kernels.LAUNCHES["follow_walk"] == n0 + 1
+    ref = _plain_follow(args, T, cfg)
     torch.cuda.synchronize()
-    assert ref.alive[:, 0].any()
-    assert torch.equal(got.alive, ref.alive)
-    live = ref.alive
-    assert torch.equal(got.seg[live], ref.seg[live])
-    torch.testing.assert_close(got.obs[live], ref.obs[live], rtol=0,
-                               atol=1e-5)
-    torch.testing.assert_close(got.t[live], ref.t[live], rtol=0, atol=1e-6)
+    assert ref.valid[:, 0].any()
+    if accept < 1.0:                           # chains ended by the GN
+        at = ref.n_steps.clamp(max=T - 1).long()
+        assert ((ref.n_steps < T)
+                & (ref.obs[torch.arange(S), at] != 0).flatten(1).any(1)).any()
+    _assert_same_follow(got, ref)
 
 
-def _walk_with_negative_ids(coords, lengths, F_table, dev):
+def test_follow_walk_kernel_refills_lanes(scene):
+    """Lane refill at its edges: a lane count that is no multiple of the
+    block (128), lanes dead at step 0 mixed with lanes that stay alive
+    for all T steps, then every lane dead at step 0, then every lane
+    alive for T steps: each seed's slots as its plain twin's."""
+    sfmd, ctx = scene
+    seeds = _scene_seeds(sfmd, ctx)
+    S = len(seeds["cams"])
+    dev = ctx.device
+    T = 4
+    ones = torch.ones(S, dtype=torch.bool, device=dev)
+    dirs = torch.ones((S, 3), dtype=torch.int32, device=dev)
+    full = following.follow_walk(*_follow_args(
+        ctx, seeds, torch.arange(S, device=dev), dirs, ones, False), T,
+        ctx.config)
+    long_ = torch.nonzero(full.n_steps == T).flatten()
+    assert len(long_) > 0
+    rng = np.random.default_rng(1)
+    n = 3001
+    for case in ("mixed", "all dead", "all alive"):
+        if case == "all alive":
+            rows = long_[torch.as_tensor(rng.integers(0, len(long_), n),
+                                         device=dev)]
+        else:
+            rows = torch.as_tensor(rng.integers(0, S, n), device=dev)
+        active = (torch.as_tensor(rng.random(n) < 0.5, device=dev)
+                  if case == "mixed" else
+                  torch.full((n,), case == "all alive", device=dev))
+        args = _follow_args(ctx, seeds, rows, dirs[rows], active, False)
+        got = following.follow_walk(*args, T, ctx.config)
+        ref = _plain_follow(args, T, ctx.config)
+        torch.cuda.synchronize()
+        _assert_same_follow(got, ref)
+        if case == "all dead":
+            assert not got.valid.any()
+        if case == "all alive":
+            assert bool((got.n_steps == T).all())
+
+
+def _walk_with_negative_ids(ctx):
     """follow_walk arguments where a third of the lanes carry pl = -1 and
     seg = -1, every lane active, half of them driven from view 0.  Each
     view's last polyline slot holds a copy of its longest polyline, so
     the lanes with pl = -1 walk."""
+    coords, lengths, dev = ctx.plg_coords, ctx.plg_length, ctx.device
     V, P, L, _ = coords.shape
     rng = np.random.default_rng(5)
     longest = lengths.argmax(1)
@@ -201,10 +335,10 @@ def _walk_with_negative_ids(coords, lengths, F_table, dev):
     dirs = rng.choice([-1, 1], (S, 3)).astype(np.int32)
     dirs[:, 0] = 1
     as_t = lambda a: torch.as_tensor(a, device=dev)
-    return bad, (coords.to(dev), lengths.to(dev), F_table.to(dev), as_t(cams),
+    return bad, (coords, lengths, ctx.F_table, ctx.P_mats, as_t(cams),
                  as_t(pl), as_t(seg), as_t(t), as_t(xy.astype(np.float32)),
-                 as_t(dirs), torch.ones(S, dtype=torch.bool, device=dev), 4,
-                 10.0, 5.0, 20.0, 0.965, 5.0)
+                 as_t(dirs), torch.ones(S, dtype=torch.bool, device=dev),
+                 None)
 
 
 def test_follow_walk_kernel_wraps_negative_ids(scene):
@@ -213,17 +347,12 @@ def test_follow_walk_kernel_wraps_negative_ids(scene):
     view's last polyline, as the twin's torch index does, and never read
     outside the table."""
     _, ctx = scene
-    bad, args = _walk_with_negative_ids(ctx.plg_coords, ctx.plg_length,
-                                        ctx.F_table, ctx.device)
-    got = following.follow_walk(*args)
-    ref = following._walk_plain(*args)
+    bad, args = _walk_with_negative_ids(ctx)
+    got = following.follow_walk(*args, 4, ctx.config)
+    ref = _plain_follow(args, 4, ctx.config)
     torch.cuda.synchronize()
-    assert ref.alive[torch.as_tensor(bad, device=ctx.device), 0].any()
-    assert torch.equal(got.alive, ref.alive)
-    live = ref.alive
-    assert torch.equal(got.seg[live], ref.seg[live])
-    torch.testing.assert_close(got.obs[live], ref.obs[live], rtol=0,
-                               atol=1e-5)
+    assert ref.valid[torch.as_tensor(bad, device=ctx.device), 0].any()
+    _assert_same_follow(got, ref)
 
 
 def test_stage3_on_gpu_matches_cpu(scene):

@@ -65,6 +65,19 @@ def test_seeds_match_jax(setup):
                                atol=1e-6)
 
 
+def _check_gn_cut_first_step(j, t):
+    """pack_follow_outputs' final_xy of a seed with no accepted step reads
+    obs_xy[:, 0]: where the port's walk made step 0 and its GN failed,
+    JAX's slot holds the same observation (the port zeroes a step whose
+    walk failed; JAX keeps whatever it computed there).  Returns the
+    number of such seeds."""
+    first = t.obs_xy.numpy()[:, 0]
+    gn_cut = (t.n_steps.numpy() == 0) & (first != 0).any((1, 2))
+    np.testing.assert_allclose(first[gn_cut], np.asarray(j.obs_xy)[gn_cut, 0],
+                               rtol=2e-5, atol=1e-4)
+    return int(gn_cut.sum())
+
+
 def _seed_tuples(seeds_np):
     n = len(seeds_np["cams"])
     j = jf.SeedTuple(**{k: jnp.asarray(v) for k, v in seeds_np.items()},
@@ -76,6 +89,8 @@ def _seed_tuples(seeds_np):
 
 @pytest.mark.parametrize("max_steps", [16, 3])
 def test_follow_bidirectional_matches_jax(setup, max_steps):
+    """K4's plain twin (walk, GN over the live steps, prefix cut) against
+    JAX's follow on every field a consumer reads."""
     _, jctx, tctx, seeds_np, _ = setup
     js, ts = _seed_tuples(seeds_np)
     jfwd, jbwd, _ = jf.follow_seeds_bidirectional(
@@ -98,8 +113,32 @@ def test_follow_bidirectional_matches_jax(setup, max_steps):
                                    rtol=1e-4, atol=1e-6)
         np.testing.assert_allclose(t.final_t.numpy(),
                                    np.asarray(j.final_t), rtol=0, atol=1e-4)
+        _check_gn_cut_first_step(j, t)
     if max_steps == 3:
         assert (tfwd.n_steps.numpy() >= 3).any()     # truncated chains
+
+
+@pytest.mark.parametrize("drive", [1, -1])
+def test_resolve_configuration_matches_jax(setup, drive):
+    """The 12 one-step trials (K4 with T = 1, GN warm-started from the
+    seed): the same configuration and the same ok per seed."""
+    _, jctx, tctx, seeds_np, _ = setup
+    js, ts = _seed_tuples(seeds_np)
+    V, P, L, _ = jctx.plg_coords.shape
+    packed = jnp.concatenate([jctx.plg_coords[..., 0],
+                              jctx.plg_coords[..., 1]], -1) \
+        .reshape(V * P, 2 * L)
+    j = jf.resolve_configuration(js, packed, jctx.plg_length, jctx.P_mats,
+                                 jctx.F_table, jnp.int32(drive), jctx.config)
+    t = tf.resolve_configuration(ts, tctx.plg_coords, tctx.plg_length,
+                                 tctx.P_mats, tctx.F_table,
+                                 torch.tensor(drive, dtype=torch.int32),
+                                 tctx.config)
+    for a, b in zip(t, j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    ok = t[2].numpy()
+    assert ok.any() and not ok.all()
+    assert (t[0].numpy()[ok] != [0, 1, 2]).any(1).any()   # not all d = 0
 
 
 def test_follow_fixed_configuration_matches_jax(setup):
@@ -123,6 +162,36 @@ def test_follow_fixed_configuration_matches_jax(setup):
     np.testing.assert_array_equal(t.final_seg.numpy(),
                                   np.asarray(j.final_seg))
     assert np.asarray(j.valid).any()
+
+
+@pytest.mark.parametrize("accept_mse", [0.05, 0.2])
+def test_follow_gn_cut_matches_jax(setup, accept_mse):
+    """A tight MSE gate makes the GN fail on walked steps, from given
+    configurations (the continuation rounds' entry, where no direction
+    trial has vetted step 0): the chains are cut at the same step as
+    JAX's, and a seed cut at step 0 keeps its walk observation there, as
+    JAX's does."""
+    _, jctx, tctx, seeds_np, _ = setup
+    js, ts = _seed_tuples(seeds_np)
+    n = len(seeds_np["cams"])
+    rng = np.random.default_rng(2)
+    perms = np.asarray([[0, 1, 2], [1, 0, 2], [2, 0, 1]], np.int32)
+    perm = perms[rng.integers(0, 3, n)]
+    dirs = rng.choice([-1, 1], (n, 3)).astype(np.int32)
+    j = jf.follow_seeds(js, jctx.plg_coords, jctx.plg_length, jctx.P_mats,
+                        jctx.F_table, jnp.int32(1),
+                        jctx.config.replace(match_gn_max_mse=accept_mse), 8,
+                        fixed_perm=jnp.asarray(perm),
+                        fixed_dirs=jnp.asarray(dirs))
+    t = tf.follow_seeds(ts, tctx.plg_coords, tctx.plg_length, tctx.P_mats,
+                        tctx.F_table, torch.ones((), dtype=torch.int32),
+                        tctx.config.replace(match_gn_max_mse=accept_mse), 8,
+                        fixed_perm=torch.as_tensor(perm),
+                        fixed_dirs=torch.as_tensor(dirs))
+    for f in ("valid", "n_steps", "final_seg"):
+        np.testing.assert_array_equal(getattr(t, f).numpy(),
+                                      np.asarray(getattr(j, f)), f)
+    assert _check_gn_cut_first_step(j, t) > 0
 
 
 def test_pack_and_chunk_size_invariance(setup):

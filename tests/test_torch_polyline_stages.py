@@ -52,10 +52,8 @@ def test_sample_interval_points_matches_jax():
                                    jnp.asarray(lengths))]
     t = [a.numpy() for a in tpo.sample_interval_points(
         torch.as_tensor(coords), torch.as_tensor(lengths), 20.0, 24)]
-    np.testing.assert_array_equal(t[3], j[3])             # valid
-    np.testing.assert_array_equal(t[1], j[1])             # seg
-    np.testing.assert_allclose(t[0], j[0], rtol=0, atol=1e-4)
-    np.testing.assert_allclose(t[2], j[2], rtol=0, atol=1e-4)
+    for a, b in zip(t, j):                                # bit for bit
+        np.testing.assert_array_equal(a, b)
     assert j[3][:, 1:].any() and not j[3][:2].any()       # lengths 0 and 1
     assert j[3][2, 0]                                     # length 2: first
 
@@ -148,37 +146,46 @@ def test_group_seeds_match_jax(ctxs, group_chunk):
                                    err_msg=k)
 
 
-def test_sweep_lines_match_jax_bit_for_bit(ctxs):
-    """The stage-1/2 sweep's epipolar lines, from JAX's own samples of
-    the match-set members: `epipolar_line_fma` equals the JAX einsum +
-    normalization of polyline_stages._group_seed_sweep bit for bit (the
-    FMAs XLA's CPU code makes), where rounding every product does not."""
+@pytest.fixture(scope="module")
+def jax_sweep(ctxs):
+    """polyline_stages._group_seed_sweep of the JAX package up to its
+    normalized lines, jitted as the sweep runs it, on the cube scene's
+    match sets: the member rows and lengths, the interval samples
+    (s_xy, s_seg, s_t, s_valid), the F pairs and the lines."""
     sfmd, jctx, _ = ctxs
     groups = (jps.similarity_match_sets(sfmd, jctx)
               + jps.closeness_match_sets(sfmd, jctx))
     cam, pl, msk = tps._member_table(groups, 8)
 
     @jax.jit
-    def jax_lines(plg_coords, plg_length, F_table, grp_cam, grp_pl,
-                  grp_mask):
-        # polyline_stages._group_seed_sweep up to its normalized lines
+    def run(plg_coords, plg_length, F_table, grp_cam, grp_pl, grp_mask):
         cam_safe = jnp.maximum(grp_cam, 0)
         pl_safe = jnp.maximum(grp_pl, 0)
         coords = plg_coords[cam_safe, pl_safe]
         lengths = jnp.where(grp_mask, plg_length[cam_safe, pl_safe], 0)
-        s_xy = jax.vmap(jax.vmap(lambda c, n: jpo.sample_interval_points(
-            c, n, 20.0, 24)[0]))(coords, lengths)
+        samples = jax.vmap(jax.vmap(lambda c, n: jpo.sample_interval_points(
+            c, n, 20.0, 24)))(coords, lengths)
+        s_xy = samples[0]
         xyh = jnp.concatenate([s_xy, jnp.ones(s_xy.shape[:-1] + (1,),
                                               s_xy.dtype)], -1)
         F_pair = F_table[cam_safe[:, :, None], cam_safe[:, None, :]]
         lines = jnp.einsum("gkjab,gksb->gksja", F_pair, xyh,
                            precision=jax.lax.Precision.HIGHEST)
         ln = jnp.sqrt(lines[..., 0] ** 2 + lines[..., 1] ** 2)
-        return s_xy, F_pair, lines / jnp.maximum(ln, 1e-20)[..., None]
+        return (coords, lengths, samples, F_pair,
+                lines / jnp.maximum(ln, 1e-20)[..., None])
 
-    s_xy, F_pair, want = (np.asarray(a) for a in jax_lines(
-        jctx.plg_coords, jctx.plg_length, jctx.F_table, jnp.asarray(cam),
-        jnp.asarray(pl), jnp.asarray(msk)))
+    out = run(jctx.plg_coords, jctx.plg_length, jctx.F_table,
+              jnp.asarray(cam), jnp.asarray(pl), jnp.asarray(msk))
+    return jax.tree.map(np.array, out)
+
+
+def test_sweep_lines_match_jax_bit_for_bit(jax_sweep):
+    """The stage-1/2 sweep's epipolar lines, from JAX's own samples of
+    the match-set members: `epipolar_line_fma` equals the JAX einsum +
+    normalization of polyline_stages._group_seed_sweep bit for bit (the
+    FMAs XLA's CPU code makes), where rounding every product does not."""
+    _, _, (s_xy, _, _, _), F_pair, want = jax_sweep
     args = (torch.as_tensor(F_pair)[:, :, None],
             torch.as_tensor(s_xy)[:, :, :, None, :])
     got = epipolar_line_fma(*args).numpy()
@@ -187,16 +194,41 @@ def test_sweep_lines_match_jax_bit_for_bit(ctxs):
     assert (epipolar_line(*args).numpy() != want).any()
 
 
+def test_sweep_samples_match_jax_bit_for_bit(jax_sweep):
+    """The sweep's interval samples of the match-set members, as the
+    jitted JAX sweep makes them: the port's sample_interval_points equals
+    them bit for bit, and so does each single step taken from JAX's
+    previous sample (polyline_ops.advance_by_distance_xy takes the
+    multiply-adds XLA's CPU code fuses)."""
+    coords, lengths, want, _, _ = jax_sweep
+    G, K, L, _ = coords.shape
+    c = torch.as_tensor(coords).reshape(G * K, L, 2)
+    n = torch.as_tensor(lengths).reshape(-1).to(torch.int32)
+    got = tpo.sample_interval_points(c, n, 20.0, 24)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy().reshape(b.shape), b)
+    s_xy, s_seg = (torch.as_tensor(a).reshape(G * K, 24, *a.shape[3:])
+                   for a in want[:2])
+    alive = torch.as_tensor(want[3]).reshape(G * K, 24)
+    fwd = torch.ones(G * K, dtype=torch.int32)
+    for i in range(23):
+        nxt = alive[:, i + 1]
+        step = tpo.advance_by_distance(c, n, s_seg[:, i], s_xy[:, i], fwd,
+                                       20.0)
+        same = (step.xy == s_xy[:, i + 1]).all(1) \
+            & (step.seg == s_seg[:, i + 1])
+        assert bool(same[nxt].all()), i
+    assert int(alive.sum()) > 400
+
+
 def test_group_seed_follow_chunk_independent(ctxs):
     """The fused stage-1/2 phase (seeds + bidirectional follow): the same
     seeds as JAX's, and the same follows, rows and claim metadata at any
     group chunk (a seed's global index decides its claims), and the
-    same follows as JAX's on all but 3 of 275 seeds.  The port computes
-    the sweep's epipolar lines with the FMAs XLA's CPU dot makes
-    (geometry.epipolar_line_fma: bit-equal lines from equal samples, see
-    test_sweep_lines_match_jax_bit_for_bit), but XLA also contracts the
-    interval sampling's arithmetic, so some samples differ by an ULP and
-    3 walks flip a gate (ROADMAP queue C)."""
+    same follows as JAX's on every seed: the port samples and computes
+    the sweep's epipolar lines with the multiply-adds XLA's CPU code
+    fuses (test_sweep_samples_match_jax_bit_for_bit,
+    test_sweep_lines_match_jax_bit_for_bit)."""
     sfmd, jctx, tctx = ctxs
     groups = (jps.similarity_match_sets(sfmd, jctx)
               + jps.closeness_match_sets(sfmd, jctx))
@@ -225,7 +257,7 @@ def test_group_seed_follow_chunk_independent(ctxs):
     ma, mj = cat(r0a, lambda x: x[3]), cat(r0j, lambda x: x[3])[:, :39]
     disc = [0, 1, 2, 3, 7, 8, 9, 13, 14] + list(range(27, 39))
     flip = np.flatnonzero((ma[:, disc] != mj[:, disc]).any(1))
-    assert len(flip) <= 3, flip
+    assert len(flip) == 0, flip
     ok = np.setdiff1d(np.arange(len(ma)), flip)
     np.testing.assert_allclose(ma[ok][:, [4, 5, 6, 10, 11, 12]],
                                mj[ok][:, [4, 5, 6, 10, 11, 12]], rtol=0,
@@ -241,3 +273,33 @@ def test_group_seed_follow_chunk_independent(ctxs):
     np.testing.assert_array_equal(ra[:, 9:], rj[:, 9:])
     np.testing.assert_allclose(ra[:, :3], rj[:, :3], rtol=0, atol=1e-4)
     np.testing.assert_allclose(ra[:, 3:9], rj[:, 3:9], rtol=0, atol=1e-3)
+
+
+def test_stage1_sweep_short_walks_match_jax(ctxs):
+    """The stage-1 sweep with 4-step walks (every chain truncated and
+    continued): the port's group seeds, follows and claims make as many
+    points as the JAX package's, with the same chain identities."""
+    import dataclasses
+
+    from edgegraph3d_tpu.matching import matches as jm
+    from edgegraph3d_tpu_torch.matching import matches as tm
+    sfmd, jctx, tctx = ctxs
+    jctx = dataclasses.replace(jctx, config=jctx.config.replace(
+        max_follow_steps=4))
+    tctx = dataclasses.replace(tctx, config=tctx.config.replace(
+        max_follow_steps=4))
+    groups = jps.similarity_match_sets(sfmd, jctx)
+    r0j, _ = jps.group_seeds_and_follow(groups, jctx)
+    r0t, _ = tps.group_seeds_and_follow(groups, tctx)
+    lengths = np.asarray(jctx.plg_length)
+    j = jrp.sweep_seeds(None, None, jctx, jm.MatchesManager(lengths),
+                        precomputed=r0j)
+    t = trp.sweep_seeds(None, None, tctx, tm.MatchesManager(lengths),
+                        precomputed=r0t)
+    assert len(t[0]) == len(j[0]) > 100
+    oj, ot = np.lexsort((j[5], j[4])), np.lexsort((t[5], t[4]))
+    for i in (2, 3, 4, 5):                # cams3, refs, seed ids, orders
+        np.testing.assert_array_equal(np.asarray(t[i])[ot],
+                                      np.asarray(j[i])[oj])
+    np.testing.assert_allclose(np.asarray(t[0])[ot], np.asarray(j[0])[oj],
+                               rtol=0, atol=1e-4)
