@@ -14,6 +14,9 @@ its final `ok` line:
      may differ on at most 1e-4 of the rows (0 expected: the kernels are
      built with --fmad=false and follow the twins' operation order),
      coordinates must agree within 1e-3 px (3D points 1e-4 relative).
+     K1 is also timed as its launch alone into preallocated outputs and
+     by its device time (a torch.profiler trace), in the view-by-view
+     order the main path's callers ask for and in the caller's order.
      K2's launch alone runs in its 8-lane body and its one-thread body
      (the one K7's "epipolar" mode runs, and K2's design before that) on
      the queries in the caller's, the view and the (view, cell) order,
@@ -27,8 +30,10 @@ its final `ok` line:
      cut at the first GN failure) with 0 decision mismatches allowed and
      X within 1e-4 relative.  K5 gather_rows must be bit-equal to
      `table[rows]` at the Pallas probe's shape (int32 indices) and at
-     the chain-extension shape (int64); K6 group_seed_sample runs on the
-     full scene's stage-1 match sets, with 0 decision mismatches allowed.
+     the chain-extension shape (int64), both timed over 200 calls per
+     event pair, with K5's launch alone and both device times; K6
+     group_seed_sample runs on the full scene's stage-1 match sets, with
+     0 decision mismatches allowed.
      K7 expand_chains runs the whole expansion of the full scene's
      stage-3 chains and of the first chain-extension round's chains, in
      the chunks refpoints.chain_chunks makes, in one launch per chunk
@@ -43,7 +48,13 @@ its final `ok` line:
      must equal those of
      the host build with label propagation on the CPU; label
      propagation's bucket sums must be bit-equal on the card and the CPU
-     (the ordered sums that keep its tie rule);
+     (the ordered sums that keep its tie rule).  Last, the large-table
+     check: K3's general body at 1,100 and 5,000 cameras, K6 with 128 and
+     460 members, K7 in "epipolar" mode at 400 and in "closest" mode at
+     5,000 cameras (tiled cameras), each against its plain version with
+     0 decision mismatches (K7 bit-equal), each launch's table placement
+     logged and required to be the one kernels.table_placement gives on
+     an H100;
   3. the main path on the benchmark's 8-view cube trend workload:
      stage 3 alone (`run_pipeline(stages=(3,))`), the default stages
      (1, 2, 3) through the file entry `edge_matching` on files written
@@ -76,6 +87,12 @@ in one call; it prints one JSON line and skips every check.
 
 does the same for K3 (phase 2's two shapes) and the follow (one
 follow_seeds call on phase 2's seeds, and each of its K4 launches).
+
+    python3 chip_smoke.py --time-k1-k6 ROOT
+
+does the same for K1 (its wrapper, its launch alone into preallocated
+outputs and its device time, at phase 2's M = 4 shape) and K6 (its
+wrapper and device time on the first 64 stage-1 match sets).
 """
 
 from __future__ import annotations
@@ -292,6 +309,71 @@ def record_into(results, name, mism, rows, err, ms, plain_ms, err_tol,
         fail(f"{name}: coordinate error {gated} > {err_tol}")
 
 
+def device_ms(fn, reps: int, name: str) -> float:
+    """Mean device time per call of fn() of the CUDA kernels whose name
+    holds `name`, from a torch.profiler trace of `reps` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            us += float(t if t is not None else e.self_cuda_time_total)
+    return us / 1e3 / reps
+
+
+def k1_times(args, want):
+    """K1 at one shape, its queries laid out as view = arange(V).repeat(N)
+    (the main path's callers' layout), three ways: the wrapper
+    (`wrapper_ms`, outputs allocated per call), its launch alone into
+    preallocated outputs (`launch_ms`: the C entry through ctypes, as the
+    wrapper calls it), and the kernel's device time from a profiler trace
+    (`device_ms`); where the checkout's K1 takes the view-by-view order,
+    the launch and device times in the caller's order too (`*_q_order`).
+    Each launch's outputs must equal the wrapper's result `want`."""
+    import torch
+
+    from edgegraph3d_tpu_torch import kernels
+    from edgegraph3d_tpu_torch.matching import detection
+    grids, view, pts, cell, radius, M = args
+    V, GH, GW, Kc, _ = grids.shape
+    Q = len(view)
+    out = detection._empty_outputs(Q, M, pts.device)
+    ptrs = detection._out_ptrs(out)
+    lib = kernels.lib()
+    stream = kernels.stream_of(pts)
+    ordered = len(kernels._SIGNATURES["eg3d_grid_topm"]) == 19
+
+    def launch(n_rows):
+        extra = (n_rows,) if ordered else ()
+        kernels.check(lib.eg3d_grid_topm(
+            grids.data_ptr(), V, GH, GW, Kc, view.data_ptr(), pts.data_ptr(),
+            Q, float(cell), float(radius), M, *extra, *ptrs, stream),
+            "grid_topm_query")
+
+    wrap = (lambda: detection.grid_topm_query(*args, view_cycle=True)) \
+        if ordered else (lambda: detection.grid_topm_query(*args))
+    _, wrapper_ms = cuda_time(wrap, 50)
+    res = dict(queries=Q, wrapper_ms=wrapper_ms)
+    for key, n_rows in (("", Q // V), ("_q_order", 0)):
+        if key and not ordered:
+            break
+        for t in out:
+            t.fill_(7)                    # every slot must be rewritten
+        _, res["launch_ms" + key] = cuda_time(lambda: launch(n_rows), 50)
+        res["launch_identical" + key] = all(
+            torch.equal(a, b) for a, b in zip(out, want))
+        res["device_ms" + key] = device_ms(lambda: launch(n_rows), 20,
+                                           "grid_topm")
+    return res
+
+
 def k2_variants(ctx, args2, want):
     """K2's launch alone in its 8-lane body and its one-thread body, on
     the queries as the caller issues them (start-major; the one-thread
@@ -364,9 +446,14 @@ def compare_kernels(ctx, sfmd):
     pts = ox.reshape(N * V, 2)
     args = (ctx.grids, view, pts, ctx.cell, cfg.detection_starting_dist_px,
             M)
-    got, ms = cuda_time(lambda: detection.grid_topm_query(*args), 10)
+    got, ms = cuda_time(lambda: detection.grid_topm_query(
+        *args, view_cycle=True), 10)
     ref, pms = cuda_time(lambda: detection._grid_topm_plain(*args), 1)
     mism, err, rows = _cand_diff(got, ref)
+    k1 = k1_times(args, got)
+    log(f"  grid_topm_query M={M}: {json.dumps(k1)}")
+    if not all(v for k, v in k1.items() if k.startswith("launch_ident")):
+        fail("grid_topm_query: the launch alone differs from the wrapper")
     Kc = ctx.grids.shape[3]
     entries, cells = grid_work(ctx.grids, view, pts, ctx.cell, 1)
     record("grid_topm_query", mism, rows, err, ms, pms, COORD_TOL_PX,
@@ -591,6 +678,7 @@ def compare_stage12_kernels(ctx, sfmd, results):
     import numpy as np
     import torch
 
+    from edgegraph3d_tpu_torch import kernels
     from edgegraph3d_tpu_torch.matching import communities, polyline_stages
     from edgegraph3d_tpu_torch.matching import refpoints as rp
     from edgegraph3d_tpu_torch.matching.detection import grid_topm_query
@@ -602,16 +690,31 @@ def compare_stage12_kernels(ctx, sfmd, results):
 
     def check_gather(label, table, rows, reps):
         """K5 against table[rows] (its plain version, and the one PyTorch
-        call that computes the same function)."""
+        call that computes the same function), each over `reps` calls per
+        event pair, and K5's launch alone into a preallocated output."""
+        from edgegraph3d_tpu_torch import kernels
         got, ms = cuda_time(lambda: gather.gather_rows(table, rows), reps)
         ref, pms = cuda_time(lambda: table[rows], reps)
         bad = int((got != ref).any(1).sum())
         err = float((got - ref).abs().max())
+        out = torch.empty_like(got)
+        lib, stream = kernels.lib(), kernels.stream_of(table)
+        launch = lambda: kernels.check(lib.eg3d_gather_rows(
+            table.data_ptr(), table.shape[0], table.shape[1],
+            rows.data_ptr(), int(rows.dtype == torch.int64), len(rows),
+            out.data_ptr(), stream), "gather_rows")
+        _, launch_ms = cuda_time(launch, reps)
+        if not torch.equal(out, got):
+            fail(f"gather_rows {label}: the launch alone differs")
+        dev_ms = device_ms(launch, 20, "gather_rows")
+        lib_dev_ms = device_ms(lambda: table[rows], 20, "")
         n_bytes = rows.numel() * (8 * table.shape[1] + rows.element_size())
         log(f"  gather_rows {label}: table={tuple(table.shape)} "
             f"rows={len(rows)} ({rows.dtype}) mismatched_rows={bad} "
-            f"max_abs_err={err:.3g} kernel_ms={ms:.4f} "
-            f"table[rows]_ms={pms:.4f} bytes={n_bytes} "
+            f"max_abs_err={err:.3g} calls_per_event_pair={reps} "
+            f"kernel_ms={ms:.4f} launch_alone_ms={launch_ms:.4f} "
+            f"device_ms={dev_ms:.4f} table[rows]_ms={pms:.4f} "
+            f"table[rows]_device_ms={lib_dev_ms:.4f} bytes={n_bytes} "
             f"bound_ms={bound(n_bytes, 0)[0]:.6f}")
         if bad:
             fail(f"gather_rows {label}: {bad} rows differ from table[rows]")
@@ -622,7 +725,7 @@ def compare_stage12_kernels(ctx, sfmd, results):
     table = torch.randn((65536, 128), generator=g, device=dev)
     rows = torch.randint(0, 65536, (16384,), generator=g, device=dev,
                          dtype=torch.int32)
-    err, _, _, _ = check_gather("probe shape", table, rows, 20)
+    err, _, _, _ = check_gather("probe shape", table, rows, 200)
     del table
     # K5 at the chain-extension shape: E x V rows of [L, 2] located by K1
     # (M=1) at every (refpoint, view) of the scene, E = the refpoints
@@ -635,7 +738,7 @@ def compare_stage12_kernels(ctx, sfmd, results):
                           cfg.extension_reanchor_px, 1)
     rows = view.long() * P + loc.pl_id[:, 0].clamp_min(0).long()
     err2, ms, pms, n_bytes = check_gather(
-        "extension shape", ctx.plg_coords.reshape(V * P, 2 * L), rows, 20)
+        "extension shape", ctx.plg_coords.reshape(V * P, 2 * L), rows, 200)
     record_into(results, "gather_rows", 0, len(rows), max(err, err2), ms,
                 pms, 0.0, exact=True, work=(n_bytes, 0.0), library_ms=pms)
 
@@ -722,8 +825,12 @@ def compare_stage12_kernels(ctx, sfmd, results):
     err = float((got[0] - ref[0]).abs().max())
     if hit.any():
         err = max(err, float((got[4] - ref[4]).abs()[hit].max()))
+    dms = device_ms(lambda: polyline_stages.group_seed_sample(*args), 20,
+                    "group_seed")
     log(f"  group_seed_sample: groups={cam.shape[0]} lanes={lanes} "
-        f"valid_samples={int(ref[3].sum())} crossings={int(ref[7].sum())}")
+        f"valid_samples={int(ref[3].sum())} crossings={int(ref[7].sum())} "
+        f"placement={kernels.LAST_PLACEMENT.get('group_seed_sample')} "
+        f"device_ms={dms:.4f}")
     G, K = cam.shape
     S = 24
     segs = float((lengths - 1).clamp_min(0).sum(1).sum()) * K * S
@@ -945,6 +1052,187 @@ def compare_expansion(ctx, sfmd, results):
 
 
 # ----------------------------------------------------------------------
+# phase 2: tables beyond 48 KiB of shared memory
+# ----------------------------------------------------------------------
+
+def _tiled(t, V_big, dims):
+    """t repeated along `dims` (each of size V) to V_big entries."""
+    import torch
+    idx = torch.arange(V_big, device=t.device) % t.shape[dims[0]]
+    for d in dims:
+        t = t.index_select(d, idx)
+    return t.contiguous()
+
+
+def _expect_placement(name, n_bytes, want):
+    """The placement kernels.table_placement gives `n_bytes` on this card
+    must be `want` (the check is built for an H100's limit), and the
+    kernel's last launch must have used it."""
+    import torch
+
+    from edgegraph3d_tpu_torch import kernels
+    opt = kernels.smem_optin_bytes(torch.device("cuda"))
+    where = kernels.LAST_PLACEMENT.get(name)
+    log(f"    {name}: table {n_bytes} B, opt-in limit {opt} B, "
+        f"placement {where}")
+    if kernels.table_placement(n_bytes, opt) != want or where != want:
+        fail(f"{name}: a {n_bytes} B table ran as {where}, expected {want}")
+
+
+def check_large_tables(ctx, sfmd):
+    """K3's general body, K6 and K7 on tables beyond 48 KiB of shared
+    memory, each against its plain version on the same inputs with 0
+    decision mismatches; each launch's placement is logged and must be
+    the one kernels.table_placement picks for an H100.  Camera tables are
+    the scene's P and F tiled to V views; member tables the scene's
+    polylines drawn at random."""
+    import torch
+
+    from edgegraph3d_tpu_torch.matching import polyline_stages
+    from edgegraph3d_tpu_torch.ops import triangulation
+
+    dev = ctx.device
+    cfg = ctx.config
+    V = ctx.P_mats.shape[0]
+    pts3 = torch.as_tensor(sfmd.points, dtype=torch.float32, device=dev)
+    # K3's general body: O = 8, 70% present, cold (DLT + 30 iterations)
+    for V_big, want in ((1100, "optin"), (5000, "global")):
+        P_big = _tiled(ctx.P_mats, V_big, [0])
+        gen = torch.Generator(device=dev).manual_seed(V_big)
+        n, O = 65536, 8
+        rnd = lambda *sh: torch.rand(*sh, generator=gen, device=dev)
+        cams = (rnd(n, O) * V_big).long().clamp_max(V_big - 1)
+        Xg = pts3[(rnd(n) * len(pts3)).long().clamp_max(len(pts3) - 1)]
+        Pg = P_big[cams]
+        pr = (Pg[..., :3] * Xg[:, None, None, :]).sum(-1) + Pg[..., 3]
+        xy = (pr[..., :2] / pr[..., 2:3]
+              + torch.randn(n, O, 2, generator=gen, device=dev)).contiguous()
+        mask = rnd(n, O) < 0.7
+        mask[:, :2] = True
+        a = (P_big, cams.to(torch.int32), xy, mask)
+        Xk, _, okk = triangulation.triangulate_gn(*a)
+        torch.cuda.synchronize()
+        log(f"  large tables, triangulate_gn V={V_big} O={O}: rows={n}")
+        _expect_placement("triangulate_gn",
+                          triangulation.gn_table_bytes(V_big), want)
+        Xp, _, okp = triangulation._triangulate_gn_plain(
+            *a, None, 30, cfg.gn_epsilon, 9.0, 1e-5)
+        both = okk & okp
+        rel = float(((Xk - Xp).abs() / Xp.abs().clamp_min(1e-3))[both]
+                    .max()) if both.any() else 0.0
+        mism = int((okk != okp).sum())
+        log(f"    valid={int(okp.sum())} decision_mismatches={mism} "
+            f"X_max_rel_err={rel:.3g}")
+        if mism or rel > 1e-4 or not okp.any():
+            fail(f"triangulate_gn V={V_big}: {mism} decisions differ, X "
+                 f"relative error {rel}")
+
+    # K6: one group of 128 members (opt-in), one of 460 (its polylines
+    # alone exceed the opt-in limit), drawn from the scene's polylines
+    # (padded to 64 points)
+    L = max(64, ctx.plg_coords.shape[2])
+    live = torch.nonzero(ctx.plg_length >= 2)
+    for K, S, want in ((128, 24, "optin"), (460, 4, "global")):
+        gen = torch.Generator(device=dev).manual_seed(K)
+        pick = live[torch.randint(0, len(live), (1, K), generator=gen,
+                                  device=dev)]
+        cam = pick[..., 0].to(torch.int32)
+        pl = pick[..., 1]
+        msk = torch.rand((1, K), generator=gen, device=dev) < 0.9
+        coords = torch.nn.functional.pad(
+            ctx.plg_coords[cam.long(), pl],
+            (0, 0, 0, L - ctx.plg_coords.shape[2])).contiguous()
+        lengths = torch.where(msk, ctx.plg_length[cam.long(), pl], 0) \
+            .to(torch.int32)
+        args = (coords, lengths, cam, msk, ctx.F_table, S,
+                cfg.split_interval_distance_px)
+        got = polyline_stages.group_seed_sample(*args)
+        torch.cuda.synchronize()
+        log(f"  large tables, group_seed_sample K={K} L={L} S={S}")
+        _expect_placement("group_seed_sample",
+                          polyline_stages.k6_table_bytes(K, L), want)
+        ref = polyline_stages._group_seed_sample_plain(
+            *args, polyline_stages._QUASI_COS, polyline_stages._QUASI_DIST)
+        bad = int(((got[1] != ref[1]) | (got[3] != ref[3])
+                   | (got[5] != ref[5]).flatten(3).any(-1)
+                   | (got[7] != ref[7]).flatten(3).any(-1)).sum())
+        hit = got[7] & ref[7]
+        err = float((got[0] - ref[0]).abs().max())
+        if hit.any():
+            err = max(err, float((got[4] - ref[4]).abs()[hit].max()))
+        log(f"    crossings={int(ref[7].sum())} decision_mismatches={bad} "
+            f"max_abs_err={err:.3g}")
+        if bad or err > COORD_TOL_PX or not ref[7].any():
+            fail(f"group_seed_sample K={K}: {bad} lanes differ, error {err}")
+        del got, ref
+
+    # K7 on a small scene's chains with its cameras tiled: "epipolar" at
+    # V = 400 and "closest" at V = 5,000, both beyond the opt-in limit
+    check_large_expansion()
+
+
+def check_large_expansion():
+    import numpy as np
+    import torch
+
+    from edgegraph3d_tpu_torch.config import EdgeGraphConfig
+    from edgegraph3d_tpu_torch.core import synthetic
+    from edgegraph3d_tpu_torch.matching import expansion, matches
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
+
+    cfg = EdgeGraphConfig().replace(max_polylines_per_view=256,
+                                    max_polyline_len=64, max_follow_steps=32)
+    sfmd, imgs, _ = synthetic.make_scene(
+        n_cams=8, n_refpoints_per_curve=16, width=320, height_px=240,
+        focal=400.0, seed=3)
+    ctx = rp.build_context(sfmd, extract_plgs(imgs, cfg), cfg,
+                           device="cuda")
+    mgr = matches.MatchesManager(ctx.plg_length.cpu().numpy())
+    round0, _ = rp.compute_and_follow_seeds(sfmd, ctx)
+    X, obs3, cams3, _, seed_ids, orders = rp.sweep_seeds(
+        None, None, ctx, mgr, precomputed=round0)
+    T = 64
+    gi, vld = expansion.group_chains(seed_ids, orders, max_t=T)
+    gi, vld = gi[:256], vld[:256]
+    kidx = np.flatnonzero(vld.reshape(-1))
+    rows = gi.reshape(-1)[kidx]
+    as_t = lambda a: torch.as_tensor(a, device=ctx.device)
+    tensors = (as_t(np.asarray(X, np.float32)[rows]),
+               as_t(np.asarray(obs3, np.float32)[rows]),
+               as_t(cams3[gi[:, 0]].astype(np.int32)),
+               as_t(kidx // T), as_t(kidx % T),
+               torch.ones(len(kidx), dtype=torch.bool, device=ctx.device),
+               as_t(vld))
+    for V_big, mode in ((400, "epipolar"), (5000, "closest")):
+        grids = _tiled(ctx.grids, V_big, [0])
+        P_big = _tiled(ctx.P_mats, V_big, [0])
+        F_big = _tiled(ctx.F_table, V_big, [0, 1])
+        c = cfg.replace(expand_correspondence_mode=mode)
+        args = (ctx.plg_coords, grids, P_big, F_big, ctx.cell, *tensors, c,
+                len(gi), T)
+        t0 = time.time()
+        got = expansion.expand_chains_compact(*args, vld.sum(1))
+        torch.cuda.synchronize()
+        log(f"  large tables, expand_chains {mode} V={V_big}: "
+            f"{len(gi)} chains, {len(kidx)} points "
+            f"({time.time() - t0:.2f}s)")
+        _expect_placement("expand_chains",
+                          expansion.k7_table_bytes(V_big, mode == "epipolar"),
+                          "global")
+        t0 = time.time()
+        ref = expansion._expand_chains_compact_plain(*args)
+        exact = all(torch.equal(a, b) for a, b in zip(got, ref))
+        added = int(ref[2].sum()) - 3 * len(kidx)
+        log(f"    plain ({time.time() - t0:.2f}s): views added={added} "
+            f"bit_equal={exact}")
+        if not exact or added <= 0:
+            fail(f"expand_chains {mode} V={V_big}: not bit-equal to its "
+                 f"plain version (views added {added})")
+        del grids, F_big, got, ref
+
+
+# ----------------------------------------------------------------------
 # phases 3-4: the main path
 # ----------------------------------------------------------------------
 
@@ -1079,6 +1367,7 @@ def main() -> int:
     results = compare_kernels(ctx, full[0])
     compare_stage12_kernels(ctx, full[0], results)
     compare_expansion(ctx, full[0], results)
+    check_large_tables(ctx, full[0])
     del ctx
     torch.cuda.empty_cache()
 
@@ -1217,7 +1506,64 @@ def time_follow(root: str) -> int:
     return 0
 
 
+def time_k1_k6(root: str) -> int:
+    """K1 and K6 at phase 2's shapes for the port checkout at `root`: K1
+    at the _start_sweep shape (every (refpoint, view) of the full scene,
+    M = 4) as its wrapper, its launch alone and its device time
+    (k1_times), and K6 on the first 64 stage-1 match sets (8 members,
+    S = 24) as its wrapper and its device time.  Prints one JSON line
+    with the times and digests of the outputs."""
+    import torch
+    sys.path.insert(0, os.path.abspath(root))
+    from edgegraph3d_tpu_torch import kernels
+    from edgegraph3d_tpu_torch.matching import detection, polyline_stages
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    from edgegraph3d_tpu_torch.ops import gather
+    from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
+    if not torch.cuda.is_available():
+        fail("no CUDA GPU")
+    kernels.build()
+    kernels.lib()
+    sfmd, edges, _ = full_scene()
+    cfg = bench_config()
+    ctx = rp.build_context(sfmd, extract_plgs(edges, cfg), cfg,
+                           device="cuda")
+    out = {"root": root, "source": detection.__file__, "card": card_name()}
+    obs_xy, _ = rp.dense_observations(sfmd)
+    N, V = obs_xy.shape[:2]
+    view = torch.arange(V, dtype=torch.int32, device=ctx.device).repeat(N)
+    pts = torch.as_tensor(obs_xy, device=ctx.device).reshape(N * V, 2)
+    M = cfg.max_candidates_per_view
+    args = (ctx.grids, view, pts, ctx.cell, cfg.detection_starting_dist_px,
+            M)
+    got = detection.grid_topm_query(*args)
+    out["k1"] = k1_times(args, got)
+    out["k1_digest"] = [int(got.valid.sum()),
+                        float(got.dist[got.valid].double().sum())]
+    groups = polyline_stages.similarity_match_sets(sfmd, ctx)
+    cam, pl, msk = (torch.as_tensor(a[:64], device=ctx.device) for a in
+                    polyline_stages._member_table(groups, 8))
+    Vp, P, L, _ = ctx.plg_coords.shape
+    cs, ps = cam.clamp_min(0).long(), pl.clamp_min(0).long()
+    coords = gather.gather_rows(ctx.plg_coords.reshape(Vp * P, 2 * L),
+                                (cs * P + ps).reshape(-1)) \
+        .reshape(*cam.shape, L, 2)
+    lengths = torch.where(msk, ctx.plg_length[cs, ps], 0).to(torch.int32)
+    k6 = lambda: polyline_stages.group_seed_sample(
+        coords, lengths, cam, msk, ctx.F_table, 24,
+        cfg.split_interval_distance_px)
+    res, out["k6_ms"] = cuda_time(k6, 50)
+    out["k6_device_ms"] = device_ms(k6, 20, "group_seed")
+    out["k6_groups"] = int(cam.shape[0])
+    out["k6_digest"] = [int(res[3].sum()), int(res[7].sum()),
+                        float(res[4][res[7]].double().sum())]
+    log(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-k1-k6":
+        sys.exit(time_k1_k6(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k7-chunk":
         sys.exit(time_k7_chunk(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-follow":

@@ -35,11 +35,28 @@ static __device__ __forceinline__ int cell_of(float p, float cell, int n) {
   return clampi(__float2int_rz(p / cell), 0, n - 1);
 }
 
-// One polyline: `len` valid points of a row-major [L, 2] coordinate row.
-struct Poly {
-  const float* c;
+// A read-only float table in device memory, read through the read-only
+// (non-coherent) path: the stand-in for a table that a kernel otherwise
+// stages in shared memory, indexed the same way (t + i, t[i]), so one
+// body serves both placements with the same arithmetic.
+struct Ldg {
+  const float* p;
+  __device__ __forceinline__ Ldg operator+(int64_t i) const {
+    return Ldg{p + i};
+  }
+  __device__ __forceinline__ float operator[](int64_t i) const {
+    return __ldg(p + i);
+  }
+};
+
+// One polyline: `len` valid points of a row-major [L, 2] coordinate row
+// (a pointer into shared or device memory, or an Ldg).
+template <class Tab = const float*>
+struct PolyT {
+  Tab c;
   int len;
 };
+using Poly = PolyT<>;
 
 // a * b + c with one rounding of the sum: the f64 product of two floats
 // is exact, so only the f64 sum rounds before the cast (the form of
@@ -55,7 +72,8 @@ static __device__ __forceinline__ float fma_f64(float a, float b, float c) {
 // the ones XLA's CPU code fuses in the JAX sampling scan and in the JAX
 // follow's walk loop, each in one rounding (fma_f64): K6 samples and K4
 // walks with it.
-static __device__ __forceinline__ bool advance(const Poly& p, int seg,
+template <class Tab>
+static __device__ __forceinline__ bool advance(const PolyT<Tab>& p, int seg,
                                                float cx, float cy, int dir,
                                                float radius, int* nseg,
                                                float* nt, float* nx,
@@ -128,7 +146,8 @@ static __device__ __forceinline__ SegLine seg_line(float ax, float ay,
 
 // ops.geometry.epipolar_line: F (row-major 3x3) times [x, y, 1], scaled
 // so l0^2 + l1^2 = 1.
-static __device__ __forceinline__ void epipolar(const float* F, float x,
+template <class Tab>
+static __device__ __forceinline__ void epipolar(const Tab F, float x,
                                                 float y, float* l0,
                                                 float* l1, float* l2) {
   const float a = F[0] * x + F[1] * y + F[2];
@@ -143,7 +162,8 @@ static __device__ __forceinline__ void epipolar(const float* F, float x,
 // ops.geometry.epipolar_line_fma: the line as XLA's CPU dot contracts
 // it in the JAX stage-1/2 sweep, l_i = fma(F_i1, y, F_i0 x) + F_i2,
 // normalized by sqrt(fma(a, a, b b)).
-static __device__ __forceinline__ void epipolar_fma(const float* F, float x,
+template <class Tab>
+static __device__ __forceinline__ void epipolar_fma(const Tab F, float x,
                                                     float y, float* l0,
                                                     float* l1, float* l2) {
   const float a = fma_f64(F[1], y, F[0] * x) + F[2];

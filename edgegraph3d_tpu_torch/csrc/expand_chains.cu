@@ -39,7 +39,11 @@
 // 64-slot chains across the two halves), and the tile's ballot gives
 // first_valid, last_valid and the short-chain test: exact, no shared
 // memory, no [C, T] scatter in device memory.  P [V, 3, 4] and, in
-// "epipolar" mode, each chain's F_table[vs, :] rows sit in shared memory.
+// "epipolar" mode, each chain's F_table[vs, :] rows sit in shared memory
+// (48 V bytes, 624 V in "epipolar" mode), opted in above 48 KiB; above
+// the card's opt-in limit (V > 372 "epipolar", V > 4,842 "closest" on an
+// H100) the same body reads both from device memory through the
+// read-only path (kernels.table_placement picks, before the launch).
 // The candidate queries and the GN are the very device code of K1, K2
 // and K3 (grid_query.cuh, gn.cuh; K2's one-thread body), so every
 // decision has the same arithmetic in the same order as the plain
@@ -250,12 +254,14 @@ __device__ __forceinline__ void run_bounds(int tl, int T, const int* cpl,
 }
 
 // The view loop of one chain c (-1: an idle tile, which still takes part
-// in the shuffles) on a tile of W lanes with S slots a lane.
-template <int W, int S>
+// in the shuffles) on a tile of W lanes with S slots a lane, reading P
+// [V, 12] and the chain's F rows [V, 9] from P_sh / F_sh (shared memory,
+// or common.cuh Ldg tables in device memory).
+template <int W, int S, class Tab>
 __device__ __forceinline__ void expand_tile(const K7Args& a, int64_t c,
                                             int cam0, int cam1, int cam2,
-                                            const float* P_sh,
-                                            const float* F_sh) {
+                                            const Tab P_sh,
+                                            const Tab F_sh) {
   const int lane = threadIdx.x & 31;
   const int tl = lane & (W - 1);
   const int T = a.T, Omax = a.Omax;
@@ -303,7 +309,7 @@ __device__ __forceinline__ void expand_tile(const K7Args& a, int64_t c,
 
   for (int v = 0; v < a.V; ++v) {
     const bool tuple_v = v == cam0 || v == cam1 || v == cam2;
-    const float* Pv = P_sh + v * 12;
+    const auto Pv = P_sh + v * 12;
     int cpl[S];
     float cpos[S], cx[S], cy[S];
     bool cok[S], okc[S];
@@ -398,18 +404,42 @@ __device__ __forceinline__ void expand_tile(const K7Args& a, int64_t c,
   }
 }
 
+// The tile body of bucket b (warp-uniform) on tables P_sh / F_sh.
+template <int B, class Tab>
+__device__ __forceinline__ void run_tile(const K7Args& a, int b, int64_t c,
+                                         int cam0, int cam1, int cam2,
+                                         const Tab P_sh, const Tab F_sh) {
+  if constexpr (B < 4) {
+    if (b == B)
+      expand_tile<tile_width(B), B == 3 ? 2 : 1>(a, c, cam0, cam1, cam2,
+                                                 P_sh, F_sh);
+  } else {
+    switch (b) {  // warp-uniform
+      case 0: expand_tile<8, 1>(a, c, cam0, cam1, cam2, P_sh, F_sh); break;
+      case 1: expand_tile<16, 1>(a, c, cam0, cam1, cam2, P_sh, F_sh); break;
+      case 2: expand_tile<32, 1>(a, c, cam0, cam1, cam2, P_sh, F_sh); break;
+      case 3: expand_tile<32, 2>(a, c, cam0, cam1, cam2, P_sh, F_sh); break;
+      default: break;
+    }
+  }
+}
+
 // B < 4: a launch whose chains all sit in bucket B (one tile body, so
 // ptxas sizes registers for it alone); B == 4: any mix, each warp
-// branching on its bucket.
-template <int B>
+// branching on its bucket.  kGlobal = false: P and each tile's F rows
+// are staged in shared memory (eg3d_expand_chains_smem bytes); true:
+// both are read from device memory through the read-only path.
+template <int B, bool kGlobal>
 __global__ void expand_chains_kernel(K7Args a, const int* __restrict__ order,
                                      Buckets bk) {
   extern __shared__ float smem[];
   float* P_sh = smem;  // [V, 12]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < a.V * 12; i += blockDim.x)
-    P_sh[i] = a.P_mats[i];
+  if constexpr (!kGlobal) {
+    for (int i = threadIdx.x; i < a.V * 12; i += blockDim.x)
+      P_sh[i] = a.P_mats[i];
+  }
   // the warp's bucket (4: none), tile width and the lane's chain
   const int gw = blockIdx.x * WARPS + warp;
   int b;
@@ -433,40 +463,42 @@ __global__ void expand_chains_kernel(K7Args a, const int* __restrict__ order,
     cam0 = a.cams3[3 * c];
     cam1 = a.cams3[3 * c + 1];
     cam2 = a.cams3[3 * c + 2];
-    if (a.epipolar) {
+    if (!kGlobal && a.epipolar) {
       const float* Fr = a.F_table + (int64_t)cam0 * a.V * 9;
       for (int i = lane - tile * W; i < a.V * 9; i += W) F_sh[i] = Fr[i];
     }
   }
-  __syncthreads();
-  if constexpr (B < 4) {
-    if (b == B)
-      expand_tile<tile_width(B), B == 3 ? 2 : 1>(a, c, cam0, cam1, cam2,
-                                                 P_sh, F_sh);
+  if constexpr (kGlobal) {
+    const eg3d::Ldg F_rows{a.F_table + (int64_t)max(cam0, 0) * a.V * 9};
+    run_tile<B>(a, b, c, cam0, cam1, cam2, eg3d::Ldg{a.P_mats}, F_rows);
   } else {
-    switch (b) {  // warp-uniform
-      case 0: expand_tile<8, 1>(a, c, cam0, cam1, cam2, P_sh, F_sh); break;
-      case 1: expand_tile<16, 1>(a, c, cam0, cam1, cam2, P_sh, F_sh); break;
-      case 2: expand_tile<32, 1>(a, c, cam0, cam1, cam2, P_sh, F_sh); break;
-      case 3: expand_tile<32, 2>(a, c, cam0, cam1, cam2, P_sh, F_sh); break;
-      default: break;
-    }
+    __syncthreads();
+    run_tile<B>(a, b, c, cam0, cam1, cam2, (const float*)P_sh,
+                (const float*)F_sh);
   }
 }
 
-template <int B>
+template <int B, bool kGlobal>
 int launch(const K7Args& a, const int* order, const Buckets& bk, int smem,
            cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        expand_chains_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        expand_chains_kernel<B, kGlobal>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (bk.warp_off[4] + WARPS - 1) / WARPS;
-  expand_chains_kernel<B><<<blocks, 32 * WARPS, smem, stream>>>(a, order,
-                                                                 bk);
+  expand_chains_kernel<B, kGlobal><<<blocks, 32 * WARPS, smem, stream>>>(
+      a, order, bk);
   return (int)cudaGetLastError();
+}
+
+template <int B>
+int launch_placed(const K7Args& a, const int* order, const Buckets& bk,
+                  int place, int smem, cudaStream_t stream) {
+  if (place == 2) return launch<B, true>(a, order, bk, 0, stream);
+  if (place == 0 && smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  return launch<B, false>(a, order, bk, smem, stream);
 }
 
 }  // namespace
@@ -478,14 +510,17 @@ extern "C" int eg3d_expand_chains_smem(int V, int epipolar) {
 
 // order [n8 + n16 + n32 + n64]: chain indices into cams3 / slot_k /
 // chain_valid, bucket by bucket (extent <= 8, <= 16, <= 32, <= 64 slots).
+// place: 0 P (and F rows) in at most 48 KiB of shared memory, 1 in
+// opted-in shared memory, 2 in device memory (kernels.py table_placement).
 extern "C" int eg3d_expand_chains(
     const float* grids, int V, int GH, int GW, int Kc, float cell,
     const float* P_mats, const float* F_table, const float* obs3,
     const int* cams3, const int* slot_k, const uint8_t* chain_valid,
     const int* order, int n8, int n16, int n32, int n64, int T, int Omax,
     float tol, int epipolar, float qp_cos, int gn_iters, float gn_eps,
-    float accept_mse, float det_min, float* X, int* cam_buf, float* obs_x,
-    float* obs_y, float* out_xy, uint8_t* out_ok, void* stream) {
+    float accept_mse, float det_min, int place, float* X, int* cam_buf,
+    float* obs_x, float* obs_y, float* out_xy, uint8_t* out_ok,
+    void* stream) {
   if (T < 1 || T > 64 || Omax < 3 || n8 < 0 || n16 < 0 || n32 < 0 ||
       n64 < 0)
     return (int)cudaErrorInvalidValue;
@@ -509,9 +544,9 @@ extern "C" int eg3d_expand_chains(
                  obs_y, out_xy, out_ok};
   cudaStream_t s = (cudaStream_t)stream;
   const int used = (n8 > 0) + (n16 > 0) + (n32 > 0) + (n64 > 0);
-  if (used > 1) return launch<4>(a, order, bk, smem, s);
-  if (n8) return launch<0>(a, order, bk, smem, s);
-  if (n16) return launch<1>(a, order, bk, smem, s);
-  if (n32) return launch<2>(a, order, bk, smem, s);
-  return launch<3>(a, order, bk, smem, s);
+  if (used > 1) return launch_placed<4>(a, order, bk, place, smem, s);
+  if (n8) return launch_placed<0>(a, order, bk, place, smem, s);
+  if (n16) return launch_placed<1>(a, order, bk, place, smem, s);
+  if (n32) return launch_placed<2>(a, order, bk, place, smem, s);
+  return launch_placed<3>(a, order, bk, place, smem, s);
 }

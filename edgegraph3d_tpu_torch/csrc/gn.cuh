@@ -3,7 +3,9 @@
 // step) and K7 expand_chains, so all make each decision with the same
 // arithmetic in the same order.
 //
-// Both take an observation accessor `obs(o, &cam, &ox, &oy, &m)`:
+// Both take the camera table P_mats [V, 3, 4] as a pointer (shared memory,
+// registers) or a common.cuh Ldg (device memory), and an observation
+// accessor `obs(o, &cam, &ox, &oy, &m)`:
 // observation o's camera index into P_mats [V, 3, 4], its image point and
 // its weight (0 or 1; a 0 adds exact zeros while its intermediates stay
 // finite).  Both visit o = 0, 1, ..., O - 1 in order in every pass.
@@ -17,8 +19,8 @@ namespace eg3d {
 // row-normalized DLT rows (x P3 - P1, y P3 - P2 per observation, each
 // scaled to unit norm times its weight), ridge 1e-7 * trace, closed-form
 // 4x4 Cholesky, 4 rounds of inverse iteration from (1, 1, 1, 1.5) / |.|.
-template <class Obs>
-__device__ __forceinline__ void dlt(const float* __restrict__ P_mats,
+template <class Tab, class Obs>
+__device__ __forceinline__ void dlt(const Tab P_mats,
                                     const Obs& obs, int O, float* X,
                                     float* Y, float* Z) {
   float a00 = 0.f, a01 = 0.f, a02 = 0.f, a03 = 0.f, a11 = 0.f, a12 = 0.f,
@@ -27,7 +29,7 @@ __device__ __forceinline__ void dlt(const float* __restrict__ P_mats,
     int cam;
     float ox, oy, m;
     obs(o, &cam, &ox, &oy, &m);
-    const float* p = P_mats + (int64_t)cam * 12;
+    const auto p = P_mats + (int64_t)cam * 12;
     for (int prow = 0; prow < 2; ++prow) {
       const float coord = prow == 0 ? ox : oy;
       float r0 = coord * p[8] - p[4 * prow + 0];
@@ -116,9 +118,9 @@ struct GNResult {
 // det guards); the reference keeps iterating such points as no-ops, so
 // stopping early is exact.  last_mse is updated only on non-frozen
 // iterations, as in the reference.
-template <class Obs>
+template <class Tab, class Obs>
 __device__ __forceinline__ GNResult gauss_newton(
-    const float* __restrict__ P_mats, const Obs& obs, int O, float mask_sum,
+    const Tab P_mats, const Obs& obs, int O, float mask_sum,
     float x, float y, float z, int max_iters, float epsilon,
     float accept_mse, float det_min) {
   const float n_obs = nmax(mask_sum, 1.0f);
@@ -131,7 +133,7 @@ __device__ __forceinline__ GNResult gauss_newton(
       int cam;
       float ox, oy, m;
       obs(o, &cam, &ox, &oy, &m);
-      const float* p = P_mats + (int64_t)cam * 12;
+      const auto p = P_mats + (int64_t)cam * 12;
       const float xH = p[0] * x + p[1] * y + p[2] * z + p[3];
       const float yH = p[4] * x + p[5] * y + p[6] * z + p[7];
       float zH = p[8] * x + p[9] * y + p[10] * z + p[11];

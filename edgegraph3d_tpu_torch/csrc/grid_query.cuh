@@ -42,11 +42,29 @@ static __device__ __forceinline__ const float* entry_ptr(
   return grids + ((((v * GH + yy) * GW + xx) * Kc) + k) * 6;
 }
 
+// K1's test of one non-empty entry against the point (px, py): the
+// point-segment distance, offered to the top-M when within `radius`.
+template <int M>
+__device__ __forceinline__ void grid_entry(const Entry& en, float px,
+                                           float py, float radius,
+                                           TopM<M>& top) {
+  const float ux = en.bx - en.ax;
+  const float uy = en.by - en.ay;
+  const float denom = nmax(ux * ux + uy * uy, 1e-12f);
+  const float t = clip01(((px - en.ax) * ux + (py - en.ay) * uy) / denom);
+  const float qx = en.ax + t * ux;
+  const float qy = en.ay + t * uy;
+  const float dx = px - qx;
+  const float dy = py - qy;
+  const float d = sqrtf(dx * dx + dy * dy);
+  if (d <= radius) top.offer(d, en.pl, en.seg, t, qx, qy);
+}
+
 // K1's query: the 3x3 cells around (px, py) on view v (clipped at the
 // image border, so border cells repeat exactly as the reference's gather
-// does), 8 entries (pl, seg, ax, ay, bx, by) per cell, the point-segment
+// does), Kc entries (pl, seg, ax, ay, bx, by) per cell, the point-segment
 // distance, entries within `radius` offered to the top-M of distinct
-// polylines.
+// polylines.  K1's generic body (any Kc) and K7 run it.
 template <int M>
 __device__ __forceinline__ void grid_topm_one(const float* __restrict__ grids,
                                               int GH, int GW, int Kc,
@@ -64,17 +82,7 @@ __device__ __forceinline__ void grid_topm_one(const float* __restrict__ grids,
       for (int k = 0; k < Kc; ++k, e += 6) {
         Entry en;
         if (!load_entry(e, &en)) continue;
-        const float ux = en.bx - en.ax;
-        const float uy = en.by - en.ay;
-        const float denom = nmax(ux * ux + uy * uy, 1e-12f);
-        const float t =
-            clip01(((px - en.ax) * ux + (py - en.ay) * uy) / denom);
-        const float qx = en.ax + t * ux;
-        const float qy = en.ay + t * uy;
-        const float dx = px - qx;
-        const float dy = py - qy;
-        const float d = sqrtf(dx * dx + dy * dy);
-        if (d <= radius) top.offer(d, en.pl, en.seg, t, qx, qy);
+        grid_entry(en, px, py, radius, top);
       }
     }
   }

@@ -35,6 +35,12 @@
 //     table) whose projection overflows once a coordinate of X reaches
 //     2^40, so a trajectory that leaves the box where the masked terms
 //     are provably finite ends in NaN, and the point is redone padded.
+//     The table takes (V + 1) * 48 + V bytes.  The wrapper places it by
+//     kernels.table_placement: in shared memory up to 48 KiB (V <= 1,002),
+//     in opted-in shared memory up to the card's limit (V <= 4,742 on an
+//     H100), else in device memory, where the same body reads P through
+//     the read-only path with the probe row computed (ProbedTable), so
+//     every camera count the JAX package runs is taken, bit-equal.
 //
 // Bound on the H100: arithmetic (~85 flops per observation and GN
 // iteration), with a sequential per-point loop.
@@ -142,30 +148,48 @@ __global__ void triangulate_gn3_kernel(
         X_out, mse_out, valid_out);
 }
 
-__global__ void triangulate_gn_kernel(
-    const float* __restrict__ P_mats, int V, const int* __restrict__ cams,
-    const float* __restrict__ xy, const uint8_t* __restrict__ mask, int N,
-    int O, const float* __restrict__ X0, int max_iters, float epsilon,
-    float accept_mse, float det_min, float* X_out, float* mse_out,
-    uint8_t* valid_out) {
-  extern __shared__ float P_sh[];               // [V + 1, 3, 4]
-  uint8_t* tame = (uint8_t*)(P_sh + (V + 1) * 12);   // [V]
-  for (int i = threadIdx.x; i < V * 12; i += blockDim.x) P_sh[i] = P_mats[i];
-  if (threadIdx.x < 12) {      // the probe row [[s,0,0,0],[0,s,s,0],[0,0,0,1]]
-    const int k = threadIdx.x;
-    P_sh[V * 12 + k] =
-        (k == 0 || k == 5 || k == 6) ? PROBE_SCALE : (k == 11 ? 1.0f : 0.0f);
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < V; c += blockDim.x) {
-    bool ok = true;
-    for (int k = 0; k < 12; ++k) ok = ok && fabsf(P_sh[12 * c + k]) <= TAME_P;
-    tame[c] = ok ? 1 : 0;
-  }
-  __syncthreads();
+// Row k (0..11) of the probe camera [[s,0,0,0],[0,s,s,0],[0,0,0,1]].
+__host__ __device__ constexpr float probe_entry(int k) {
+  return (k == 0 || k == 5 || k == 6) ? PROBE_SCALE : (k == 11 ? 1.0f : 0.0f);
+}
 
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+// The general body's camera table in device memory: P_mats [V, 12] read
+// through the read-only path, and the probe as row V, computed rather
+// than stored, so no scratch table is written.
+struct ProbedTable {
+  const float* p;
+  int64_t n;    // 12 V
+  int64_t off;
+  __device__ __forceinline__ ProbedTable operator+(int64_t i) const {
+    return ProbedTable{p, n, off + i};
+  }
+  __device__ __forceinline__ float operator[](int64_t k) const {
+    const int64_t i = off + k;
+    return i < n ? __ldg(p + i) : probe_entry((int)(i - n));
+  }
+};
+
+// Whether camera c's P entries all lie within TAME_P, read from device
+// memory (the global body's stand-in for the staged `tame` flags).
+struct GlobalTame {
+  const float* P;
+  __device__ __forceinline__ bool operator[](int c) const {
+    bool ok = true;
+    for (int k = 0; k < 12; ++k)
+      ok = ok && fabsf(__ldg(P + 12 * (int64_t)c + k)) <= TAME_P;
+    return ok;
+  }
+};
+
+// One row of the general body over the camera table `P` (V rows and the
+// probe row V) and the cameras' `tame` flags.
+template <class Tab, class Tame>
+__device__ __forceinline__ void gn_row(
+    const Tab P, const Tame tame, int V, int64_t n,
+    const int* __restrict__ cams, const float* __restrict__ xy,
+    const uint8_t* __restrict__ mask, int O, const float* __restrict__ X0,
+    int max_iters, float epsilon, float accept_mse, float det_min,
+    float* X_out, float* mse_out, uint8_t* valid_out) {
   const int* cam = cams + n * O;
   const float* ob = xy + n * O * 2;
   const uint8_t* mk = mask + n * O;
@@ -195,21 +219,57 @@ __global__ void triangulate_gn_kernel(
     y = X0[3 * n + 1];
     z = X0[3 * n + 2];
   } else if (padded) {
-    eg3d::dlt(P_sh, all, O, &x, &y, &z);
+    eg3d::dlt(P, all, O, &x, &y, &z);
   } else {
-    eg3d::dlt(P_sh, live, n_live, &x, &y, &z);
+    eg3d::dlt(P, live, n_live, &x, &y, &z);
   }
   eg3d::GNResult r;
   if (!padded) {
-    r = eg3d::gauss_newton(P_sh, live, n_live + 1, mask_sum, x, y, z,
+    r = eg3d::gauss_newton(P, live, n_live + 1, mask_sum, x, y, z,
                            max_iters, epsilon, accept_mse, det_min);
     padded = r.mse != r.mse || r.x != r.x || r.y != r.y || r.z != r.z;
   }
   if (padded) {
-    r = eg3d::gauss_newton(P_sh, all, O, mask_sum, x, y, z, max_iters,
+    r = eg3d::gauss_newton(P, all, O, mask_sum, x, y, z, max_iters,
                            epsilon, accept_mse, det_min);
   }
   store(n, r, X_out, mse_out, valid_out);
+}
+
+// kGlobal = false: the block stages the table and the flags in shared
+// memory (gn_smem_bytes); true: every read goes to device memory.
+template <bool kGlobal>
+__global__ void triangulate_gn_kernel(
+    const float* __restrict__ P_mats, int V, const int* __restrict__ cams,
+    const float* __restrict__ xy, const uint8_t* __restrict__ mask, int N,
+    int O, const float* __restrict__ X0, int max_iters, float epsilon,
+    float accept_mse, float det_min, float* X_out, float* mse_out,
+    uint8_t* valid_out) {
+  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (kGlobal) {
+    if (n >= N) return;
+    gn_row(ProbedTable{P_mats, 12 * (int64_t)V, 0}, GlobalTame{P_mats}, V,
+           n, cams, xy, mask, O, X0, max_iters, epsilon, accept_mse, det_min,
+           X_out, mse_out, valid_out);
+  } else {
+    extern __shared__ float P_sh[];                     // [V + 1, 3, 4]
+    uint8_t* tame = (uint8_t*)(P_sh + (V + 1) * 12);    // [V]
+    for (int i = threadIdx.x; i < V * 12; i += blockDim.x)
+      P_sh[i] = P_mats[i];
+    if (threadIdx.x < 12) P_sh[V * 12 + threadIdx.x] = probe_entry(threadIdx.x);
+    __syncthreads();
+    for (int c = threadIdx.x; c < V; c += blockDim.x) {
+      bool ok = true;
+      for (int k = 0; k < 12; ++k)
+        ok = ok && fabsf(P_sh[12 * c + k]) <= TAME_P;
+      tame[c] = ok ? 1 : 0;
+    }
+    __syncthreads();
+    if (n >= N) return;
+    gn_row((const float*)P_sh, (const uint8_t*)tame, V, n, cams, xy, mask,
+           O, X0, max_iters, epsilon, accept_mse, det_min, X_out, mse_out,
+           valid_out);
+  }
 }
 
 int gn_smem_bytes(int V) {
@@ -223,21 +283,36 @@ extern "C" int eg3d_triangulate_gn_smem(int V, int O) {
   return O == 3 ? 0 : gn_smem_bytes(V);
 }
 
+// place (the general body): 0 the table in at most 48 KiB of shared
+// memory, 1 in opted-in shared memory, 2 in device memory (kernels.py
+// table_placement).
 extern "C" int eg3d_triangulate_gn(const float* P_mats, int V, const int* cams,
                                    const float* xy, const uint8_t* mask, int N,
                                    int O, const float* X0, int max_iters,
                                    float epsilon, float accept_mse,
-                                   float det_min, float* X, float* mse,
-                                   uint8_t* valid, void* stream) {
+                                   float det_min, int place, float* X,
+                                   float* mse, uint8_t* valid, void* stream) {
   const int threads = 128;
   const int blocks = (N + threads - 1) / threads;
+  cudaStream_t s = (cudaStream_t)stream;
   if (O == 3) {
-    triangulate_gn3_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    triangulate_gn3_kernel<<<blocks, threads, 0, s>>>(
         P_mats, cams, xy, mask, N, X0, max_iters, epsilon, accept_mse,
         det_min, X, mse, valid);
+  } else if (place == 2) {
+    triangulate_gn_kernel<true><<<blocks, threads, 0, s>>>(
+        P_mats, V, cams, xy, mask, N, O, X0, max_iters, epsilon, accept_mse,
+        det_min, X, mse, valid);
   } else {
-    triangulate_gn_kernel<<<blocks, threads, gn_smem_bytes(V),
-                            (cudaStream_t)stream>>>(
+    const int smem = gn_smem_bytes(V);
+    if (place == 0 && smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+    if (place == 1) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          triangulate_gn_kernel<false>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    triangulate_gn_kernel<false><<<blocks, threads, smem, s>>>(
         P_mats, V, cams, xy, mask, N, O, X0, max_iters, epsilon, accept_mse,
         det_min, X, mse, valid);
   }

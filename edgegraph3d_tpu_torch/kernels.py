@@ -49,9 +49,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_int64
 _SIGNATURES = {
-    # grids, V, GH, GW, Kc, view, pts, Q, cell, radius, M,
+    # device, bytes out
+    "eg3d_smem_optin": [_I, _P],
+    # grids, V, GH, GW, Kc, view, pts, Q, cell, radius, M, n_rows,
     # pl, seg, t, xy, dist, valid, stream
-    "eg3d_grid_topm": [_P, _I, _I, _I, _I, _P, _P, _I, _F, _F, _I,
+    "eg3d_grid_topm": [_P, _I, _I, _I, _I, _P, _P, _I, _F, _F, _I, _I,
                        _P, _P, _P, _P, _P, _P, _P],
     # grids, V, GH, GW, Kc, view, pts, lines, radius, order (nullable),
     # Q, cell, M, one_thread, use_excl, excl_cos, pl, seg, t, xy, dist, valid,
@@ -59,9 +61,9 @@ _SIGNATURES = {
     "eg3d_epipolar_topm": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _F,
                            _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P],
     # P_mats, V, cams, xy, mask, N, O, X0 (nullable), max_iters,
-    # epsilon, accept_mse, det_min, X, mse, valid, stream
+    # epsilon, accept_mse, det_min, place, X, mse, valid, stream
     "eg3d_triangulate_gn": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _F, _F, _F,
-                            _P, _P, _P, _P],
+                            _I, _P, _P, _P, _P],
     # V, O -> dynamic shared-memory bytes of a block of K3's general body
     "eg3d_triangulate_gn_smem": [_I, _I],
     # coords, lengths, V, P, L, F_table, P_mats, cams, pl, seg0, t0, xy0,
@@ -74,25 +76,73 @@ _SIGNATURES = {
                          _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # table, R, W, rows, idx64 (rows int64, else int32), S, out, stream
     "eg3d_gather_rows": [_P, _L, _L, _P, _I, _L, _P, _P],
-    # K, L, S -> dynamic shared-memory bytes of one block
+    # K, L, S -> bytes of one block's member table
     "eg3d_group_seed_sample_smem": [_I, _I, _I],
     # coords, lengths, cams, mask, G, K, L, F_table, V, S, spacing, qcos,
-    # qdist, s_xy, s_seg, s_t, s_valid, i_xy, i_seg, i_t, i_ok, stream
+    # qdist, place, s_xy, s_seg, s_t, s_valid, i_xy, i_seg, i_t, i_ok,
+    # stream
     "eg3d_group_seed_sample": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _F,
-                               _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                               _F, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P],
     # grids, V, GH, GW, Kc, cell, P_mats, F_table, obs3, cams3, slot_k,
     # chain_valid, order, n8, n16, n32, n64, T, Omax, tol, epipolar,
-    # qp_cos, gn_iters, gn_eps, accept_mse, det_min, X, cam_buf, obs_x,
-    # obs_y, out_xy, out_ok, stream
+    # qp_cos, gn_iters, gn_eps, accept_mse, det_min, place, X, cam_buf,
+    # obs_x, obs_y, out_xy, out_ok, stream
     "eg3d_expand_chains": [_P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P,
                            _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _F,
-                           _F, _F, _P, _P, _P, _P, _P, _P, _P],
+                           _F, _F, _I, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+#: dynamic shared memory a block may take without opting in
+SMEM_STATIC_BYTES = 48 * 1024
+#: an H100's cudaDevAttrMaxSharedMemoryPerBlockOptin
+H100_SMEM_OPTIN_BYTES = 232_448
+#: where a launch places a per-block table; the index is the `place`
+#: argument of the C entries that stage one (K3's general body, K6, K7)
+PLACEMENTS = ("static", "optin", "global")
+#: the placement each of those kernels' last launch used (for logs)
+LAST_PLACEMENT: dict[str, str] = {}
+
+_OPTIN: dict[int, int] = {}
+
+
+def table_placement(n_bytes: int, optin_bytes: int) -> str:
+    """Where a launch puts a table of `n_bytes` that its blocks read:
+    "static" (dynamic shared memory, up to 48 KiB), "optin" (shared
+    memory after cudaFuncSetAttribute(MaxDynamicSharedMemorySize), up to
+    the device's opt-in limit `optin_bytes`), else "global" (the
+    kernel's body that reads the same table from device memory through
+    the read-only path).  Decided from sizes known before the launch."""
+    if n_bytes <= SMEM_STATIC_BYTES:
+        return "static"
+    if n_bytes <= optin_bytes:
+        return "optin"
+    return "global"
+
+
+def smem_optin_bytes(device) -> int:
+    """The device's opt-in shared-memory limit per block (cached)."""
+    index = device.index if device.index is not None else 0
+    if index not in _OPTIN:
+        out = ctypes.c_int(0)
+        check(lib().eg3d_smem_optin(index, ctypes.addressof(out)),
+              "smem_optin")
+        _OPTIN[index] = out.value
+    return _OPTIN[index]
+
+
+def place(name: str, n_bytes: int, device) -> int:
+    """table_placement on `device`, recorded in LAST_PLACEMENT[name];
+    returns the C entries' `place` code."""
+    where = table_placement(n_bytes, smem_optin_bytes(device))
+    LAST_PLACEMENT[name] = where
+    return PLACEMENTS.index(where)
 
 
 def _nvcc() -> str:

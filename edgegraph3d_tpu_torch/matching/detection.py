@@ -4,7 +4,8 @@ Port of edgegraph3d_tpu/matching/detection.py.  Two hand kernels:
 
   * K1 `grid_topm_query` (csrc/grid_topm.cu) — the closest points of the
     M nearest distinct polylines within a radius, from the 3x3 grid cells
-    around each query (detect_starting_intersections);
+    around each query (detect_starting_intersections); each 8-entry cell
+    is loaded at once and each query's outputs stored as whole rows;
   * K2 `epipolar_topm_query` (csrc/epipolar_topm.cu) — crossings of each
     query's epipolar line with the segments of the 5x5 cells around its
     observation, within a per-query radius, top-M distinct polylines
@@ -134,13 +135,19 @@ def _epipolar_topm_plain(grids, view, pts, lines, radius, cell: float,
     return _blocked(one, pts.shape[0], view, pts, lines, radius)
 
 
-def _empty_outputs(Q: int, M: int, device):
-    f = dict(dtype=torch.float32, device=device)
+def _empty_outputs(Q: int, M: int, device) -> Candidates:
+    """Uninitialised outputs as views of three allocations: pl_id and seg
+    of one int32 block, xy, t and dist of one float32 block (in that
+    order), valid of one bool block.  Each field starts at a multiple of
+    4 Q M bytes from its block's start, so K1's whole-row stores (16
+    bytes at M = 4 and 8, 8 at M = 2) stay aligned."""
+    n = Q * M
+    ints = torch.empty(2 * n, dtype=torch.int32, device=device)
+    flts = torch.empty(4 * n, dtype=torch.float32, device=device)
     return Candidates(
-        pl_id=torch.empty((Q, M), dtype=torch.int32, device=device),
-        seg=torch.empty((Q, M), dtype=torch.int32, device=device),
-        t=torch.empty((Q, M), **f), xy=torch.empty((Q, M, 2), **f),
-        dist=torch.empty((Q, M), **f),
+        pl_id=ints[:n].view(Q, M), seg=ints[n:].view(Q, M),
+        t=flts[2 * n:3 * n].view(Q, M), xy=flts[:2 * n].view(Q, M, 2),
+        dist=flts[3 * n:].view(Q, M),
         valid=torch.empty((Q, M), dtype=torch.bool, device=device))
 
 
@@ -149,33 +156,39 @@ def _out_ptrs(out: Candidates):
             out.xy.data_ptr(), out.dist.data_ptr(), out.valid.data_ptr())
 
 
-def _check_grid_args(grids, view, pts):
+def _check_grid_args(grids, view, pts, align: int = 8):
     V, GH, GW, K, _ = grids.shape
     Q = pts.shape[0]
     kernels.require(grids, "grids", torch.float32, (V, GH, GW, K, 6),
-                    align=8)
+                    align=align)
     kernels.require(view, "view", torch.int32, (Q,))
-    kernels.require(pts, "pts", torch.float32, (Q, 2))
+    kernels.require(pts, "pts", torch.float32, (Q, 2), align=8)
     return V, GH, GW, K, Q
 
 
 def grid_topm_query(grids: torch.Tensor, view: torch.Tensor,
                     pts: torch.Tensor, cell: float, radius: float,
-                    M: int) -> Candidates:
+                    M: int, view_cycle: bool = False) -> Candidates:
     """Kernel K1.  grids [V,GH,GW,K,6] f32, view [Q] i32, pts [Q,2] f32
     -> top-M distinct polylines whose closest point lies within
-    `radius` of each query point."""
+    `radius` of each query point.  On the card, a grid of 8-entry cells
+    (the cell-at-once body) must be 16-byte aligned: a misaligned one
+    raises.  `view_cycle` says that the queries are rows of every view in
+    order (view = arange(V).repeat(N)); the kernel then visits them view
+    by view, which changes only its speed."""
     if pts.device.type == "cpu":
         return _grid_topm_plain(grids, view, pts, cell, radius, M)
     grids, view, pts = grids.contiguous(), view.contiguous(), \
         pts.contiguous()
-    V, GH, GW, K, Q = _check_grid_args(grids, view, pts)
+    V, GH, GW, K, Q = _check_grid_args(grids, view, pts,
+                                       align=16 if grids.shape[3] == 8 else 8)
     out = _empty_outputs(Q, M, pts.device)
     if Q == 0:
         return out
+    n_rows = Q // V if view_cycle and Q % V == 0 else 0
     rc = kernels.lib().eg3d_grid_topm(
         grids.data_ptr(), V, GH, GW, K, view.data_ptr(), pts.data_ptr(), Q,
-        float(cell), float(radius), M, *_out_ptrs(out),
+        float(cell), float(radius), M, n_rows, *_out_ptrs(out),
         kernels.stream_of(pts))
     kernels.check(rc, "grid_topm_query")
     kernels.LAUNCHES["grid_topm_query"] += 1

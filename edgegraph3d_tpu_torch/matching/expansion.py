@@ -221,6 +221,13 @@ def tile_buckets(extent: np.ndarray):
             np.bincount(b, minlength=len(TILE_SLOTS)))
 
 
+def k7_table_bytes(V: int, epipolar: bool) -> int:
+    """Bytes of K7's per-block table: P [V, 3, 4] f32 and, in "epipolar"
+    mode, the F rows [V, 3, 3] of each of a block's 16 tiles (csrc
+    expand_chains.cu eg3d_expand_chains_smem)."""
+    return V * 48 + (16 * V * 36 if epipolar else 0)
+
+
 def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
                           X, obs3, cams3, chain_idx, t_idx, item_ok,
                           chain_valid, cfg: EdgeGraphConfig, C: int, T: int,
@@ -265,6 +272,7 @@ def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
         raise ValueError(f"expand_chains: extent of {len(extent)} chains, "
                          f"expected {C}")
     slots = _chain_slots(chain_idx, t_idx, item_ok, C, T)
+    epipolar = cfg.expand_correspondence_mode == "epipolar"
     order_np, counts = tile_buckets(extent)
     order = torch.as_tensor(order_np, device=dev)
     cam_buf = torch.empty((K, Omax), dtype=torch.int32, device=dev)
@@ -276,10 +284,12 @@ def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
         slots.data_ptr(), chain_valid.data_ptr(), order.data_ptr(),
         *(int(n) for n in counts), T, Omax,
         float(math.sqrt(cfg.expand_max_projection_distsq)),
-        int(cfg.expand_correspondence_mode == "epipolar"),
+        int(epipolar),
         float(cfg.quasiparallel_cos),
         cfg.follow_gn_iters, float(cfg.gn_epsilon),
-        float(cfg.match_gn_max_mse), 1e-5, X.data_ptr(),
+        float(cfg.match_gn_max_mse), 1e-5,
+        kernels.place("expand_chains", k7_table_bytes(V, epipolar), dev),
+        X.data_ptr(),
         cam_buf.data_ptr(), obs_x.data_ptr(), obs_y.data_ptr(),
         out_xy.data_ptr(), out_ok.data_ptr(), kernels.stream_of(X))
     kernels.check(rc, "expand_chains")

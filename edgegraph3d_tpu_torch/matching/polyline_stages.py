@@ -61,7 +61,8 @@ def _close_polylines(ctx: rp.MatchingContext, obs_xy: np.ndarray, M: int,
     N, V = obs_xy.shape[:2]
     view = torch.arange(V, dtype=torch.int32, device=ctx.device).repeat(N)
     pts = torch.as_tensor(obs_xy.reshape(N * V, 2), device=ctx.device)
-    c = grid_topm_query(ctx.grids, view, pts, ctx.cell, within_dist, M)
+    c = grid_topm_query(ctx.grids, view, pts, ctx.cell, within_dist, M,
+                        view_cycle=True)
     host = lambda a: a.cpu().numpy().reshape((N, V) + tuple(a.shape[1:]))
     return Candidates(pl_id=host(c.pl_id), seg=host(c.seg), t=host(c.t),
                       xy=host(c.xy), dist=np.minimum(host(c.dist), 1e18),
@@ -364,6 +365,13 @@ def _group_seed_sample_plain(coords, lengths, cams, mask, F_table,
             i_seg.reshape(G, K, S, K, 2), i_t.reshape(G, K, S, K, 2), i_ok)
 
 
+def k6_table_bytes(K: int, L: int) -> int:
+    """Bytes of K6's per-group member table: K polylines [K, L, 2] f32
+    and their lengths, cameras and masks as int32 (csrc
+    group_seed_sample.cu eg3d_group_seed_sample_smem)."""
+    return K * (8 * L + 12)
+
+
 def group_seed_sample(coords, lengths, cams, mask, F_table, n_samples: int,
                       spacing: float, qcos: float = _QUASI_COS,
                       qdist: float = _QUASI_DIST):
@@ -374,7 +382,9 @@ def group_seed_sample(coords, lengths, cams, mask, F_table, n_samples: int,
     the interval samples of every member (s_valid includes the member
     mask) and the first two crossings of each sample's epipolar line
     with every member's polyline (i_ok includes the member mask, the
-    different-camera rule and s_valid)."""
+    different-camera rule and s_valid).  CUDA tensors launch one block
+    per group, its member table placed by kernels.table_placement (so
+    any K runs); CPU tensors take the plain twin."""
     if coords.device.type == "cpu":
         return _group_seed_sample_plain(coords, lengths, cams, mask,
                                         F_table, n_samples, spacing, qcos,
@@ -392,11 +402,6 @@ def group_seed_sample(coords, lengths, cams, mask, F_table, n_samples: int,
     if L < 3 or S < 1:
         raise ValueError(f"group_seed_sample: needs L >= 3 and n_samples "
                          f">= 1, got L={L}, n_samples={S}")
-    lib = kernels.lib()
-    smem = lib.eg3d_group_seed_sample_smem(K, L, S)
-    if smem > 48 * 1024:
-        raise ValueError(f"group_seed_sample: {K} members of {L} points "
-                         f"need {smem} B of shared memory (> 48 KiB)")
     dev = coords.device
     f = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -409,11 +414,12 @@ def group_seed_sample(coords, lengths, cams, mask, F_table, n_samples: int,
            torch.empty((G, K, S, K, 2), **b))
     if G == 0 or K == 0:
         return out
-    rc = lib.eg3d_group_seed_sample(
+    rc = kernels.lib().eg3d_group_seed_sample(
         coords.data_ptr(), lengths.data_ptr(), cams.data_ptr(),
         mask.data_ptr(), G, K, L, F_table.data_ptr(), V, S, float(spacing),
-        float(qcos), float(qdist), *(o.data_ptr() for o in out),
-        kernels.stream_of(coords))
+        float(qcos), float(qdist),
+        kernels.place("group_seed_sample", k6_table_bytes(K, L), dev),
+        *(o.data_ptr() for o in out), kernels.stream_of(coords))
     kernels.check(rc, "group_seed_sample")
     kernels.LAUNCHES["group_seed_sample"] += 1
     return out

@@ -83,6 +83,10 @@ def build_context(sfmd: SfMData, stack: PLGStack,
     if config.fmat_source != "exact":
         raise NotImplementedError(
             "fmat_source='lmeds' is not ported yet (ROADMAP queue A item 9)")
+    if config.claiming_backend == "device":
+        raise NotImplementedError(
+            "claiming_backend='device' is not ported yet (ROADMAP queue A "
+            "item 9)")
     if config.dtype != "float32":
         raise NotImplementedError("the port computes in float32 only")
     F = all_fundamental_matrices(sfmd.P, sfmd.center)
@@ -127,7 +131,7 @@ def _start_sweep(ctx: MatchingContext, obs_xy, start_mask,
     N, V = start_mask.shape
     view = torch.arange(V, dtype=torch.int32, device=ctx.device).repeat(N)
     c = grid_topm_query(ctx.grids, view, obs_xy.reshape(N * V, 2), ctx.cell,
-                        starting_dist, M)
+                        starting_dist, M, view_cycle=True)
     s_valid = c.valid.reshape(N, V, M) & start_mask[..., None]
     idx = torch.nonzero(s_valid.reshape(-1)).flatten()
     return dict(ridx=idx // (V * M), vs=(idx // M) % V,
@@ -617,7 +621,7 @@ def _locate_on_polylines(ctx: MatchingContext, xy_ev, dir_ev,
     f = xy_ev.dtype
     view = torch.arange(V, dtype=torch.int32, device=dev).repeat(E)
     cand = grid_topm_query(ctx.grids, view, xy_ev.reshape(E * V, 2),
-                           ctx.cell, reanchor_tol, 1)
+                           ctx.cell, reanchor_tol, 1, view_cycle=True)
     pl = torch.clamp_min(cand.pl_id[:, 0], 0).long()
     seg = torch.clamp_min(cand.seg[:, 0], 0).long()
     vl = view.long()

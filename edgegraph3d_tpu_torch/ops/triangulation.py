@@ -4,7 +4,8 @@ Port of edgegraph3d_tpu/ops/triangulation.py.  The hot path is kernel
 K3 (`triangulate_gn`, csrc/triangulate_gn.cu): one CUDA thread per point
 runs the optional DLT init and the GN loop with cameras given as an
 index into P_mats; at O = 3 from registers, otherwise over the point's
-present observations only, with the P table in shared memory.  The
+present observations only, with the P table in shared memory (or, for a
+table beyond the card's shared memory, read from device memory).  The
 plain-torch functions below carry the same semantics in the kernel's
 operation order (the padded form, which the kernel equals bit for bit);
 `triangulate_gn` uses them for CPU tensors only.
@@ -178,6 +179,13 @@ def _triangulate_gn_plain(P_mats, cams, xy, mask, X0, max_iters, epsilon,
                             det_min=det_min)
 
 
+def gn_table_bytes(V: int) -> int:
+    """Bytes of K3's general-body table: P_mats and the probe row
+    [(V + 1), 3, 4] f32 and a tame flag per camera (csrc
+    triangulate_gn.cu gn_smem_bytes)."""
+    return (V + 1) * 48 + V
+
+
 def triangulate_gn(P_mats: torch.Tensor, cams: torch.Tensor,
                    xy: torch.Tensor, mask: torch.Tensor,
                    X0: torch.Tensor | None = None, max_iters: int = 30,
@@ -188,8 +196,9 @@ def triangulate_gn(P_mats: torch.Tensor, cams: torch.Tensor,
     P_mats [V, 3, 4] f32, cams [N, O] i32 camera index per observation,
     xy [N, O, 2] f32, mask [N, O] bool, X0 [N, 3] f32 or None ->
     (X [N, 3], mse [N], valid [N] bool).  CUDA tensors launch the kernel
-    (raising for O != 3 and a P table beyond 48 KiB of shared memory,
-    about 1,000 cameras); CPU tensors take the plain-torch twin."""
+    (for O != 3 with its camera table placed by
+    kernels.table_placement, so any V runs); CPU tensors take the
+    plain-torch twin."""
     if xy.device.type == "cpu":
         return _triangulate_gn_plain(P_mats, cams, xy, mask, X0, max_iters,
                                      epsilon, accept_mse, det_min)
@@ -210,15 +219,13 @@ def triangulate_gn(P_mats: torch.Tensor, cams: torch.Tensor,
     valid = torch.empty(N, dtype=torch.bool, device=dev)
     if N == 0:
         return X, mse, valid
-    smem = kernels.lib().eg3d_triangulate_gn_smem(V, O)
-    if smem > 48 * 1024:
-        raise ValueError(f"triangulate_gn: a {V}-camera table needs {smem} "
-                         f"B of shared memory (> 48 KiB)")
+    place = 0 if O == 3 else kernels.place(
+        "triangulate_gn", gn_table_bytes(V), dev)
     rc = kernels.lib().eg3d_triangulate_gn(
         P_mats.data_ptr(), V, cams.data_ptr(), xy.data_ptr(),
         mask.data_ptr(), N, O, kernels.ptr(X0), max_iters, epsilon,
-        accept_mse, det_min, X.data_ptr(), mse.data_ptr(), valid.data_ptr(),
-        kernels.stream_of(xy))
+        accept_mse, det_min, place, X.data_ptr(), mse.data_ptr(),
+        valid.data_ptr(), kernels.stream_of(xy))
     kernels.check(rc, "triangulate_gn")
     kernels.LAUNCHES["triangulate_gn"] += 1
     return X, mse, valid

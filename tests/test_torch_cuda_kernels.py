@@ -74,17 +74,64 @@ def _queries(ctx, n, seed):
             torch.as_tensor(pts, device=ctx.device))
 
 
-@pytest.mark.parametrize("M", [1, 2, 4])
-def test_grid_topm_kernel_matches_plain(scene, M):
+@pytest.mark.parametrize("Kc", [8, 6])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 8])
+def test_grid_topm_kernel_matches_plain(scene, M, Kc):
+    """K1's cell-at-once body (Kc = 8) and its generic body (Kc = 6: the
+    scene's grid with two slots of each cell dropped) at every M the
+    kernel takes, whole-row stores (M = 1, 2, 4, 8) and scalar ones
+    (M = 3), against the plain twin."""
     _, ctx = scene
-    view, pts = _queries(ctx, 20000, M)
+    grids = ctx.grids if Kc == 8 else ctx.grids[:, :, :, :Kc].contiguous()
+    view, pts = _queries(ctx, 20001, M)
     n0 = kernels.LAUNCHES["grid_topm_query"]
-    got = detection.grid_topm_query(ctx.grids, view, pts, ctx.cell, 10.0, M)
+    got = detection.grid_topm_query(grids, view, pts, ctx.cell, 10.0, M)
     assert kernels.LAUNCHES["grid_topm_query"] == n0 + 1
-    ref = detection._grid_topm_plain(ctx.grids, view, pts, ctx.cell, 10.0, M)
+    ref = detection._grid_topm_plain(grids, view, pts, ctx.cell, 10.0, M)
     torch.cuda.synchronize()
     assert ref.valid.any()
+    if M > 1:
+        assert ref.valid[:, M - 1].any()        # full rows
     _assert_same_candidates(got, ref)
+
+
+@pytest.mark.parametrize("M", [1, 4, 8])
+def test_grid_topm_view_cycle_order(scene, M):
+    """Queries laid out as the main path lays them (view = arange(V)
+    repeated over N rows), visited view by view: the plain twin's result.
+    The order never changes a result: with the views shuffled under the
+    same declaration the kernel still matches."""
+    _, ctx = scene
+    V = ctx.grids.shape[0]
+    rng = np.random.default_rng(20 + M)
+    N = 2501
+    pts = torch.as_tensor(rng.uniform(-20.0, 340.0, (N * V, 2))
+                          .astype(np.float32), device=ctx.device)
+    cyc = torch.arange(V, dtype=torch.int32, device=ctx.device).repeat(N)
+    shuffled = torch.as_tensor(rng.integers(0, V, N * V).astype(np.int32),
+                               device=ctx.device)
+    for view in (cyc, shuffled):
+        got = detection.grid_topm_query(ctx.grids, view, pts, ctx.cell,
+                                        10.0, M, view_cycle=True)
+        ref = detection._grid_topm_plain(ctx.grids, view, pts, ctx.cell,
+                                         10.0, M)
+        torch.cuda.synchronize()
+        assert ref.valid.any()
+        _assert_same_candidates(got, ref)
+
+
+def test_grid_topm_misaligned_grid_raises(scene):
+    """The cell-at-once body loads 16 bytes at a time: a grid stack that
+    is 8- but not 16-byte aligned raises before the launch."""
+    _, ctx = scene
+    n = ctx.grids.numel()
+    buf = torch.empty(n + 2, dtype=torch.float32, device=ctx.device)
+    grids = buf[2:].view(ctx.grids.shape)
+    grids.copy_(ctx.grids)
+    assert grids.data_ptr() % 16 == 8
+    view, pts = _queries(ctx, 100, 0)
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        detection.grid_topm_query(grids, view, pts, ctx.cell, 10.0, 4)
 
 
 @pytest.mark.parametrize("exclude", [None, 0.965])
@@ -168,33 +215,41 @@ def test_triangulate_gn_kernel_matches_plain(scene, O, warm, case):
     torch.testing.assert_close(msek[okp], msep[okp], rtol=1e-4, atol=1e-6)
 
 
-def test_triangulate_gn_kernel_large_camera_table(scene):
-    """The general body stages the P table in shared memory: a 1,100-
-    camera table does not fit its 48 KiB and the wrapper raises before
-    launching, while the O = 3 body (no table staged) takes it."""
+@pytest.mark.parametrize("V_big,where", [(1100, "optin"),
+                                         (5000, "global")])
+def test_triangulate_gn_kernel_large_camera_table(scene, V_big, where):
+    """A camera table beyond 48 KiB: the general body opts in to more
+    shared memory (1,100 cameras) or reads the table from device memory
+    (5,000 cameras, beyond the card's opt-in limit), and matches the
+    plain twin either way, as does the O = 3 body (no table staged)."""
     sfmd, ctx = scene
     rng = np.random.default_rng(4)
     V = ctx.P_mats.shape[0]
-    reps = -(-1100 // V)
-    P_big = np.tile(sfmd.P, (reps, 1, 1))[:1100]
+    reps = -(-V_big // V)
+    P_big = np.tile(sfmd.P, (reps, 1, 1))[:V_big]
     dev = ctx.device
     P_t = torch.as_tensor(P_big.astype(np.float32), device=dev)
+    n_bytes = triangulation.gn_table_bytes(V_big)
+    assert kernels.lib().eg3d_triangulate_gn_smem(V_big, 4) == n_bytes
+    assert kernels.table_placement(
+        n_bytes, kernels.smem_optin_bytes(dev)) == where
     for O in (3, 4):
         _, cams, xy, mask = _gn_problem(sfmd, sfmd.P, 4096, O, rng)
-        cams = cams + V * rng.integers(0, 1100 // V, cams.shape,
+        cams = cams + V * rng.integers(0, V_big // V, cams.shape,
                                        dtype=np.int32)
+        if O == 4:
+            xy[:64][~mask[:64]] = np.inf        # rows redone padded
         args = (P_t, torch.as_tensor(cams, device=dev),
                 torch.as_tensor(xy, device=dev),
                 torch.as_tensor(mask, device=dev))
+        Xk, msek, okk = triangulation.triangulate_gn(*args)
         if O == 4:
-            with pytest.raises(ValueError, match="shared memory"):
-                triangulation.triangulate_gn(*args)
-            continue
-        Xk, _, okk = triangulation.triangulate_gn(*args)
-        Xp, _, okp = triangulation._triangulate_gn_plain(*args, None, 30,
-                                                         5e-7, 9.0, 1e-5)
+            assert kernels.LAST_PLACEMENT["triangulate_gn"] == where
+        Xp, msep, okp = triangulation._triangulate_gn_plain(
+            *args, None, 30, 5e-7, 9.0, 1e-5)
         torch.cuda.synchronize()
         assert okp.any() and torch.equal(okk, okp)
+        assert torch.equal(msek.isnan(), msep.isnan())
         torch.testing.assert_close(Xk[okp], Xp[okp], rtol=1e-4, atol=1e-6)
 
 
@@ -469,6 +524,45 @@ def test_group_seed_sample_kernel_matches_plain(scene, groups):
                                    equal_nan=True)
 
 
+@pytest.mark.parametrize("K,S,where", [(128, 24, "optin"),
+                                       (460, 4, "global")])
+def test_group_seed_sample_kernel_large_groups(scene, K, S, where):
+    """One group whose member table exceeds 48 KiB (128 members of 64
+    points: opted-in shared memory) and one whose polylines alone exceed
+    the card's opt-in limit (460 members: read from device memory), drawn
+    at random from the scene's polylines, against the plain twin."""
+    _, ctx = scene
+    dev = ctx.device
+    L = 64                            # the scene's polylines padded to 64
+    n_bytes = polyline_stages.k6_table_bytes(K, L)
+    assert kernels.lib().eg3d_group_seed_sample_smem(K, L, S) == n_bytes
+    assert kernels.table_placement(
+        n_bytes, kernels.smem_optin_bytes(dev)) == where
+    live = torch.nonzero(ctx.plg_length >= 2)
+    gen = torch.Generator(device=dev).manual_seed(K)
+    pick = live[torch.randint(0, len(live), (1, K), generator=gen,
+                              device=dev)]
+    cam = pick[..., 0].to(torch.int32)
+    pl = pick[..., 1]
+    msk = torch.rand((1, K), generator=gen, device=dev) < 0.9
+    coords = torch.nn.functional.pad(
+        ctx.plg_coords[cam.long(), pl],
+        (0, 0, 0, L - ctx.plg_coords.shape[2])).contiguous()
+    lengths = torch.where(msk, ctx.plg_length[cam.long(), pl], 0) \
+        .to(torch.int32)
+    args = (coords, lengths, cam, msk, ctx.F_table, S, 20.0, 0.965, 5.0)
+    got = polyline_stages.group_seed_sample(*args)
+    assert kernels.LAST_PLACEMENT["group_seed_sample"] == where
+    ref = polyline_stages._group_seed_sample_plain(*args)
+    torch.cuda.synchronize()
+    assert ref[7].any()
+    for i in (1, 3, 5, 7):
+        assert torch.equal(got[i], ref[i]), i
+    for i in (0, 2, 4, 6):
+        torch.testing.assert_close(got[i], ref[i], rtol=1e-6, atol=1e-5,
+                                   equal_nan=True)
+
+
 @pytest.fixture(scope="module")
 def chains(scene):
     """The scene's swept stage-3 chains (CPU context), one chunk in the
@@ -514,6 +608,38 @@ def test_expand_chains_kernel_matches_plain(scene, chains, mode):
     assert torch.equal(okk, okp)
     torch.testing.assert_close(xyk, xyp, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(Xk, Xp, rtol=1e-6, atol=1e-6)
+
+
+def _tiled(t, V_big, dims):
+    idx = torch.arange(V_big, device=t.device) % t.shape[dims[0]]
+    for d in dims:
+        t = t.index_select(d, idx)
+    return t.contiguous()
+
+
+@pytest.mark.parametrize("mode,V_big", [("epipolar", 400),
+                                        ("closest", 5000)])
+def test_expand_chains_large_camera_table(scene, chains, mode, V_big):
+    """K7 with its camera tables beyond the card's opt-in shared memory
+    (the scene's P, F and grids tiled to V_big views): the body that reads
+    P and the F rows from device memory, bit-equal to the plain version."""
+    _, ctx = scene
+    C, T, extent, tensors = chains
+    n_bytes = expansion.k7_table_bytes(V_big, mode == "epipolar")
+    assert kernels.table_placement(
+        n_bytes, kernels.smem_optin_bytes(ctx.device)) == "global"
+    cfg = ctx.config.replace(expand_correspondence_mode=mode)
+    args = (ctx.plg_coords, _tiled(ctx.grids, V_big, [0]),
+            _tiled(ctx.P_mats, V_big, [0]),
+            _tiled(ctx.F_table, V_big, [0, 1]), ctx.cell, *tensors, cfg, C,
+            T)
+    got = expansion.expand_chains_compact(*args, extent)
+    assert kernels.LAST_PLACEMENT["expand_chains"] == "global"
+    ref = expansion._expand_chains_compact_plain(*args)
+    torch.cuda.synchronize()
+    assert ref[2].sum(1).max() > 3                 # views were added
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
 
 
 LENGTHS = (1, 2, 3, 8, 9, 16, 17, 32, 33, 64)

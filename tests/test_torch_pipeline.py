@@ -85,16 +85,20 @@ def test_default_stages_match_jax(cube):
         assert name in ts.timings
 
 
-@pytest.mark.parametrize("option", ["ba_steps", "debug_images", "mesh"])
+@pytest.mark.parametrize("option", ["ba_steps", "debug_images", "mesh",
+                                    "claiming_backend"])
 def test_unported_options_raise(cube, option):
-    """Stages 1 and 2 run now; joint BA, debug images and mesh sharding
-    still raise, naming their ROADMAP item."""
+    """Stages 1 and 2 run now; joint BA, debug images, mesh sharding and
+    device claiming still raise, naming their ROADMAP item."""
     sfmd, imgs, _ = cube
     cfg = TConfig().replace(**KW)
     kw = {"ba_steps": dict(config=cfg.replace(ba_steps=2)),
           "debug_images": dict(config=cfg, debug_images=True),
-          "mesh": dict(config=cfg, mesh=object())}[option]
-    with pytest.raises(NotImplementedError, match="item (9|10)"):
+          "mesh": dict(config=cfg, mesh=object()),
+          "claiming_backend": dict(
+              config=cfg.replace(claiming_backend="device"))}[option]
+    match = "item 9" if option == "claiming_backend" else "item (9|10)"
+    with pytest.raises(NotImplementedError, match=match):
         tp.run_pipeline(sfmd, imgs, device="cpu", **kw)
 
 
