@@ -6,7 +6,7 @@ Needs one CUDA GPU (an H100: the kernels are built for sm_90a) and nvcc.
 Phases, each of which must pass or the script exits non-zero without
 its final `ok` line:
 
-  1. card and build: the card's name and power limit, then the seven
+  1. card and build: the card's name and power limit, then the eight
      hand-written kernels built from edgegraph3d_tpu_torch/csrc (one nvcc
      per source, all started together);
   2. kernel vs plain torch on the card, at the main path's full-scale
@@ -61,12 +61,36 @@ its final `ok` line:
      to a temporary directory, and the default stages with
      closeness_max_dist_ratio=1e6, which must make stage-2 match sets;
   4. the default stages (1, 2, 3) on the 49-view 1600x1200 full-scale
-     workload (6,268 refpoints, every viewing camera starts): stage-1
-     match sets and stage-1 points > 0, and each of the seven kernels'
-     launch count, which must be > 0 (K7's calls are logged with their
-     chains by tile bucket);
-  5. quality gates for phases 3 and 4: edge_points > 0, coverage >= 0.9
-     and med_dist3d <= 0.01.
+     workload (6,268 refpoints, every viewing camera starts), with a
+     working folder: stage-1 match sets and stage-1 points > 0, and the
+     launch count of each of the seven main-path kernels K1-K7, which
+     must be > 0 (K7's calls are logged with their chains by tile
+     bucket; K8 runs only with joint BA);
+  5. quality gates for phases 3, 4 and 6: edge_points > 0,
+     coverage >= 0.9 and med_dist3d <= 0.01;
+  6. the optional paths, after phase 4.  Joint BA on the full scene's
+     augmented scene (phase 4's before_filtering.json, written in phase
+     4's working folder; phase 4's views_per_s leaves that writing out),
+     from a seeded perturbation of it (BA_PERTURB): K8 ba_blocks's
+     step-1 outputs and the Schur system S and rhs against the plain
+     version (within BA_BLOCK_TOL of each array's largest magnitude),
+     then 3 LM steps with K8 and 3 plain steps, each lowering the MSE,
+     with K8 launched 3 times, and the final cameras and points held
+     together (BA_CAM_TOL; BA_X_TOL of how far the points moved); both
+     checks must also reject K8's outputs with gx zeroed and with gx
+     negated; logged: N, each step's wall, K8's device time and bound,
+     the margins of its two decisions, the S matmul's and the solve's
+     times, max_memory_allocated.  Device claiming: stage 3 of the full
+     scene (with expansion and chain extension) with claiming_backend
+     "device" and "host", bit-equal points, equal counts and counters
+     (but the device backend's own), and no fallback to the host pass;
+     the chunks, their fixpoint rounds and both stage3_refpoints times
+     are logged.  The LMedS F
+     table of the full scene: its time, and the median epipolar
+     distance of the refpoint observations under it (< 0.5 px) and
+     under the exact table.  Last, cube8 through run_pipeline with
+     fmat_source="lmeds" and ba_steps=2 (K8 launched twice), under the
+     quality gates.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its f32
@@ -99,8 +123,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -114,10 +140,13 @@ PEAK_F32_FLOPS = 67e12       # H100 SXM f32, outside the tensor cores
 #: f32 operations per item of work, counted from the kernels' arithmetic:
 #: a grid entry tested by K1 / K2, a GN iteration (per observation and per
 #: solve), a DLT (per observation and the 4x4 solve), a walk step of K4,
-#: a sampling step and a segment-line test of K6
+#: a sampling step and a segment-line test of K6, a present observation
+#: of K8 (residual and Jacobians ~87, Hxx 36, gx 12, Hxc 72, Hcc 144,
+#: gc 24, A of its view 90, its rhs term 36) and a point of K8 (the
+#: damped 3x3 inverse)
 FLOPS = dict(grid_entry=21, epipolar_entry=35, gn_obs=85, gn_iter=70,
              dlt_obs=80, dlt_solve=200, walk_step=350, sample_step=30,
-             crossing_seg=25, line=20)
+             crossing_seg=25, line=20, ba_obs=500, ba_point=50)
 KERNEL_META = {
     "grid_topm_query": ("edgegraph3d_tpu_torch/csrc/grid_topm.cu",
                         "edgegraph3d_tpu/matching/detection.py:96"),
@@ -133,6 +162,8 @@ KERNEL_META = {
                           "edgegraph3d_tpu/matching/polyline_stages.py:434"),
     "expand_chains": ("edgegraph3d_tpu_torch/csrc/expand_chains.cu",
                       "edgegraph3d_tpu/matching/expansion.py:361"),
+    "ba_blocks": ("edgegraph3d_tpu_torch/csrc/ba_blocks.cu",
+                  "edgegraph3d_tpu/ops/ba.py:82"),
 }
 
 
@@ -291,11 +322,13 @@ def record_into(results, name, mism, rows, err, ms, plain_ms, err_tol,
                 gated=None, exact=False, work=(0.0, 0.0), library_ms=None):
     """Log and gate one kernel's comparison.  `gated` is the error held
     against err_tol (default: err); `exact` allows no decision mismatch
-    at all (else DECISION_TOL of the rows).  `work` is (bytes, f32
-    operations) for the bound."""
+    at all (else DECISION_TOL of the rows); `mism` None: the kernel's
+    decisions are not among its outputs, and none is compared.  `work`
+    is (bytes, f32 operations) for the bound."""
     gated = err if gated is None else gated
     bound_ms, bound_by = bound(*work)
-    log(f"  {name}: rows={rows} decision_mismatches={mism} "
+    log(f"  {name}: rows={rows} decision_mismatches="
+        f"{'not compared' if mism is None else mism} "
         f"max_abs_err={err:.3g} gated_err={gated:.3g} kernel_ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} bytes={work[0]:.6g} flops={work[1]:.6g} "
         f"bound_ms={bound_ms:.6f} ({bound_by})"
@@ -303,28 +336,35 @@ def record_into(results, name, mism, rows, err, ms, plain_ms, err_tol,
     results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=library_ms)
-    if mism > (0 if exact else DECISION_TOL * rows):
+    if mism is not None and mism > (0 if exact else DECISION_TOL * rows):
         fail(f"{name}: {mism} of {rows} rows differ in a decision")
     if gated > err_tol:
         fail(f"{name}: coordinate error {gated} > {err_tol}")
 
 
-def device_ms(fn, reps: int, name: str) -> float:
+def device_ms(fn, reps: int, name) -> float:
     """Mean device time per call of fn() of the CUDA kernels whose name
-    holds `name`, from a torch.profiler trace of `reps` calls."""
+    holds `name` (or one of a tuple of names), from a torch.profiler
+    trace of `reps` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    names = (name,) if isinstance(name, str) else tuple(name)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
+    us, seen = 0.0, []
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key:
-            t = getattr(e, "self_device_time_total", None)
-            us += float(t if t is not None else e.self_cuda_time_total)
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            seen.append(e.key)
+            if any(n in e.key for n in names):
+                t = getattr(e, "self_device_time_total", None)
+                us += float(t if t is not None else e.self_cuda_time_total)
+    if us == 0.0:
+        log(f"  device_ms: no CUDA kernel named {names} in the trace; "
+            f"its CUDA entries: {seen[:12]}")
     return us / 1e3 / reps
 
 
@@ -1251,11 +1291,12 @@ def _write_scene_files(root, sfmd, edges):
 
 
 def run_main_path(name, scene, max_starting_views, stages=(1, 2, 3),
-                  config=None, via_files=False):
+                  config=None, via_files=False, working_folder=None):
     """One pipeline run on the card with the launch counts set to 0 just
     before it and read just after.  `via_files` goes through
-    `edge_matching` on files in a temporary directory.  Returns
-    (launches, stage counts)."""
+    `edge_matching` on files in a temporary directory; else
+    `working_folder` (optional) is run_pipeline's.  Returns (launches,
+    stage counts)."""
     import tempfile
 
     import torch
@@ -1295,6 +1336,7 @@ def run_main_path(name, scene, max_starting_views, stages=(1, 2, 3),
         else:
             stats = PipelineStats()
             out = run_pipeline(sfmd, edges, cfg,
+                               working_folder=working_folder,
                                max_starting_views=max_starting_views,
                                stats=stats, stages=stages, device="cuda")
         torch.cuda.synchronize()
@@ -1313,20 +1355,362 @@ def run_main_path(name, scene, max_starting_views, stages=(1, 2, 3),
             counts = dict(stats.counts)
     peak = torch.cuda.max_memory_allocated()
     qual = quality_metrics(out, sfmd, curves)
+    # the working folder's checkpoints (host JSON writing) are left out
+    # of views_per_s, so that it compares with runs without a folder
+    ckpt = 0.0 if via_files else stats.timings.get("write_checkpoints", 0.0)
     log(f"{name}: views={sfmd.n_cameras} refpoints={sfmd.n_points} "
         f"stages={'(1, 2, 3)' if via_files else stages} "
         f"max_starting_views={max_starting_views or 'all'} wall_s={wall:.3f} "
-        f"views_per_s={sfmd.n_cameras / wall:.4f} "
+        f"write_checkpoints_s={ckpt:.3f} "
+        f"wall_without_checkpoints_s={wall - ckpt:.3f} "
+        f"views_per_s={sfmd.n_cameras / (wall - ckpt):.4f} "
         f"max_memory_allocated_bytes={peak}")
     log(f"{name} stage counts: {json.dumps(counts)}")
     log(f"{name} quality: {json.dumps(qual)}")
     log(f"{name} launches: {json.dumps(launches)}")
+    if not via_files and "joint_ba" in counts:
+        log(f"{name} joint BA: {json.dumps(stats.metrics)}")
     log(f"{name} K7 calls (chains, chains by tile bucket): {k7_calls}")
     if qual["edge_points"] == 0 or not qual["coverage"] >= 0.9 \
             or not qual["med_dist3d"] <= 0.01:
         fail(f"{name}: quality gate (edge_points > 0, coverage >= 0.9, "
              f"med_dist3d <= 0.01) not met: {qual}")
     return launches, counts
+
+
+# ----------------------------------------------------------------------
+# phase 6: the optional paths (joint BA with K8, device claiming, LMedS F)
+# ----------------------------------------------------------------------
+
+#: K8's outputs and the Schur system against the plain version's, each
+#: as a fraction of the array's largest magnitude (f32 sums in other
+#: orders), on the perturbed state below
+BA_BLOCK_TOL = 1e-4
+#: after 3 LM steps with K8 against 3 plain steps: rotation entries (abs),
+#: translations within BA_CAM_TOL (1 + max |t|), points within BA_X_TOL of
+#: the largest distance the plain steps moved a point
+BA_CAM_TOL, BA_X_TOL = 1e-4, 1e-2
+#: the seeded perturbation joint BA starts from: rotations (rad, per
+#: axis), translations and points (scene units; the full scene spans
+#: ~1.7), so that gx is not ~0 as at triangulated points and the steps
+#: move the state far enough for the checks to see a wrong gx
+BA_PERTURB = dict(w=0.002, t=0.005, X=0.01)
+
+
+def _rel_err(a, b) -> float:
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def ba_work(N, V, O, n_obs):
+    """(bytes, f32 operations) of one K8 call: each input read once,
+    each output written once (the dense B and A dominate), and the
+    arithmetic of every present observation and every point."""
+    n_in = V * 21 * 4 + N * 12 + N * O * (4 + 8 + 1)
+    n_out = N * (36 + 12) + 2 * N * V * 72 + V * (36 + 12) * 4 + 16
+    return n_in + n_out, FLOPS["ba_obs"] * n_obs + FLOPS["ba_point"] * N
+
+
+def ba_step1_errors(got, ref):
+    """Every step-1 piece of K8 (`got`) and of the plain version, and the
+    Schur S of each: {name: error / the plain array's largest magnitude}
+    and the largest absolute error."""
+    from edgegraph3d_tpu_torch.ops import ba
+    pieces = {n: (getattr(got, n), getattr(ref, n)) for n in
+              ("Hxx_inv", "gx", "B", "A", "Hcc", "gc", "rhs", "resid_sq")}
+    pieces["S"] = (ba.schur_complement(got), ba.schur_complement(ref))
+    rel = {n: _rel_err(a, b) for n, (a, b) in pieces.items()}
+    return rel, max(float((a - b).abs().max()) for a, b in pieces.values())
+
+
+def ba_steps_errors(st, st_p, X0):
+    """Final state of 3 LM steps (`st`) against the plain steps' (`st_p`,
+    started from points X0): the readings and whether they pass."""
+    d = {n: float((getattr(st, n) - getattr(st_p, n)).abs().max())
+         for n in ("R", "t", "X")}
+    d["X moved (plain)"] = float((st_p.X - X0).norm(dim=-1).max())
+    d["t_tol"] = BA_CAM_TOL * (1 + float(st_p.t.abs().max()))
+    d["X_tol"] = BA_X_TOL * d["X moved (plain)"]
+    ok = d["R"] <= BA_CAM_TOL and d["t"] <= d["t_tol"] \
+        and d["X"] <= d["X_tol"]
+    return d, ok
+
+
+def perturbed_ba_state(aug, device, seed=0):
+    """BAState of the augmented scene with the BA_PERTURB offsets drawn
+    from `seed` (numpy), all f32 on `device`."""
+    import numpy as np
+    import torch
+
+    from edgegraph3d_tpu_torch.ops import ba
+    rng = np.random.default_rng(seed)
+    V, N = aug.n_cameras, aug.n_points
+    w = torch.as_tensor(rng.normal(0, BA_PERTURB["w"], (V, 3)))
+    arrays = (aug.K, ba.exp_so3(w).numpy() @ aug.R,
+              aug.t + rng.normal(0, BA_PERTURB["t"], (V, 3)),
+              aug.points + rng.normal(0, BA_PERTURB["X"], (N, 3)))
+    return ba.BAState(*(torch.as_tensor(np.asarray(a, np.float32),
+                                        device=device) for a in arrays))
+
+
+def check_joint_ba(aug, results, device="cuda"):
+    """Joint BA on the augmented full scene (phase 4's
+    before_filtering.json), from a seeded perturbation of it: step 1's
+    blocks and Schur system with K8 against the plain version, then 3 LM
+    steps with K8 (`ba.ba_step_single`) and 3 plain, each of which must
+    lower the MSE, with the final cameras and points held together.  The
+    same two checks must reject K8's outputs with gx zeroed and with gx
+    negated.  Returns K8's launches in the kernel run."""
+    import numpy as np
+    import torch
+
+    from edgegraph3d_tpu_torch import kernels
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    from edgegraph3d_tpu_torch.ops import ba
+    from edgegraph3d_tpu_torch.ops.linalg3 import det3
+
+    dev = torch.device(device)
+    N, V = aug.n_points, aug.n_cameras
+    obs_xy, obs_mask = rp.dense_observations(aug)
+    cam = torch.arange(V, dtype=torch.int32, device=dev).repeat(N, 1)
+    xy = torch.as_tensor(np.asarray(obs_xy, np.float32), device=dev)
+    mask = torch.as_tensor(obs_mask, device=dev)
+    obs = (cam, xy, mask)
+    state0 = perturbed_ba_state(aug, dev)
+    n_obs = int(mask.sum())
+    log(f"  joint BA: N={N} points, V={V}, {n_obs} observations, from "
+        f"the augmented scene perturbed by {json.dumps(BA_PERTURB)} "
+        "(seed 0)")
+
+    # step 1: every piece against the plain version
+    got, ms = cuda_time(lambda: ba.ba_blocks(state0, *obs), 5)
+    ref, pms = cuda_time(lambda: ba._ba_blocks_plain(state0, *obs), 1)
+    k8_ms = {n: device_ms(lambda: ba.ba_blocks(state0, *obs), 5, n)
+             for n in ("ba_point_kernel", "ba_view_kernel")}
+    kms = sum(k8_ms.values())
+    rel, err = ba_step1_errors(got, ref)
+    gated = max(rel.values())
+    log(f"  ba_blocks step 1, error / largest magnitude: {json.dumps(rel)}")
+    # K8's decisions (the depth branch |p_z| < 1e-9, the det guard of the
+    # damped inverse) are not among its outputs: their margins on these
+    # inputs say whether f32 rounding could flip one
+    pz = (state0.X @ state0.R[:, 2, :].T + state0.t[:, 2])[mask]
+    r, Hxx = ba.ba_build_blocks(state0, *obs)[:2]
+    dg = torch.diagonal(Hxx, dim1=-2, dim2=-1)
+    det = det3(Hxx + 1e-4 * torch.diag_embed(dg)
+               + 1e-8 * torch.eye(3, device=dev))
+    # how far gx is from cancelling: its largest magnitude against its
+    # terms' scale sqrt(Hxx_ii sum r^2) (Cauchy-Schwarz)
+    scale = torch.sqrt(dg * (r * r).sum((1, 2))[:, None])
+    log(f"  ba_blocks decision margins: min |p_z| {float(pz.abs().min()):.6g}"
+        f" (branch below 1e-9), min |det| {float(det.abs().min()):.6g} "
+        f"(guard below 1e-20); max |gx| {float(ref.gx.abs().max()):.6g}, "
+        f"{float(ref.gx.abs().max() / scale.max()):.6g} of the largest "
+        "terms' scale")
+    del pz, r, Hxx, dg, det, scale
+    if int(got.n_obs) != n_obs or int(ref.n_obs) != n_obs:
+        fail(f"ba_blocks: observation count {int(got.n_obs)} / "
+             f"{int(ref.n_obs)} != {n_obs}")
+    for label, f in (("zeroed", 0.0), ("negated", -1.0)):
+        mrel, _ = ba_step1_errors(got._replace(gx=got.gx * f), ref)
+        log(f"  ba_blocks step-1 check of K8's outputs with gx {label}: "
+            f"gx {mrel['gx']:.6g}, rhs {mrel['rhs']:.6g} (tolerance "
+            f"{BA_BLOCK_TOL})")
+        if max(mrel.values()) <= BA_BLOCK_TOL:
+            fail(f"ba_blocks: the step-1 check passes gx {label}")
+    # K8's launch alone (the C entry, as the wrapper calls it) into the
+    # step-1 outputs, after the comparison: B keeps accumulating
+    lib, stream = kernels.lib(), kernels.stream_of(state0.X)
+    rsq = torch.empty(N, device=dev)
+    cnt = torch.empty(N, dtype=torch.int32, device=dev)
+    ptrs = [a.data_ptr() for a in (got.Hxx_inv, got.gx, got.B, got.A, rsq,
+                                   cnt, got.Hcc, got.gc, got.rhs,
+                                   got.resid_sq, got.n_obs)]
+    _, launch_ms = cuda_time(lambda: kernels.check(lib.eg3d_ba_blocks(
+        state0.K.data_ptr(), state0.R.data_ptr(), state0.t.data_ptr(), V,
+        state0.X.data_ptr(), cam.data_ptr(), xy.data_ptr(), mask.data_ptr(),
+        N, V, 1e-4, *ptrs, stream), "ba_blocks"), 20)
+    A2, B2 = got.A.reshape(6 * V, 3 * N), got.B.reshape(3 * N, 6 * V)
+    _, mm_ms = cuda_time(lambda: torch.matmul(A2, B2), 5)
+    S, rhs = ba.schur_complement(ref), ref.rhs.reshape(-1)
+    S += (1e-4 * torch.diagonal(S) + 1e-12) * torch.eye(6 * V, device=dev)
+    pre = 1.0 / torch.sqrt(torch.clamp_min(torch.diagonal(S), 1e-12))
+    S_p = S * pre[:, None] * pre[None, :]
+    _, solve_ms = cuda_time(lambda: torch.linalg.solve(S_p, rhs * pre), 5)
+    record_into(results, "ba_blocks", None, N, err, ms, pms, BA_BLOCK_TOL,
+                gated=gated, work=ba_work(N, V, V, n_obs))
+    bound_ms = results["ba_blocks"]["bound_ms"]
+    log(f"  ba_blocks: device_ms={kms:.4f} (profiler: {json.dumps(k8_ms)}) "
+        f"launch_alone_ms={launch_ms:.4f} bound_ms={bound_ms:.6f} "
+        f"wrapper_ms={ms:.4f} plain_ms={pms:.4f}; "
+        f"S matmul [{6 * V}, {3 * N}] x [{3 * N}, {6 * V}] "
+        f"{mm_ms:.4f} ms; solve {6 * V}x{6 * V} {solve_ms:.4f} ms")
+    del got, ref, S, S_p, A2, B2
+
+    def plain_step(st):
+        """One LM step with the plain version's blocks."""
+        blocks = ba._ba_blocks_plain(st, *obs)
+        new, _, _ = ba.ba_apply(st, ba.schur_complement(blocks), blocks)
+        return new, blocks.resid_sq / blocks.n_obs.clamp_min(1)
+
+    def wrong_gx_step(f):
+        """One LM step with K8's blocks, gx scaled by f."""
+        def step(st):
+            blocks = ba.ba_blocks(st, *obs)
+            blocks = blocks._replace(gx=blocks.gx * f)
+            new, _, _ = ba.ba_apply(st, ba.schur_complement(blocks), blocks)
+            return new, blocks.resid_sq / blocks.n_obs.clamp_min(1)
+        return step
+
+    def steps(label, step):
+        """3 LM steps, each timed on the host clock after a
+        synchronize; K8's launches counted over the run."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        st, mses, walls = state0, [], []
+        for _ in range(3):
+            t0 = time.time()
+            st, mse = step(st)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            mses.append(float(mse))
+        launches = kernels.LAUNCHES["ba_blocks"]
+        after = float(ba.ba_mse(st, *obs))
+        log(f"  joint BA {label}: mse per step {mses}, after {after}, "
+            f"step walls_s {walls}, K8 launches {launches}, "
+            f"max_memory_allocated_bytes "
+            f"{torch.cuda.max_memory_allocated()}")
+        return st, launches, mses[0], after
+
+    st_k, launches, mse0, after = steps(
+        "with K8", lambda st: ba.ba_step_single(st, *obs))
+    if not after < mse0:
+        fail(f"joint BA with K8: the MSE did not fall ({mse0}, {after})")
+    st_p, plain_launches, mse0, after = steps("plain", plain_step)
+    if not after < mse0:
+        fail(f"joint BA plain: the MSE did not fall ({mse0}, {after})")
+    if launches != 3 or plain_launches != 0:
+        fail(f"joint BA: K8 launched {launches} times with K8 and "
+             f"{plain_launches} times in the plain run")
+    d, ok = ba_steps_errors(st_k, st_p, state0.X)
+    log(f"  joint BA, K8 against plain after 3 steps (max abs): "
+        f"{json.dumps(d)}")
+    if not ok:
+        fail(f"joint BA: K8 and plain runs differ: {d}")
+    for label, f in (("zeroed", 0.0), ("negated", -1.0)):
+        st_m = steps(f"with K8, gx {label}", wrong_gx_step(f))[0]
+        dm, ok = ba_steps_errors(st_m, st_p, state0.X)
+        log(f"  joint BA, K8 with gx {label} against plain after 3 steps: "
+            f"{json.dumps(dm)}")
+        if ok:
+            fail(f"joint BA: the 3-step check passes gx {label}")
+    return launches
+
+
+def check_device_claiming(full, cfg, device="cuda"):
+    """Stage 3 of the full scene (with expansion and chain extension)
+    with claiming_backend="device" and "host": the same points bit for
+    bit, the same counts and counters (but the device backend's own),
+    and no fallback to the host pass.  Logs the chunks and their fixpoint
+    rounds (the device_claiming_* counters)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    from edgegraph3d_tpu_torch.matching.claiming_device import MAX_ROUNDS
+    from edgegraph3d_tpu_torch.pipeline import (PipelineStats,
+                                                reconstruct_all_stages)
+    from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
+
+    sfmd, edges, _ = full
+    ctx = rp.build_context(sfmd, extract_plgs(edges, cfg), cfg,
+                           device=device)
+    res = {}
+    for backend in ("device", "host"):
+        c = dataclasses.replace(ctx, config=cfg.replace(
+            claiming_backend=backend))
+        stats = PipelineStats()
+        torch.cuda.synchronize()
+        pts = reconstruct_all_stages(sfmd, c, stats, stages=(3,))
+        res[backend] = (pts, stats)
+        log(f"  stage 3, claiming_backend={backend}: "
+            f"stage3_refpoints_s={stats.timings['stage3_refpoints']:.4f}"
+            f" counts {json.dumps(stats.counts)} counters "
+            f"{json.dumps(stats.counters)}")
+    (pd, sd), (ph, sh) = res["device"], res["host"]
+    own = {k: sd.counters.pop(k) for k in list(sd.counters)
+           if k.startswith("device_claiming")}
+    if own.get("device_claiming_fallback", 0) != 0:
+        fail("device claiming fell back to the host pass "
+             f"{own['device_claiming_fallback']} times")
+    if not own.get("device_claiming_rounds", 0):
+        fail("device claiming: the fixpoint never ran")
+    log(f"  device claiming: {own['device_claiming_chunks']} chunks, "
+        f"{own['device_claiming_rounds']} fixpoint rounds (largest "
+        f"{own['device_claiming_rounds_max']} of {MAX_ROUNDS})")
+    same = all(np.array_equal(getattr(pd, f), getattr(ph, f))
+               for f in ("X", "obs_xy", "obs_mask", "seed_refpoint",
+                         "seed_id", "chain_order"))
+    if not same or sd.counts != sh.counts or sd.counters != sh.counters:
+        fail(f"device claiming: the points or counts differ from the host "
+             f"backend's ({len(pd.X)} against {len(ph.X)} points)")
+    log(f"  device claiming: {len(pd.X)} points, equal to the host "
+        "backend's bit for bit")
+
+
+def epipolar_median_px(F, sfmd):
+    """Median distance (px) of the refpoints' observations on view j to
+    the epipolar lines F[i, j] of their observations on view i, over
+    every pair (i, j) whose F is not the (0, 0, 1) sentinel."""
+    import torch
+
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    obs_xy, obs_mask = rp.dense_observations(sfmd)
+    dev = F.device
+    xy = torch.as_tensor(obs_xy, device=dev)
+    m = torch.as_tensor(obs_mask, device=dev)
+    xh = torch.cat([xy, torch.ones_like(xy[..., :1])], -1)       # [N,V,3]
+    V = F.shape[0]
+    out = []
+    for i in range(V):
+        lines = torch.einsum("jab,nb->nja", F[i], xh[:, i])      # [N,V,3]
+        d = (lines * xh).sum(-1).abs() / torch.clamp_min(
+            lines[..., :2].norm(dim=-1), 1e-20)                   # [N,V]
+        ok = m[:, i:i + 1] & m & (F[i, :, :2].abs().sum((-2, -1)) > 0)
+        ok[:, i] = False
+        out.append(d[ok])
+    return float(torch.cat(out).median())
+
+
+def check_lmeds(full, cfg, device="cuda"):
+    """The LMedS F table of the full scene: its time and the median
+    epipolar distance of the refpoint observations under it and under
+    the exact table."""
+    import torch
+
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    from edgegraph3d_tpu_torch.ops.geometry import all_fundamental_matrices
+
+    sfmd = full[0]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    F_lm = rp.lmeds_fundamental_table(sfmd, cfg, device=device)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    F_ex = all_fundamental_matrices(sfmd.P, sfmd.center).to(device)
+    med_lm, med_ex = epipolar_median_px(F_lm, sfmd), \
+        epipolar_median_px(F_ex, sfmd)
+    n_sent = int((F_lm[..., :2, :].abs().sum((-2, -1)) == 0).sum()) - \
+        sfmd.n_cameras
+    log(f"  LMedS F table: {sfmd.n_cameras ** 2 - sfmd.n_cameras} pairs, "
+        f"{sfmd.n_points} refpoints, {wall:.4f} s, {n_sent} sentinel "
+        f"pairs; median epipolar distance {med_lm:.6g} px (exact table "
+        f"{med_ex:.6g} px)")
+    if not bool(torch.isfinite(F_lm).all()) or not med_lm < 0.5:
+        fail(f"LMedS F table: not finite, or median epipolar distance "
+             f"{med_lm} px >= 0.5")
 
 
 def main() -> int:
@@ -1340,6 +1724,7 @@ def main() -> int:
         fail("edgegraph3d_tpu_torch/ not found beside chip_smoke.py")
     sys.path.insert(0, HERE)
     from edgegraph3d_tpu_torch import kernels
+    from edgegraph3d_tpu_torch.core import sfm as sfm_io
     from edgegraph3d_tpu_torch.matching import refpoints as rp
     from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
 
@@ -1385,13 +1770,36 @@ def main() -> int:
         fail(f"cube8 stage-2 sets: stage 2 made no match sets: {counts}")
 
     log("== phase 4: main path, full-scale workload, stages (1, 2, 3)")
-    launches, counts = run_main_path("full", full, None)
-    if counts.get("stage1_similarity_graph", 0) <= 0 \
-            or counts.get("stage1_sweep", 0) <= 0:
-        fail(f"full: stage 1 made no match sets or no points: {counts}")
-    missing = [k for k, n in launches.items() if n <= 0]
-    if missing:
-        fail(f"kernels not launched on the main path: {missing}")
+    work = tempfile.mkdtemp(prefix="eg3d_smoke_")
+    try:
+        launches, counts = run_main_path("full", full, None,
+                                         working_folder=work)
+        if counts.get("stage1_similarity_graph", 0) <= 0 \
+                or counts.get("stage1_sweep", 0) <= 0:
+            fail(f"full: stage 1 made no match sets or no points: {counts}")
+        missing = [k for k in kernels.MAIN_PATH_KERNELS if launches[k] <= 0]
+        if missing:
+            fail(f"kernels not launched on the main path: {missing}")
+
+        log("== phase 6: optional paths (joint BA, device claiming, "
+            "LMedS F)")
+        t0 = time.time()
+        aug = sfm_io.read_sfm_data(os.path.join(work,
+                                                "before_filtering.json"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches["ba_blocks"] = check_joint_ba(aug, results)
+    del aug
+    torch.cuda.empty_cache()
+    check_device_claiming(full, cfg)
+    check_lmeds(full, cfg)
+    ba_launches, _ = run_main_path(
+        "cube8 LMedS F + joint BA", cube, 2,
+        config=bench_config().replace(fmat_source="lmeds", ba_steps=2))
+    if ba_launches["ba_blocks"] != 2:
+        fail(f"cube8 joint BA: K8 launched {ba_launches['ba_blocks']} "
+             "times in 2 steps")
+    log(f"phase 6 wall {time.time() - t0:.1f}s")
 
     kern = [dict(name=k, route="cuda", source=KERNEL_META[k][0],
                  replaces=KERNEL_META[k][1], launches=launches[k],

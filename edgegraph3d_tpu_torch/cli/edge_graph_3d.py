@@ -6,9 +6,10 @@ Usage:
         <images_folder> <edges_folder> <working_folder> \
         <input_sfm_data.json> <output.json> [--device cuda|cpu]
 
-Runs the default stages (1, 2, 3).  `-i` (debug images) and
-`--ba-steps N` with N > 0 are not ported yet and raise
-NotImplementedError, as run_pipeline does.
+Runs the default stages (1, 2, 3); `--ba-steps N` adds N joint
+bundle-adjustment steps before the final filter (kernel K8 on the card).
+`-i` (debug images) is not ported yet and raises NotImplementedError, as
+run_pipeline does.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def main(argv=None):
                     help="fragment the saved 3D graph at this arc-length")
     ap.add_argument("--ba-steps", type=int, default=0, metavar="N",
                     help="joint bundle-adjustment steps before the final "
-                    "filter (not ported yet: N > 0 raises)")
+                    "filter")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default; raises without a "
                     "GPU) or cpu")

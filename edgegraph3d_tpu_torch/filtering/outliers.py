@@ -6,6 +6,9 @@ re-optimized over all its observations by kernel K3
 MSE < gn_max_mse); accepted points take the optimized coordinates, and
 edge-points additionally need more than max(3, median_ray_bucket/2 - 1)
 observations.
+
+Every function here defaults to device="cuda" and raises without a GPU
+(devices.resolve_device); the CPU runs only when asked for.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 
 from edgegraph3d_tpu_torch.core.sfm import SfMData, pack_observations, \
     remove_outliers
+from edgegraph3d_tpu_torch.devices import resolve_device
 from edgegraph3d_tpu_torch.ops.triangulation import triangulate_gn
 
 INVALID_FORCED_MIN_FILTER = -1
@@ -22,8 +26,9 @@ INVALID_FORCED_MIN_FILTER = -1
 
 def gauss_newton_filter(sfmd: SfMData, gn_max_mse: float = 2.25,
                         max_iters: int = 30, chunk: int = 65536,
-                        epsilon: float = 5e-7, device="cpu"):
+                        epsilon: float = 5e-7, device="cuda"):
     """Re-optimize all points; returns (new_points [N,3], inliers [N])."""
+    device = resolve_device(device)
     N = sfmd.n_points
     if N == 0:
         return sfmd.points.copy(), np.zeros(0, dtype=bool)
@@ -68,7 +73,7 @@ def compute_inliers(sfmd: SfMData, first_edgepoint: int,
                     gn_max_mse: float = 2.25,
                     forced_min_filter: int = INVALID_FORCED_MIN_FILTER,
                     min_views_floor: int = 3, epsilon: float = 5e-7,
-                    device="cpu"):
+                    device="cuda"):
     """GN inliers plus the edge-point view-count rule.
     Returns (new_points, inliers)."""
     new_pts, inliers = gauss_newton_filter(sfmd, gn_max_mse,
@@ -86,7 +91,7 @@ def filter_sfm_data(sfmd: SfMData, first_edgepoint: int,
                     gn_max_mse: float = 2.25,
                     forced_min_filter: int = INVALID_FORCED_MIN_FILTER,
                     min_views_floor: int = 3, epsilon: float = 5e-7,
-                    device="cpu") -> SfMData:
+                    device="cuda") -> SfMData:
     """GN + view-count inliers, points updated to optimized coords,
     scene compacted."""
     new_pts, inliers = compute_inliers(sfmd, first_edgepoint, gn_max_mse,

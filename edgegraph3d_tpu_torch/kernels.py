@@ -1,16 +1,18 @@
 """Build and bind the hand-written CUDA kernels (csrc/*.cu).
 
-All seven kernels of the main path live in one shared library
-with a plain C interface, compiled by nvcc for Hopper (sm_90a) at first
-use into `_build/` and loaded with ctypes.  The library is rebuilt when
-any source is newer than it.  Each C entry launches on the caller's
-stream and returns `cudaGetLastError()`; `check()` raises on non-zero.
+All eight kernels (K1-K7 of the main path and K8 of joint BA) live in
+one shared library with a plain C interface, compiled by nvcc for Hopper
+(sm_90a) at first use into `_build/` and loaded with ctypes.  The
+library is rebuilt when any source is newer than it.  Each C entry
+launches on the caller's stream and returns `cudaGetLastError()`;
+`check()` raises on non-zero.
 
 `LAUNCHES` holds one plain-integer launch count per kernel.  The
 wrappers (detection.grid_topm_query / epipolar_topm_query,
 triangulation.triangulate_gn, following.follow_walk, gather.gather_rows,
-polyline_stages.group_seed_sample, expansion.expand_chains_compact) add
-one right after each launch of their kernel and nowhere else.
+polyline_stages.group_seed_sample, expansion.expand_chains_compact,
+ba.ba_blocks) add one right after each launch of their kernel and
+nowhere else.
 
 Arithmetic is compiled with `--fmad=false`: the plain-torch twins round
 after every multiply and add, and contracting `a*b+c` into one FMA would
@@ -36,9 +38,12 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
               "-fPIC"]
 
-KERNEL_NAMES = ("grid_topm_query", "epipolar_topm_query", "triangulate_gn",
-                "follow_walk", "gather_rows", "group_seed_sample",
-                "expand_chains")
+#: the kernels every default run_pipeline call launches (K1-K7)
+MAIN_PATH_KERNELS = ("grid_topm_query", "epipolar_topm_query",
+                     "triangulate_gn", "follow_walk", "gather_rows",
+                     "group_seed_sample", "expand_chains")
+#: K8 runs only with joint BA (config.ba_steps > 0)
+KERNEL_NAMES = MAIN_PATH_KERNELS + ("ba_blocks",)
 LAUNCHES = {k: 0 for k in KERNEL_NAMES}
 
 _LOCK = threading.Lock()
@@ -91,6 +96,10 @@ _SIGNATURES = {
     "eg3d_expand_chains": [_P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P,
                            _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _F,
                            _F, _F, _I, _P, _P, _P, _P, _P, _P, _P],
+    # K, R, t, V, X, cam, xy, mask, N, O, damping, Hinv, gx, B, A, rsq,
+    # cnt, Hcc, gc, rhs, rsum, nobs, stream
+    "eg3d_ba_blocks": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _F,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 

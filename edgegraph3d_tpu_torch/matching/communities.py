@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from edgegraph3d_tpu_torch.devices import resolve_device
+
 
 def _directed(edges: torch.Tensor, weights: torch.Tensor):
     """Both directions of every edge, forward first: (src, dst, w) of
@@ -350,14 +352,16 @@ LOUVAIN_MAX_NODES = 20_000
 def communities_from_edges(edges: np.ndarray, weights: np.ndarray,
                            n_nodes: int, n_iters: int = 30,
                            min_size: int = 2, method: str = "auto",
-                           device="cpu") -> list[np.ndarray]:
+                           device="cuda") -> list[np.ndarray]:
     """Edge list -> list of node-id arrays (communities of >= min_size).
 
     Methods (as in the JAX package): "louvain" (host Louvain), "lp"
     (label propagation on `device`), "lp+merge" (LP, then a host
     modularity merge), "union" (the lp+merge and Louvain communities,
     deduplicated), "union3" (union plus the raw-LP communities) and
-    "auto" (= union3)."""
+    "auto" (= union3).  `device` defaults to "cuda" and raises without a
+    GPU, whatever the method."""
+    device = resolve_device(device)
     if len(edges) == 0 or n_nodes == 0:
         return []
     if method == "auto":

@@ -11,8 +11,10 @@ per-refpoint loop, see the JAX module docstring):
      with correspondences; DLT + GN on the candidate pairs (kernel K3);
      a seed needs exactly one valid pair;
   4. bidirectional following (matching/following.py, kernels K4 + K3)
-     and post-hoc interval claiming on the host (MatchesManager), with
-     continuation rounds for chains that hit max_follow_steps;
+     and post-hoc interval claiming (the host MatchesManager, or with
+     claiming_backend="device" the fixpoint of matching/claiming_device.py
+     at the two seed-sweep sites), with continuation rounds for chains
+     that hit max_follow_steps;
   5. expansion of every chain to all views (matching/expansion.py) and
      chain extension from the expanded view sets (chain ends re-anchored
      by K1, their polylines gathered by kernel K5).
@@ -33,6 +35,7 @@ import torch
 
 from edgegraph3d_tpu_torch.config import DEFAULT_CONFIG, EdgeGraphConfig
 from edgegraph3d_tpu_torch.core.sfm import SfMData
+from edgegraph3d_tpu_torch.devices import resolve_device
 from edgegraph3d_tpu_torch.matching import following
 from edgegraph3d_tpu_torch.matching import matches as matches_mod
 from edgegraph3d_tpu_torch.matching.detection import (epipolar_topm_query,
@@ -77,19 +80,59 @@ def context_from_arrays(plg_coords, plg_length, grids, P_mats, F_table,
         cell=float(cell), config=config, device=dev)
 
 
+#: view pairs fit at once by lmeds_fundamental_table (as in JAX)
+LMEDS_PAIR_CHUNK = 256
+
+
+def lmeds_fundamental_table(sfmd: SfMData, config: EdgeGraphConfig,
+                            device="cuda") -> torch.Tensor:
+    """All-pairs F table [V, V, 3, 3] f32 fit from common refpoint
+    observations with LMedS (the reference's production path,
+    cv::findFundamentalMat(FM_LMEDS) on >= fmat_min_common_points common
+    points).  Pairs with too few common points get the line (0,0,1)
+    sentinel: epipolar queries then find no crossings.  Pairs are fit
+    LMEDS_PAIR_CHUNK at a time (the median sort is [chunk, 64, N] f32:
+    ~411 MB at N = 6,268 refpoints); each pair's subsets are drawn once
+    for the whole table (ops.geometry.lmeds_subsets), so the draws do not
+    depend on the chunk or the device (F does, through f32 rounding
+    only)."""
+    from edgegraph3d_tpu_torch.ops.geometry import (fundamental_lmeds,
+                                                    lmeds_subsets)
+
+    dev = resolve_device(device)
+    V = sfmd.n_cameras
+    obs_xy, obs_mask = dense_observations(sfmd)
+    pairs = np.asarray([(i, j) for i in range(V) for j in range(V)
+                        if i != j], np.int64).reshape(-1, 2)
+    F_out = torch.zeros((V, V, 3, 3), dtype=torch.float32, device=dev)
+    F_out[:, :, 2, 2] = 1.0          # invalid-F sentinel: line (0,0,1)
+    if len(pairs) == 0:
+        return F_out
+    xy = torch.as_tensor(obs_xy, device=dev)               # [N,V,2]
+    mask = torch.as_tensor(obs_mask, device=dev)
+    pi = torch.as_tensor(pairs, device=dev)
+    mm = mask[:, pi[:, 0]] & mask[:, pi[:, 1]]             # [N,P]
+    subsets = lmeds_subsets(mm.T)
+    for lo in range(0, len(pairs), LMEDS_PAIR_CHUNK):
+        hi = min(lo + LMEDS_PAIR_CHUNK, len(pairs))
+        i, j = pi[lo:hi, 0], pi[lo:hi, 1]
+        F, ok = fundamental_lmeds(
+            xy[:, i].transpose(0, 1), xy[:, j].transpose(0, 1),
+            mm[:, lo:hi].T, subsets=subsets[lo:hi],
+            min_points=config.fmat_min_common_points)
+        F_out[i[ok], j[ok]] = F[ok]
+    return F_out
+
+
 def build_context(sfmd: SfMData, stack: PLGStack,
                   config: EdgeGraphConfig = DEFAULT_CONFIG,
                   cell: float = 10.0, device="cuda") -> MatchingContext:
-    if config.fmat_source != "exact":
-        raise NotImplementedError(
-            "fmat_source='lmeds' is not ported yet (ROADMAP queue A item 9)")
-    if config.claiming_backend == "device":
-        raise NotImplementedError(
-            "claiming_backend='device' is not ported yet (ROADMAP queue A "
-            "item 9)")
     if config.dtype != "float32":
         raise NotImplementedError("the port computes in float32 only")
-    F = all_fundamental_matrices(sfmd.P, sfmd.center)
+    if config.fmat_source == "lmeds":
+        F = lmeds_fundamental_table(sfmd, config, device).cpu()
+    else:
+        F = all_fundamental_matrices(sfmd.P, sfmd.center)
     grids = build_grids(stack, sfmd.widths, sfmd.heights, cell,
                         config.grid_cell_capacity)
     return context_from_arrays(stack.coords, stack.length, grids, sfmd.P,
@@ -352,6 +395,20 @@ def _empty_points(V: int) -> EdgePoints:
                       seed_refpoint=np.zeros(0, np.int64))
 
 
+def _resolve_claims(ctx: MatchingContext, manager, *args,
+                    skip_start_check: bool = False):
+    """Dispatch a seed sweep's claiming to config.claiming_backend: the
+    host-sequential MatchesManager pass, or the device fixpoint
+    (matching/claiming_device.py) on ctx.device."""
+    if ctx.config.claiming_backend == "device":
+        from edgegraph3d_tpu_torch.matching import claiming_device
+        return claiming_device.apply_device_claiming(
+            manager, *args, skip_start_check=skip_start_check,
+            device=ctx.device)
+    return manager.resolve_and_claim(
+        *args, skip_start_check=skip_start_check)
+
+
 # pack_follow_outputs meta column layout (following.py)
 _M_TOTAL = 0
 _M_FSEG, _M_FT = slice(1, 4), slice(4, 7)
@@ -483,10 +540,11 @@ def sweep_seeds(seeds_np: dict | None, seed_ref: np.ndarray | None,
         n = len(chunk["_ref"])
         hi = lo + n
         success = meta[:, _M_TOTAL] >= cfg.new_point_min_steps
-        accept = manager.resolve_and_claim(
-            success, chunk["cams"], chunk["pl_id"], chunk["seg"],
-            chunk["t"], meta[:, _M_FSEG].astype(np.int64), meta[:, _M_FT],
-            meta[:, _M_BSEG].astype(np.int64), meta[:, _M_BT])
+        accept = _resolve_claims(
+            ctx, manager, success, chunk["cams"], chunk["pl_id"],
+            chunk["seg"], chunk["t"], meta[:, _M_FSEG].astype(np.int64),
+            meta[:, _M_FT], meta[:, _M_BSEG].astype(np.int64),
+            meta[:, _M_BT])
         gid = np.arange(lo, hi) + seed_id_offset
         zeros = np.zeros(n, np.int64)
         ones = np.ones(n, np.int64)
@@ -525,9 +583,9 @@ def sweep_seeds(seeds_np: dict | None, seed_ref: np.ndarray | None,
             rows, meta = run_follow(chunk, fixed_perm=perm, fixed_dirs=dirs,
                                     min_steps=1)
             success = meta[:, _M_TOTAL] >= 1
-            accept = manager.resolve_and_claim(
-                success, chunk["cams"], chunk["pl_id"], chunk["seg"],
-                chunk["t"], meta[:, _M_FSEG].astype(np.int64),
+            accept = _resolve_claims(
+                ctx, manager, success, chunk["cams"], chunk["pl_id"],
+                chunk["seg"], chunk["t"], meta[:, _M_FSEG].astype(np.int64),
                 meta[:, _M_FT], meta[:, _M_BSEG].astype(np.int64),
                 meta[:, _M_BT], skip_start_check=True)
             collect_rows(rows, chunk, gid, accept, sign_map, base, base)

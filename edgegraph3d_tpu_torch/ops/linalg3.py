@@ -1,11 +1,17 @@
 """Closed-form small-matrix linear algebra on torch tensors.
 
-Port of the DLT part of edgegraph3d_tpu/ops/linalg3.py: the 4x4
-Cholesky + inverse iteration of the DLT nullspace, on nested lists of
-batched scalars.  This is the plain path under kernel K3
-(triangulation.triangulate_gn), which runs the same closed forms per
-thread in the same operation order.  The GN step's 3x3 Cramer solve is
-written out in triangulation.gauss_newton_soa.
+Port of edgegraph3d_tpu/ops/linalg3.py:
+
+  * det3, adjugate3, inv3, solve3 on batched [..., 3, 3] tensors
+    (Cramer / adjugate, with the same det_eps guard); the plain path of
+    the BA point blocks (ops/ba.py), which kernel K8 computes per thread
+    in the same closed forms;
+  * the DLT part: the 4x4 Cholesky + inverse iteration of the DLT
+    nullspace, on nested lists of batched scalars.  This is the plain
+    path under kernel K3 (triangulation.triangulate_gn), which runs the
+    same closed forms per thread in the same operation order.  The GN
+    step's 3x3 Cramer solve is written out in
+    triangulation.gauss_newton_soa.
 """
 
 from __future__ import annotations
@@ -13,6 +19,45 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def det3(A: torch.Tensor) -> torch.Tensor:
+    """Determinant of [..., 3, 3]."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
+
+
+def adjugate3(A: torch.Tensor) -> torch.Tensor:
+    """Adjugate (transposed cofactor matrix) of [..., 3, 3]."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    return torch.stack([
+        torch.stack([e * i - f * h, c * h - b * i, b * f - c * e], dim=-1),
+        torch.stack([f * g - d * i, a * i - c * g, c * d - a * f], dim=-1),
+        torch.stack([d * h - e * g, b * g - a * h, a * e - b * d], dim=-1),
+    ], dim=-2)
+
+
+def _safe_det(det: torch.Tensor, det_eps: float) -> torch.Tensor:
+    """det, with |det| < det_eps replaced by +-det_eps (sign of det)."""
+    tiny = torch.where(det < 0, -det_eps, det_eps).to(det.dtype)
+    return torch.where(det.abs() < det_eps, tiny, det)
+
+
+def inv3(A: torch.Tensor, det_eps: float = 1e-20) -> torch.Tensor:
+    """Inverse of [..., 3, 3] via adjugate / det."""
+    return adjugate3(A) / _safe_det(det3(A), det_eps)[..., None, None]
+
+
+def solve3(A: torch.Tensor, b: torch.Tensor, det_eps: float = 1e-20):
+    """Solve A x = b for [..., 3, 3] x [..., 3] -> ([..., 3], det)."""
+    det = det3(A)
+    adj = adjugate3(A)
+    x = (adj * b[..., None, :]).sum(-1) / _safe_det(det, det_eps)[..., None]
+    return x, det
 
 
 def cholesky4(a, eps: float = 1e-30):

@@ -10,10 +10,12 @@ Port of edgegraph3d_tpu/pipeline.py:
     -> expansion and chain extension
     -> 2D density filter (filtering/density.py)
     -> append edge-points, write before_filtering.json
+    -> optional joint BA over cameras and points (ops/ba.py, kernel K8;
+       config.ba_steps > 0)
     -> GN + view-count outlier filter (filtering/outliers.py)
 
 `run_pipeline` and `edge_matching` keep the reference signatures
-(default stages=(1, 2, 3)); joint BA, meshes and debug images are not
+(default stages=(1, 2, 3)); mesh sharding and debug images are not
 ported yet and raise NotImplementedError rather than being skipped.
 `device` defaults to "cuda" and never falls back to the CPU on its own.
 """
@@ -29,6 +31,7 @@ import torch
 
 from edgegraph3d_tpu_torch.config import DEFAULT_CONFIG, EdgeGraphConfig
 from edgegraph3d_tpu_torch.core import sfm as sfm_io
+from edgegraph3d_tpu_torch.devices import resolve_device
 from edgegraph3d_tpu_torch.filtering.density import density_filter
 from edgegraph3d_tpu_torch.filtering.outliers import filter_sfm_data
 from edgegraph3d_tpu_torch.io.images import load_edge_images
@@ -177,15 +180,44 @@ def reconstruct_all_stages(sfmd, ctx, stats: PipelineStats,
     return pts
 
 
-def resolve_device(device) -> torch.device:
-    """The requested device; a CUDA request without a GPU raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but no CUDA GPU is "
-                           "available (pass device='cpu' explicitly)")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
+def joint_ba_refine(sfmd: sfm_io.SfMData, n_steps: int,
+                    damping: float = 1e-4, device="cuda"):
+    """Joint Schur-complement LM over the (augmented) scene: camera
+    poses AND all 3D points free, intrinsics fixed, camera 0
+    gauge-fixed (ops/ba.py; kernel K8 on the card).  Observations are
+    dense, one slot per view (O = V, cam = arange(V)).  The JAX
+    package's pow2 padding of the point axis (a compile-cache measure)
+    is dropped: padded rows would add exact zeros to S and rhs.
+
+    Returns (refined SfMData, mse_before, mse_after) in px^2, with R and
+    t in float64 and the centers recomputed."""
+    import dataclasses
+
+    from edgegraph3d_tpu_torch.ops import ba as ba_ops
+
+    dev = resolve_device(device)
+    N, V = sfmd.n_points, sfmd.n_cameras
+    if N == 0 or n_steps <= 0:
+        return sfmd, None, None
+    obs_xy, obs_mask = refpoints_mod.dense_observations(sfmd)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    cam = torch.arange(V, dtype=torch.int32, device=dev).repeat(N, 1)
+    xy = f32(obs_xy)
+    mask = torch.as_tensor(obs_mask, device=dev)
+    state = ba_ops.BAState(K=f32(sfmd.K), R=f32(sfmd.R), t=f32(sfmd.t),
+                           X=f32(sfmd.points))
+    st, mses = ba_ops.ba_run(state, cam, xy, mask, n_steps, damping)
+    mse_after = ba_ops.ba_mse(st, cam, xy, mask)
+    # one read back to the host for everything
+    flat = torch.cat([st.X.reshape(-1), st.R.reshape(-1), st.t.reshape(-1),
+                      mses, mse_after.reshape(1)]).cpu().numpy()
+    o1, o2, o3 = N * 3, N * 3 + V * 9, N * 3 + V * 12
+    R_new = flat[o1:o2].reshape(V, 3, 3).astype(np.float64)
+    t_new = flat[o2:o3].reshape(V, 3).astype(np.float64)
+    out = dataclasses.replace(
+        sfmd, points=flat[:o1].reshape(N, 3).astype(np.float64), R=R_new,
+        t=t_new, center=-np.einsum("vji,vj->vi", R_new, t_new))
+    return out, float(flat[o3]), float(flat[-1])
 
 
 def run_pipeline(
@@ -205,9 +237,6 @@ def run_pipeline(
         raise NotImplementedError("mesh sharding " + _NOT_PORTED.format(10))
     if debug_images:
         raise NotImplementedError("debug images " + _NOT_PORTED.format(9))
-    if config.ba_steps > 0:
-        raise NotImplementedError("joint BA (ba_steps > 0) "
-                                  + _NOT_PORTED.format(9))
     dev = resolve_device(device)
     stats = stats if stats is not None else PipelineStats()
 
@@ -250,6 +279,7 @@ def run_pipeline(
     augmented = sfm_io.add_edge_points(sfmd, pts.X, obs_cam, obs_xy)
 
     if working_folder:
+        t0 = time.time()
         os.makedirs(working_folder, exist_ok=True)
         sfm_io.write_sfm_data(
             augmented, os.path.join(working_folder, "before_filtering.json"))
@@ -261,6 +291,18 @@ def run_pipeline(
         if config.output_3d_fragment_maxlen is not None:
             plg3d = plg3d.fragment(config.output_3d_fragment_maxlen)
         plg3d.save(os.path.join(working_folder, "outgraph_3d.npz"))
+        stats.log("write_checkpoints", t0)
+
+    if config.ba_steps > 0:
+        # optional joint refinement (cameras + points free), judged by
+        # the outlier filter below
+        t0 = time.time()
+        augmented, mse0, mse1 = joint_ba_refine(
+            augmented, config.ba_steps, config.ba_damping, device=dev)
+        stats.log("joint_ba", t0, config.ba_steps)
+        if mse0 is not None:
+            stats.metrics["ba_mse_before"] = mse0
+            stats.metrics["ba_mse_after"] = mse1
 
     t0 = time.time()
     filtered = filter_sfm_data(augmented, first_edgepoint,

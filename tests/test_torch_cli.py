@@ -71,7 +71,7 @@ def test_edge_graph_3d_cli_matches_jax(scene_files):
     assert out.n_points > sfmd.n_points
 
 
-@pytest.mark.parametrize("extra", [["-i"], ["--ba-steps", "2"]])
+@pytest.mark.parametrize("extra", [["-i"]])
 def test_edge_graph_3d_cli_unported_options_raise(scene_files, extra):
     root, _ = scene_files
     with pytest.raises(NotImplementedError, match="item 9"):

@@ -59,7 +59,7 @@ def test_communities_match_jax(graph, method):
     j = jc.communities_from_edges(edges, weights, n, min_size=3,
                                   method=method)
     t = tc.communities_from_edges(edges, weights, n, min_size=3,
-                                  method=method)
+                                  method=method, device="cpu")
     assert len(j) > 2
     assert [c.tolist() for c in t] == [c.tolist() for c in j]
 
@@ -89,4 +89,4 @@ def test_modularity_matches_jax():
 
 def test_empty_graph():
     assert tc.communities_from_edges(np.zeros((0, 2), np.int32),
-                                     np.zeros(0), 0) == []
+                                     np.zeros(0), 0, device="cpu") == []

@@ -894,7 +894,8 @@ def test_default_stages_on_gpu(cuda):
     stats = PipelineStats()
     kernels.reset_launch_counts()
     pts = reconstruct_all_stages(sfmd, ctx, stats, max_starting_views=2)
-    assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert all(kernels.LAUNCHES[k] > 0 for k in kernels.MAIN_PATH_KERNELS), \
+        kernels.LAUNCHES
     assert stats.counts["stage1_sweep"] > 0
     assert stats.counts["stage2_sweep"] > 0
     cpu_stats = PipelineStats()
@@ -907,3 +908,165 @@ def test_default_stages_on_gpu(cuda):
     cc = np.concatenate(curves)
     d = np.sqrt(((pts.X[:, None] - cc[None]) ** 2).sum(-1)).min(1)
     assert len(pts.X) > 50 and np.median(d) < 0.03
+
+
+# ----------------------------------------------------------------------
+# K8 ba_blocks and the optional paths on the card
+# ----------------------------------------------------------------------
+
+def _ba_problem(layout, device):
+    """A perturbed 8-view scene's BA state and observations: "dense"
+    (O = V, cam = arange) or "packed" (views shuffled, at most 5 a point,
+    a duplicate camera on every third row, a masked slot with cam -1)."""
+    from edgegraph3d_tpu_torch.ops import ba
+    sfmd, _, _ = synthetic.make_scene(n_cams=8, n_refpoints_per_curve=16,
+                                      width=320, height_px=240,
+                                      focal=400.0, seed=5)
+    rng = np.random.default_rng(0)
+    N, V = sfmd.n_points, sfmd.n_cameras
+    w = torch.as_tensor(rng.normal(0, 0.002, (V, 3)))
+    R0 = ba.exp_so3(w).numpy() @ sfmd.R
+    arrays = [sfmd.K, R0, sfmd.t + rng.normal(0, 0.005, sfmd.t.shape),
+              sfmd.points + rng.normal(0, 0.01, sfmd.points.shape)]
+    state = ba.BAState(*(torch.as_tensor(np.asarray(a, np.float32),
+                                         device=device) for a in arrays))
+    O = V if layout == "dense" else 6
+    cam = np.full((N, O), -1, np.int32)
+    xy = np.zeros((N, O, 2), np.float32)
+    mask = np.zeros((N, O), bool)
+    for n in range(N):
+        if layout == "dense":
+            cam[n] = np.arange(V)
+            xy[n, sfmd.obs_cam[n]] = sfmd.obs_xy[n]
+            mask[n, sfmd.obs_cam[n]] = True
+            continue
+        order = rng.permutation(len(sfmd.obs_cam[n]))[:5]
+        cam[n, :len(order)] = sfmd.obs_cam[n][order]
+        xy[n, :len(order)] = sfmd.obs_xy[n][order]
+        mask[n, :len(order)] = True
+        if n % 3 == 0:
+            cam[n, 5], xy[n, 5], mask[n, 5] = cam[n, 0], xy[n, 0], True
+    obs = [torch.as_tensor(a, device=device) for a in (cam, xy, mask)]
+    return state, obs
+
+
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+def test_ba_blocks_kernel_matches_plain(cuda, layout):
+    """K8 against its plain version on the same card inputs: every
+    output within 2e-5 of the array's largest magnitude (the sums run in
+    another order), the observation count exact, and two launches bit
+    for bit the same (no float atomics)."""
+    from edgegraph3d_tpu_torch.ops import ba
+    state, obs = _ba_problem(layout, cuda)
+    n0 = kernels.LAUNCHES["ba_blocks"]
+    got = ba.ba_blocks(state, *obs, damping=1e-4)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ba_blocks"] == n0 + 1
+    ref = ba._ba_blocks_plain(state, *obs, damping=1e-4)
+    for name in ba.BABlocks._fields:
+        g, r = getattr(got, name), getattr(ref, name)
+        assert g.shape == r.shape, name
+        if name == "n_obs":
+            assert int(g) == int(r) == int(obs[2].sum())
+            continue
+        scale = max(float(r.abs().max()), 1e-30)
+        assert float((g - r).abs().max()) <= 2e-5 * scale, name
+    again = ba.ba_blocks(state, *obs, damping=1e-4)
+    for name in ba.BABlocks._fields:
+        assert torch.equal(getattr(again, name), getattr(got, name)), name
+
+
+def test_ba_run_on_card_matches_cpu(cuda):
+    """Three LM steps with K8 against the plain steps on the CPU: the
+    rotations within 1e-5 and the translations within 1e-5 + 1e-5 |t|
+    (|t| ~ 4: the f32 6V solve, cuSOLVER's against LAPACK's, moved t by
+    1.4e-5 on the card), points within 1e-4, the MSE falls."""
+    from edgegraph3d_tpu_torch.ops import ba
+    state, obs = _ba_problem("packed", cuda)
+    st_g, mse_g = ba.ba_run(state, *obs, 3)
+    cpu = lambda a: a.cpu()
+    st_c, mse_c = ba.ba_run(ba.BAState(*map(cpu, state)),
+                            *map(cpu, obs), 3)
+    torch.testing.assert_close(st_g.R.cpu(), st_c.R, rtol=0, atol=1e-5)
+    torch.testing.assert_close(st_g.t.cpu(), st_c.t, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(st_g.X.cpu(), st_c.X, rtol=0, atol=1e-4)
+    assert mse_g.device.type == "cuda"
+    assert float(mse_g[-1]) < float(mse_g[0]) * 1e-2
+
+
+def _claim_problem(rng, V=3, P=16, B=64, S=120):
+    """Collision-rich claim chunks (tests/test_claiming.py's generator):
+    two managers with the same pre-claimed arcs, and the chunk."""
+    lengths = np.full((V, P), 32, np.int32)
+    a, b = (matches.MatchesManager(lengths, buckets=B) for _ in range(2))
+    for _ in range(5):
+        v, p = rng.integers(0, V), rng.integers(0, P)
+        lo, hi = sorted(rng.integers(0, B, 2))
+        a.raster[v, p, lo:hi + 1] = True
+        b.raster[v, p, lo:hi + 1] = True
+    seg = rng.integers(0, 30, (S, 3))
+    args = (rng.random(S) < 0.9, rng.integers(0, V, (S, 3)),
+            rng.integers(0, P, (S, 3)), seg, rng.random((S, 3)),
+            np.clip(seg + rng.integers(-8, 9, (S, 3)), 0, 30),
+            rng.random((S, 3)),
+            np.clip(seg + rng.integers(-8, 9, (S, 3)), 0, 30),
+            rng.random((S, 3)))
+    return a, b, args
+
+
+def test_device_claiming_on_card_matches_host(cuda):
+    """The fixpoint on the card: the host pass's accept masks and
+    raster, bit for bit, on four collision-rich chunks with the start
+    check and without it, and no fallback."""
+    from edgegraph3d_tpu_torch.matching import claiming_device
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        host, dev, args = _claim_problem(rng)
+        for skip in (False, True):
+            a_h = host.resolve_and_claim(*args, skip_start_check=skip)
+            a_d = claiming_device.apply_device_claiming(
+                dev, *args, skip_start_check=skip, device=cuda)
+            np.testing.assert_array_equal(a_d, a_h)
+            np.testing.assert_array_equal(dev.raster, host.raster)
+        assert "device_claiming_fallback" not in dev.counters
+
+
+def test_optional_paths_on_gpu(cuda):
+    """run_pipeline with joint BA (K8) and device claiming on the card
+    against the same run on the CPU: the same points and view lists
+    (points within 1e-4), K8 launched once a step, no claiming fallback.
+    The LMedS table on the card: epipolar lines within 0.5 px of the
+    refpoints' observations (on this noise-free scene many subsets tie,
+    so the card's and the CPU's tables are not compared entry by
+    entry)."""
+    from edgegraph3d_tpu_torch.pipeline import PipelineStats, run_pipeline
+    sfmd, imgs, _ = synthetic.make_cube_scene(
+        n_cams=8, n_refpoints_per_edge=8, width=320, height_px=240,
+        focal=400.0, seed=7)
+    cfg = CFG.replace(ba_steps=2, claiming_backend="device")
+    kernels.reset_launch_counts()
+    stats = PipelineStats()
+    gpu = run_pipeline(sfmd, imgs, cfg, max_starting_views=2, stats=stats,
+                       device=cuda)
+    assert kernels.LAUNCHES["ba_blocks"] == 2
+    assert "device_claiming_fallback" not in stats.counters
+    assert stats.metrics["ba_mse_after"] < stats.metrics["ba_mse_before"]
+    cpu = run_pipeline(sfmd, imgs, cfg, max_starting_views=2, device="cpu")
+    assert gpu.n_points == cpu.n_points > sfmd.n_points
+    assert [c.tolist() for c in gpu.obs_cam] == \
+        [c.tolist() for c in cpu.obs_cam]
+    np.testing.assert_allclose(gpu.points, cpu.points, rtol=0, atol=1e-4)
+
+    F = refpoints.lmeds_fundamental_table(sfmd, CFG, device=cuda).cpu()
+    obs_xy, obs_mask = refpoints.dense_observations(sfmd)
+    common = obs_mask.T.astype(int) @ obs_mask.astype(int)
+    pairs = [(i, j) for i in range(8) for j in range(8)
+             if i != j and common[i, j] >= 20]
+    assert len(pairs) >= 3
+    for i, j in pairs:
+        m = obs_mask[:, i] & obs_mask[:, j]
+        x1 = np.concatenate([obs_xy[m][:, i], np.ones((m.sum(), 1))], 1)
+        x2 = np.concatenate([obs_xy[m][:, j], np.ones((m.sum(), 1))], 1)
+        lines = x1 @ F[i, j].numpy().T
+        d = np.abs((lines * x2).sum(1)) / np.linalg.norm(lines[:, :2], axis=1)
+        assert np.median(d) < 0.5, (i, j)

@@ -85,20 +85,16 @@ def test_default_stages_match_jax(cube):
         assert name in ts.timings
 
 
-@pytest.mark.parametrize("option", ["ba_steps", "debug_images", "mesh",
-                                    "claiming_backend"])
+@pytest.mark.parametrize("option", ["debug_images", "mesh"])
 def test_unported_options_raise(cube, option):
-    """Stages 1 and 2 run now; joint BA, debug images, mesh sharding and
-    device claiming still raise, naming their ROADMAP item."""
+    """Stages 1 and 2, joint BA, device claiming and the LMedS table run
+    now; debug images and mesh sharding still raise, naming their
+    ROADMAP item."""
     sfmd, imgs, _ = cube
     cfg = TConfig().replace(**KW)
-    kw = {"ba_steps": dict(config=cfg.replace(ba_steps=2)),
-          "debug_images": dict(config=cfg, debug_images=True),
-          "mesh": dict(config=cfg, mesh=object()),
-          "claiming_backend": dict(
-              config=cfg.replace(claiming_backend="device"))}[option]
-    match = "item 9" if option == "claiming_backend" else "item (9|10)"
-    with pytest.raises(NotImplementedError, match=match):
+    kw = {"debug_images": dict(config=cfg, debug_images=True),
+          "mesh": dict(config=cfg, mesh=object())}[option]
+    with pytest.raises(NotImplementedError, match="item (9|10)"):
         tp.run_pipeline(sfmd, imgs, device="cpu", **kw)
 
 
@@ -107,6 +103,31 @@ def test_cuda_request_without_gpu_raises(cube, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         tp.run_pipeline(sfmd, imgs, TConfig().replace(**KW), stages=(3,))
+
+
+@pytest.mark.parametrize("fn", ["gauss_newton_filter", "compute_inliers",
+                                "filter_sfm_data", "communities_from_edges"])
+def test_library_functions_default_to_the_card(cube, monkeypatch, fn):
+    """The public library functions default to device="cuda": without a
+    GPU the default raises, and the CPU runs only when asked for."""
+    from edgegraph3d_tpu_torch.filtering import outliers
+    from edgegraph3d_tpu_torch.matching import communities
+    sfmd, _, _ = cube
+    edges = np.array([[0, 1], [1, 2], [2, 0]], np.int32)
+    call = {
+        "gauss_newton_filter": lambda **kw: outliers.gauss_newton_filter(
+            sfmd, **kw),
+        "compute_inliers": lambda **kw: outliers.compute_inliers(
+            sfmd, sfmd.n_points, **kw),
+        "filter_sfm_data": lambda **kw: outliers.filter_sfm_data(
+            sfmd, sfmd.n_points, **kw),
+        "communities_from_edges": lambda **kw:
+            communities.communities_from_edges(edges, np.ones(3), 3, **kw),
+    }[fn]
+    assert call(device="cpu") is not None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        call()
 
 
 def test_working_folder_outputs(cube, tmp_path):
@@ -123,7 +144,8 @@ def test_working_folder_outputs(cube, tmp_path):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Run the port's pipeline, default stages, in a fresh interpreter
+    """Run the port's pipeline, default stages with the optional paths
+    (joint BA, device claiming, the LMedS table), in a fresh interpreter
     where importing jax (or the JAX package) fails."""
     script = textwrap.dedent("""
         import sys
@@ -135,12 +157,16 @@ def test_port_never_imports_jax(tmp_path):
         import edgegraph3d_tpu_torch.quality, edgegraph3d_tpu_torch.kernels
         import edgegraph3d_tpu_torch.cli.edge_graph_3d
         import edgegraph3d_tpu_torch.cli.filter
+        import edgegraph3d_tpu_torch.ops.ba
+        import edgegraph3d_tpu_torch.matching.claiming_device
         sfmd, imgs, curves = synthetic.make_cube_scene(
             n_cams=6, n_refpoints_per_edge=4, width=320, height_px=240,
             focal=400.0, seed=7)
         cfg = EdgeGraphConfig().replace(max_polylines_per_view=256,
                                         max_polyline_len=128,
-                                        max_follow_steps=16)
+                                        max_follow_steps=16, ba_steps=1,
+                                        claiming_backend="device",
+                                        fmat_source="lmeds")
         out = run_pipeline(sfmd, imgs, cfg, max_starting_views=2,
                            device="cpu")
         assert not any(m == "jax" or m.startswith("jax.")
