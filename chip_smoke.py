@@ -78,9 +78,13 @@ its final `ok` line:
      with K8 launched 3 times, and the final cameras and points held
      together (BA_CAM_TOL; BA_X_TOL of how far the points moved); both
      checks must also reject K8's outputs with gx zeroed and with gx
-     negated; logged: N, each step's wall, K8's device time and bound,
-     the margins of its two decisions, the S matmul's and the solve's
-     times, max_memory_allocated.  Device claiming: stage 3 of the full
+     negated; K8 runs with the observation index built once, as ba_run
+     builds it; logged: N, the index's build time, each step's wall,
+     K8's wrapper (with the index and building its own), its launch
+     alone, each of its kernels' device time and its bound, the margins
+     of its two decisions, the S matmul's and the solve's times,
+     max_memory_allocated, and the --time-k8 line below for this
+     checkout, run in a fresh process.  Device claiming: stage 3 of the full
      scene (with expansion and chain extension) with claiming_backend
      "device" and "host", bit-equal points, equal counts and counters
      (but the device backend's own), and no fallback to the host pass;
@@ -117,6 +121,14 @@ follow_seeds call on phase 2's seeds, and each of its K4 launches).
 does the same for K1 (its wrapper, its launch alone into preallocated
 outputs and its device time, at phase 2's M = 4 shape) and K6 (its
 wrapper and device time on the first 64 stage-1 match sets).
+
+    python3 chip_smoke.py --time-k8 ROOT
+
+does the same for K8 on a seeded problem of phase 6's shape (K8_SHAPE:
+61,008 points, 49 views, dense, ~34.5 views a point): the observation
+index's build, the wrapper, its launch alone into preallocated outputs,
+each CUDA entry's device time and one LM step's wall; it needs no phase
+4, so an earlier checkout and this one compare in one call.
 """
 
 from __future__ import annotations
@@ -342,30 +354,46 @@ def record_into(results, name, mism, rows, err, ms, plain_ms, err_tol,
         fail(f"{name}: coordinate error {gated} > {err_tol}")
 
 
-def device_ms(fn, reps: int, name) -> float:
-    """Mean device time per call of fn() of the CUDA kernels whose name
-    holds `name` (or one of a tuple of names), from a torch.profiler
-    trace of `reps` calls."""
+def device_ms_by_kernel(fn, reps: int, pattern: str) -> dict:
+    """{kernel: mean device ms per call of fn()} for every CUDA entry of
+    one torch.profiler trace of `reps` calls (kernels, memsets, copies),
+    each named by its match of the regular expression `pattern`, or by
+    its first 48 characters."""
+    import re
+
     import torch
     from torch.profiler import ProfilerActivity, profile
-    names = (name,) if isinstance(name, str) else tuple(name)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us, seen = 0.0, []
+    out = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            seen.append(e.key)
-            if any(n in e.key for n in names):
-                t = getattr(e, "self_device_time_total", None)
-                us += float(t if t is not None else e.self_cuda_time_total)
-    if us == 0.0:
+            m = re.search(pattern, e.key)
+            name = m.group(0) if m else e.key[:48]
+            t = getattr(e, "self_device_time_total", None)
+            t = float(t if t is not None else e.self_cuda_time_total)
+            out[name] = out.get(name, 0.0) + t / 1e3 / reps
+    if not out:
+        log("  device_ms_by_kernel: the trace holds no CUDA entry")
+    return out
+
+
+def device_ms(fn, reps: int, name) -> float:
+    """Mean device time per call of fn() of the CUDA kernels whose name
+    holds `name` (or one of a tuple of names), from one trace of
+    device_ms_by_kernel."""
+    import re
+    names = (name,) if isinstance(name, str) else tuple(name)
+    times = device_ms_by_kernel(fn, reps, "|".join(map(re.escape, names)))
+    ms = sum(v for k, v in times.items() if k in names)
+    if ms == 0.0:
         log(f"  device_ms: no CUDA kernel named {names} in the trace; "
-            f"its CUDA entries: {seen[:12]}")
-    return us / 1e3 / reps
+            f"its CUDA entries: {list(times)[:12]}")
+    return ms
 
 
 def k1_times(args, want):
@@ -1481,12 +1509,20 @@ def check_joint_ba(aug, results, device="cuda"):
         f"the augmented scene perturbed by {json.dumps(BA_PERTURB)} "
         "(seed 0)")
 
+    # the observation index, built once a ba_run
+    index, index_ms = cuda_time(
+        lambda: ba.observation_index(cam, mask, V), 5)
+    log(f"  ba observation index: {index.slot.shape[0]} slots, largest "
+        f"view {index.max_count}, {int((~index.first).sum())} repeated "
+        f"(point, view) pairs, built in {index_ms:.4f} ms")
+
     # step 1: every piece against the plain version
-    got, ms = cuda_time(lambda: ba.ba_blocks(state0, *obs), 5)
+    got, ms = cuda_time(lambda: ba.ba_blocks(state0, *obs, index=index), 5)
+    _, own_index_ms = cuda_time(lambda: ba.ba_blocks(state0, *obs), 5)
     ref, pms = cuda_time(lambda: ba._ba_blocks_plain(state0, *obs), 1)
-    k8_ms = {n: device_ms(lambda: ba.ba_blocks(state0, *obs), 5, n)
-             for n in ("ba_point_kernel", "ba_view_kernel")}
-    kms = sum(k8_ms.values())
+    k8_ms = device_ms_by_kernel(
+        lambda: ba.ba_blocks(state0, *obs, index=index), 5, r"ba_\w+")
+    kms = sum(v for k, v in k8_ms.items() if k.startswith("ba_"))
     rel, err = ba_step1_errors(got, ref)
     gated = max(rel.values())
     log(f"  ba_blocks step 1, error / largest magnitude: {json.dumps(rel)}")
@@ -1518,17 +1554,9 @@ def check_joint_ba(aug, results, device="cuda"):
         if max(mrel.values()) <= BA_BLOCK_TOL:
             fail(f"ba_blocks: the step-1 check passes gx {label}")
     # K8's launch alone (the C entry, as the wrapper calls it) into the
-    # step-1 outputs, after the comparison: B keeps accumulating
-    lib, stream = kernels.lib(), kernels.stream_of(state0.X)
-    rsq = torch.empty(N, device=dev)
-    cnt = torch.empty(N, dtype=torch.int32, device=dev)
-    ptrs = [a.data_ptr() for a in (got.Hxx_inv, got.gx, got.B, got.A, rsq,
-                                   cnt, got.Hcc, got.gc, got.rhs,
-                                   got.resid_sq, got.n_obs)]
-    _, launch_ms = cuda_time(lambda: kernels.check(lib.eg3d_ba_blocks(
-        state0.K.data_ptr(), state0.R.data_ptr(), state0.t.data_ptr(), V,
-        state0.X.data_ptr(), cam.data_ptr(), xy.data_ptr(), mask.data_ptr(),
-        N, V, 1e-4, *ptrs, stream), "ba_blocks"), 20)
+    # step-1 outputs, after the comparison
+    launch_ms = cuda_time(k8_launch_alone(ba, kernels, state0, obs, got,
+                                          index), 20)[1]
     A2, B2 = got.A.reshape(6 * V, 3 * N), got.B.reshape(3 * N, 6 * V)
     _, mm_ms = cuda_time(lambda: torch.matmul(A2, B2), 5)
     S, rhs = ba.schur_complement(ref), ref.rhs.reshape(-1)
@@ -1541,7 +1569,8 @@ def check_joint_ba(aug, results, device="cuda"):
     bound_ms = results["ba_blocks"]["bound_ms"]
     log(f"  ba_blocks: device_ms={kms:.4f} (profiler: {json.dumps(k8_ms)}) "
         f"launch_alone_ms={launch_ms:.4f} bound_ms={bound_ms:.6f} "
-        f"wrapper_ms={ms:.4f} plain_ms={pms:.4f}; "
+        f"wrapper_ms={ms:.4f} (building its own index "
+        f"{own_index_ms:.4f}) plain_ms={pms:.4f}; "
         f"S matmul [{6 * V}, {3 * N}] x [{3 * N}, {6 * V}] "
         f"{mm_ms:.4f} ms; solve {6 * V}x{6 * V} {solve_ms:.4f} ms")
     del got, ref, S, S_p, A2, B2
@@ -1555,7 +1584,7 @@ def check_joint_ba(aug, results, device="cuda"):
     def wrong_gx_step(f):
         """One LM step with K8's blocks, gx scaled by f."""
         def step(st):
-            blocks = ba.ba_blocks(st, *obs)
+            blocks = ba.ba_blocks(st, *obs, index=index)
             blocks = blocks._replace(gx=blocks.gx * f)
             new, _, _ = ba.ba_apply(st, ba.schur_complement(blocks), blocks)
             return new, blocks.resid_sq / blocks.n_obs.clamp_min(1)
@@ -1583,7 +1612,7 @@ def check_joint_ba(aug, results, device="cuda"):
         return st, launches, mses[0], after
 
     st_k, launches, mse0, after = steps(
-        "with K8", lambda st: ba.ba_step_single(st, *obs))
+        "with K8", lambda st: ba.ba_step_single(st, *obs, index=index))
     if not after < mse0:
         fail(f"joint BA with K8: the MSE did not fall ({mse0}, {after})")
     st_p, plain_launches, mse0, after = steps("plain", plain_step)
@@ -1605,6 +1634,127 @@ def check_joint_ba(aug, results, device="cuda"):
         if ok:
             fail(f"joint BA: the 3-step check passes gx {label}")
     return launches
+
+
+def k8_launch_alone(ba, kernels, state, obs, out, index=None):
+    """fn() that launches K8's C entry alone into the preallocated
+    outputs `out` (a BABlocks) for the port checkout whose ops/ba.py is
+    `ba`: with the observation index `index` and a preallocated partial
+    buffer where the checkout has one, else the first design's entry
+    (its per-point scratch preallocated; B, which that design adds into,
+    keeps accumulating)."""
+    import torch
+    K, R, t, X = state
+    cam, xy, mask = obs
+    V, (N, O) = K.shape[0], cam.shape
+    if hasattr(ba, "observation_index"):
+        partial = ba._view_partials(index, V, X.device)
+        return lambda: ba._ba_blocks_launch(state, cam, xy, mask, 1e-4,
+                                            index, out, partial)
+    lib, stream = kernels.lib(), kernels.stream_of(X)
+    rsq = torch.empty(N, device=X.device)
+    cnt = torch.empty(N, dtype=torch.int32, device=X.device)
+    ptrs = [a.data_ptr() for a in (out.Hxx_inv, out.gx, out.B, out.A, rsq,
+                                   cnt, out.Hcc, out.gc, out.rhs,
+                                   out.resid_sq, out.n_obs)]
+    return lambda: kernels.check(lib.eg3d_ba_blocks(
+        K.data_ptr(), R.data_ptr(), t.data_ptr(), V, X.data_ptr(),
+        cam.data_ptr(), xy.data_ptr(), mask.data_ptr(), N, O, 1e-4, *ptrs,
+        stream), "ba_blocks")
+
+
+#: the synthetic problem of --time-k8: the shape of phase 6's augmented
+#: full scene (61,008 points, 49 views, dense layout, 2,102,033 present
+#: observations: 34.45 a point)
+K8_SHAPE = dict(N=61008, V=FULL_VIEWS, present=2102033 / 61008 / FULL_VIEWS)
+
+
+def k8_problem(device, seed=0):
+    """(BAState, (cam, xy, mask)) of a seeded problem of K8_SHAPE: V
+    cameras 4 units from the origin looking at it (focal 2,200 px,
+    1600x1200), points in a ball of radius 0.5, observations with 0.5 px
+    of noise, each view present with probability K8_SHAPE["present"]
+    (at least 2 a point), then the poses and points perturbed by
+    BA_PERTURB, as phase 6 starts."""
+    import numpy as np
+    import torch
+
+    from edgegraph3d_tpu_torch.ops import ba
+    rng = np.random.default_rng(seed)
+    N, V = K8_SHAPE["N"], K8_SHAPE["V"]
+    c = rng.normal(size=(V, 3))
+    c = 4.0 * c / np.linalg.norm(c, axis=1, keepdims=True)
+    z = -c / 4.0
+    x = np.cross(z, rng.normal(size=(V, 3)))
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    R = np.stack([x, np.cross(z, x), z], axis=1)
+    t = -np.einsum("vij,vj->vi", R, c)
+    K = np.tile(np.array([[2200.0, 0.0, WIDTH / 2], [0.0, 2200.0, HEIGHT / 2],
+                          [0.0, 0.0, 1.0]]), (V, 1, 1))
+    u = rng.normal(size=(N, 3))
+    X = 0.5 * rng.uniform(0, 1, (N, 1)) ** (1 / 3) * u / np.linalg.norm(
+        u, axis=1, keepdims=True)
+    q = np.einsum("vij,nj->nvi", R, X) + t
+    xy = np.einsum("vij,nvj->nvi", K, q / q[..., 2:])[..., :2]
+    xy += rng.normal(0, 0.5, xy.shape)
+    mask = rng.random((N, V)) < K8_SHAPE["present"]
+    two = np.argsort(rng.random((N, V)), axis=1)[:, :2]
+    mask[np.arange(N)[:, None], two] = True
+    xy = np.where(mask[..., None], xy, 0.0)
+    w = torch.as_tensor(rng.normal(0, BA_PERTURB["w"], (V, 3)))
+    arrays = (K, ba.exp_so3(w).numpy() @ R,
+              t + rng.normal(0, BA_PERTURB["t"], (V, 3)),
+              X + rng.normal(0, BA_PERTURB["X"], (N, 3)))
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    cam = torch.arange(V, dtype=torch.int32, device=device).repeat(N, 1)
+    return (ba.BAState(*map(f32, arrays)),
+            (cam, f32(xy), torch.as_tensor(mask, device=device)))
+
+
+def time_k8(root: str) -> int:
+    """K8 on the K8_SHAPE problem for the port checkout at `root`: the
+    observation index's build (once a ba_run, where the checkout has
+    one), the wrapper (given that index), its launch alone into
+    preallocated outputs, each CUDA entry's device time from a profiler
+    trace of the wrapper, and one LM step (`ba_step_single`, host clock
+    after a synchronize, 5 steps from the same state after one warm-up
+    step).  Prints one JSON line with the times and digests."""
+    import torch
+    sys.path.insert(0, os.path.abspath(root))
+    from edgegraph3d_tpu_torch import kernels
+    from edgegraph3d_tpu_torch.ops import ba
+    if not torch.cuda.is_available():
+        fail("no CUDA GPU")
+    kernels.build()
+    kernels.lib()
+    state, obs = k8_problem("cuda")
+    N, V = state.X.shape[0], state.K.shape[0]
+    out = {"root": root, "source": ba.__file__, "card": card_name(),
+           "N": N, "V": V, "n_obs": int(obs[2].sum())}
+    kw, index = {}, None
+    if hasattr(ba, "observation_index"):
+        index, out["index_build_ms"] = cuda_time(
+            lambda: ba.observation_index(obs[0], obs[2], V), 5)
+        kw = {"index": index}
+    run = lambda: ba.ba_blocks(state, *obs, **kw)
+    blocks, out["wrapper_ms"] = cuda_time(run, 20)
+    out["digest"] = [float(getattr(blocks, k).double().abs().sum()) for k in
+                     ("Hxx_inv", "gx", "B", "A", "Hcc", "rhs", "resid_sq")]
+    out["launch_alone_ms"] = cuda_time(
+        k8_launch_alone(ba, kernels, state, obs, blocks, index), 20)[1]
+    out["device_ms"] = device_ms_by_kernel(run, 10, r"ba_\w+")
+    torch.cuda.synchronize()
+    ba.ba_step_single(state, *obs, **kw)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ba.ba_step_single(state, *obs, **kw)
+        torch.cuda.synchronize()
+        walls.append((time.time() - t0) * 1e3)
+    out["lm_step_ms"] = walls
+    log(json.dumps(out))
+    return 0
 
 
 def check_device_claiming(full, cfg, device="cuda"):
@@ -1791,6 +1941,16 @@ def main() -> int:
     launches["ba_blocks"] = check_joint_ba(aug, results)
     del aug
     torch.cuda.empty_cache()
+    # torch.profiler's CUDA trace has come back empty in this process
+    # after phase 4 (PERF.md section 7), so K8's kernels are also timed
+    # alone in a fresh process
+    k8 = subprocess.run([sys.executable, os.path.abspath(__file__),
+                         "--time-k8", HERE], capture_output=True,
+                        text=True, timeout=600)
+    if k8.returncode != 0:
+        fail(f"--time-k8 failed ({k8.returncode}): {k8.stdout[-2000:]} "
+             f"{k8.stderr[-2000:]}")
+    log(f"  K8 alone in a fresh process: {k8.stdout.strip().splitlines()[-1]}")
     check_device_claiming(full, cfg)
     check_lmeds(full, cfg)
     ba_launches, _ = run_main_path(
@@ -1970,6 +2130,8 @@ def time_k1_k6(root: str) -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-k8":
+        sys.exit(time_k8(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k1-k6":
         sys.exit(time_k1_k6(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k7-chunk":

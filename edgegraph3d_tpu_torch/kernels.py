@@ -96,10 +96,14 @@ _SIGNATURES = {
     "eg3d_expand_chains": [_P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P,
                            _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _F,
                            _F, _F, _I, _P, _P, _P, _P, _P, _P, _P],
-    # K, R, t, V, X, cam, xy, mask, N, O, damping, Hinv, gx, B, A, rsq,
-    # cnt, Hcc, gc, rhs, rsum, nobs, stream
+    # V -> shared-memory bytes of a K8 point block with its tables
+    "eg3d_ba_blocks_smem": [_I],
+    # K, R, t, V, X, cam, xy, mask, N, O, damping, slot, start, first,
+    # max_count, chunks, place, Hinv, gx, B, A, partial, Hcc, gc, rhs,
+    # rsum, nobs, stream
     "eg3d_ba_blocks": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _F,
-                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                       _P, _P, _P, _I, _I, _I,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -113,7 +117,8 @@ SMEM_STATIC_BYTES = 48 * 1024
 #: an H100's cudaDevAttrMaxSharedMemoryPerBlockOptin
 H100_SMEM_OPTIN_BYTES = 232_448
 #: where a launch places a per-block table; the index is the `place`
-#: argument of the C entries that stage one (K3's general body, K6, K7)
+#: argument of the C entries that stage one (K3's general body, K6, K7,
+#: K8's point kernel)
 PLACEMENTS = ("static", "optin", "global")
 #: the placement each of those kernels' last launch used (for logs)
 LAST_PLACEMENT: dict[str, str] = {}

@@ -67,11 +67,11 @@ class MatchingContext:
 
 def context_from_arrays(plg_coords, plg_length, grids, P_mats, F_table,
                         cell: float, config: EdgeGraphConfig = DEFAULT_CONFIG,
-                        device="cpu") -> MatchingContext:
+                        device="cuda") -> MatchingContext:
     """Build the port's context from host arrays (e.g. np.asarray of a
     JAX MatchingContext's fields), so both implementations can be fed
     the same grids and F table."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     t = lambda a, dt: torch.tensor(np.asarray(a, dt), device=dev)
     return MatchingContext(
         plg_coords=t(plg_coords, np.float32),

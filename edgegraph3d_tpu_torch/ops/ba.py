@@ -27,7 +27,8 @@ and the math kept:
 
 `ba_blocks` computes every per-point and per-view piece of one step:
 kernel K8 (csrc/ba_blocks.cu) for tensors on the card, else its plain
-version `_ba_blocks_plain` (built on `ba_build_blocks`).  The product
+version `_ba_blocks_plain` (built on `ba_build_blocks`).  K8's per-view
+sums walk `observation_index`, which `ba_run` builds once.  The product
 for S and the 6V x 6V solve are plain `torch.matmul` and
 `torch.linalg.solve`, as the JAX package leaves them to XLA.  Sums run in
 another order than JAX's einsums (and K8's than the plain version's), so
@@ -190,53 +191,138 @@ def _ba_blocks_plain(state: BAState, obs_cam, obs_xy, obs_mask,
         resid_sq=(r * r).sum(), n_obs=obs_mask.sum())
 
 
+#: K8's launch geometry (csrc/ba_blocks.cu): points a block of the point
+#: kernel, observations a block of the view sums, sums a view partial
+BA_POINT_WARPS = 8
+BA_VIEW_OBS = 1024
+BA_SUMS = 34
+
+
+def ba_table_bytes(V: int) -> int:
+    """Shared memory of a block of K8's point kernel with its tables
+    there: the camera table (21 floats a camera), the staged A rows of
+    its BA_POINT_WARPS points ([V * 6] rows of 3 floats a point, padded
+    by one) and its warps' slot masks (csrc/ba_blocks.cu shared_bytes)."""
+    return (V * (21 + 6 * (3 * BA_POINT_WARPS + 1)) * 4
+            + BA_POINT_WARPS * 32 * 4)
+
+
+class BAIndex(NamedTuple):
+    """The view-major observation index of K8's view sums."""
+    slot: torch.Tensor     # [n_obs] int32 n * O + o, by camera, (n, o) order
+    start: torch.Tensor    # [V + 1] int32, view v's slots at start[v]:start[v+1]
+    first: torch.Tensor    # [n_obs] bool, the first slot of its (n, v) pair
+    max_count: int         # the most observations of one view
+
+
+def observation_index(obs_cam, obs_mask, V: int) -> BAIndex:
+    """The present slots of obs_mask [N, O] sorted stably by camera
+    (obs_cam [N, O] clamped at 0, as everywhere in BA), with a flag on
+    the first slot of each distinct (point, view) pair, so that a pair's
+    term A_vn gx_n counts once however many slots repeat its camera.  It
+    depends on the observations only, so `ba_run` builds it once for
+    all its steps.  Integer torch ops on the observations' device, read
+    back twice (the count of present slots; the largest view and the
+    camera range).  A camera >= V raises."""
+    N, O = obs_cam.shape
+    if N * O >= 2 ** 31:
+        raise ValueError(f"ba index: {N} x {O} slots do not fit int32")
+    slot = torch.nonzero(obs_mask.reshape(-1)).reshape(-1)
+    cam = obs_cam.reshape(-1)[slot].to(torch.int32).clamp_min(0)
+    cam, order = torch.sort(cam, stable=True)
+    slot = slot[order]
+    first = torch.ones(slot.shape, dtype=torch.bool, device=slot.device)
+    if slot.numel() > 1:
+        n = slot // O
+        first[1:] = (cam[1:] != cam[:-1]) | (n[1:] != n[:-1])
+    start = torch.searchsorted(
+        cam, torch.arange(V + 1, dtype=torch.int32, device=cam.device)
+    ).to(torch.int32)
+    largest, in_range = (torch.stack([(start[1:] - start[:-1]).max(),
+                                      start[V]]).tolist()
+                         if V else (0, 0))
+    if in_range != slot.numel():
+        raise ValueError(f"ba index: a camera index is >= V = {V}")
+    return BAIndex(slot=slot.to(torch.int32), start=start, first=first,
+                   max_count=largest)
+
+
+def _view_partials(index: BAIndex, V: int, device) -> torch.Tensor:
+    """K8's scratch for the view sums: [V, chunks, BA_SUMS], chunks of
+    BA_VIEW_OBS observations covering the largest view."""
+    chunks = max(1, -(-index.max_count // BA_VIEW_OBS))
+    return torch.empty((V, chunks, BA_SUMS), dtype=torch.float32,
+                       device=device)
+
+
+def _ba_blocks_launch(state: BAState, obs_cam, obs_xy, obs_mask,
+                      damping: float, index: BAIndex, out: BABlocks,
+                      partial: torch.Tensor) -> None:
+    """K8's C entry into the outputs `out` and the scratch `partial`
+    [V, chunks, BA_SUMS]; raises if the launch fails.  Counts nothing."""
+    K, R, t, X = state
+    V = K.shape[0]
+    N, O = obs_cam.shape
+    place = kernels.place("ba_blocks", ba_table_bytes(V), X.device)
+    rc = kernels.lib().eg3d_ba_blocks(
+        K.data_ptr(), R.data_ptr(), t.data_ptr(), V, X.data_ptr(),
+        obs_cam.data_ptr(), obs_xy.data_ptr(), obs_mask.data_ptr(), N, O,
+        float(damping), index.slot.data_ptr(), index.start.data_ptr(),
+        index.first.data_ptr(), index.max_count, partial.shape[1], place,
+        out.Hxx_inv.data_ptr(), out.gx.data_ptr(), out.B.data_ptr(),
+        out.A.data_ptr(), partial.data_ptr(), out.Hcc.data_ptr(),
+        out.gc.data_ptr(), out.rhs.data_ptr(), out.resid_sq.data_ptr(),
+        out.n_obs.data_ptr(), kernels.stream_of(X))
+    kernels.check(rc, "ba_blocks")
+
+
 def ba_blocks(state: BAState, obs_cam, obs_xy, obs_mask,
-              damping: float = 1e-4) -> BABlocks:
+              damping: float = 1e-4, index: BAIndex | None = None
+              ) -> BABlocks:
     """Kernel K8: every per-point and per-view piece of one LM step.
 
     state on one device (f32); obs_cam [N,O] int32 (clamped at 0),
-    obs_xy [N,O,2] f32, obs_mask [N,O] bool.  On the CPU this is the
-    plain version; on the card it launches K8 (two kernels: one thread
-    per point for Hxx^-1, gx, B and A; one block per view for Hcc, gc and
-    rhs, summed in a fixed order, and one block for the residual sum).
+    obs_xy [N,O,2] f32, obs_mask [N,O] bool; `index` the observations'
+    `observation_index` (built here when None).  On the CPU this is the
+    plain version; on the card it launches K8 (a warp per point for
+    Hxx^-1, gx, B and A; blocks over chunks of each view's observations
+    for Hcc, gc, rhs and the residual sum, summed in a fixed order).
     There is no fallback: a failed build or launch raises."""
     if state.X.device.type == "cpu":
         return _ba_blocks_plain(state, obs_cam, obs_xy, obs_mask, damping)
-    K, R, t, X = (a.contiguous() for a in state)
-    V = K.shape[0]
+    state = BAState(*(a.contiguous() for a in state))
+    V = state.K.shape[0]
     N, O = obs_cam.shape
     obs_cam = obs_cam.to(torch.int32).contiguous()
     obs_xy = obs_xy.contiguous()
     obs_mask = obs_mask.contiguous()
+    if index is None:
+        index = observation_index(obs_cam, obs_mask, V)
+    n_idx = index.slot.shape[0]
     for name, a, dt, shape in (
-            ("K", K, torch.float32, (V, 3, 3)),
-            ("R", R, torch.float32, (V, 3, 3)),
-            ("t", t, torch.float32, (V, 3)),
-            ("X", X, torch.float32, (N, 3)),
+            ("K", state.K, torch.float32, (V, 3, 3)),
+            ("R", state.R, torch.float32, (V, 3, 3)),
+            ("t", state.t, torch.float32, (V, 3)),
+            ("X", state.X, torch.float32, (N, 3)),
             ("obs_cam", obs_cam, torch.int32, (N, O)),
             ("obs_xy", obs_xy, torch.float32, (N, O, 2)),
-            ("obs_mask", obs_mask, torch.bool, (N, O))):
+            ("obs_mask", obs_mask, torch.bool, (N, O)),
+            ("index.slot", index.slot, torch.int32, (n_idx,)),
+            ("index.start", index.start, torch.int32, (V + 1,)),
+            ("index.first", index.first, torch.bool, (n_idx,))):
         kernels.require(a, name, dt, shape)
-    dev = X.device
+    dev = state.X.device
     f32 = dict(dtype=torch.float32, device=dev)
     out = BABlocks(
         Hxx_inv=torch.empty((N, 3, 3), **f32),
         gx=torch.empty((N, 3), **f32),
-        B=torch.zeros((N, 3, V, 6), **f32),
+        B=torch.empty((N, 3, V, 6), **f32),
         A=torch.empty((V, 6, N, 3), **f32),
         Hcc=torch.empty((V, 6, 6), **f32), gc=torch.empty((V, 6), **f32),
         rhs=torch.empty((V, 6), **f32), resid_sq=torch.empty((), **f32),
         n_obs=torch.empty((), dtype=torch.int64, device=dev))
-    rsq = torch.empty((N,), **f32)
-    cnt = torch.empty((N,), dtype=torch.int32, device=dev)
-    rc = kernels.lib().eg3d_ba_blocks(
-        K.data_ptr(), R.data_ptr(), t.data_ptr(), V, X.data_ptr(),
-        obs_cam.data_ptr(), obs_xy.data_ptr(), obs_mask.data_ptr(), N, O,
-        float(damping), out.Hxx_inv.data_ptr(), out.gx.data_ptr(),
-        out.B.data_ptr(), out.A.data_ptr(), rsq.data_ptr(), cnt.data_ptr(),
-        out.Hcc.data_ptr(), out.gc.data_ptr(), out.rhs.data_ptr(),
-        out.resid_sq.data_ptr(), out.n_obs.data_ptr(), kernels.stream_of(X))
-    kernels.check(rc, "ba_blocks")
+    _ba_blocks_launch(state, obs_cam, obs_xy, obs_mask, damping, index, out,
+                      _view_partials(index, V, dev))
     kernels.LAUNCHES["ba_blocks"] += 1
     return out
 
@@ -256,10 +342,10 @@ def schur_complement(blocks: BABlocks) -> torch.Tensor:
 
 
 def ba_schur_local(state: BAState, obs_cam, obs_xy, obs_mask,
-                   damping: float = 1e-4):
+                   damping: float = 1e-4, index: BAIndex | None = None):
     """(S [6V,6V], blocks): the Schur system of one step and the pieces
     the back-substitution reads."""
-    blocks = ba_blocks(state, obs_cam, obs_xy, obs_mask, damping)
+    blocks = ba_blocks(state, obs_cam, obs_xy, obs_mask, damping, index)
     return schur_complement(blocks), blocks
 
 
@@ -297,10 +383,11 @@ def ba_apply(state: BAState, S: torch.Tensor, blocks: BABlocks,
 
 
 def ba_step_single(state: BAState, obs_cam, obs_xy, obs_mask,
-                   damping: float = 1e-4):
+                   damping: float = 1e-4, index: BAIndex | None = None):
     """One LM step; returns (new state, mse at the linearization point)
     with the mse left on the device."""
-    S, blocks = ba_schur_local(state, obs_cam, obs_xy, obs_mask, damping)
+    S, blocks = ba_schur_local(state, obs_cam, obs_xy, obs_mask, damping,
+                               index)
     new_state, _, _ = ba_apply(state, S, blocks, damping)
     return new_state, blocks.resid_sq / blocks.n_obs.clamp_min(1)
 
@@ -310,11 +397,13 @@ def ba_run(state: BAState, obs_cam, obs_xy, obs_mask, n_steps: int,
     """n_steps LM steps.  Returns (final state, per-step mse [n_steps] on
     the state's device: each the mean squared residual AT the
     linearization point of its step, so mses[0] is the pre-BA error).
-    Nothing is read back to the host."""
+    The observation index is built once, before the first step; nothing
+    else is read back to the host."""
     mses = []
+    index = observation_index(obs_cam, obs_mask, state.K.shape[0])
     for _ in range(n_steps):
         state, mse = ba_step_single(state, obs_cam, obs_xy, obs_mask,
-                                    damping)
+                                    damping, index)
         mses.append(mse)
     if not mses:
         return state, torch.zeros(0, dtype=state.X.dtype,

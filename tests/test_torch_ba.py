@@ -15,11 +15,15 @@ one-hot einsums, so nothing is compared bit for bit):
     paths;
   * the pipeline: the same kept points with the same view lists as
     JAX's after BA and the filter, points within 1e-4, the joint-BA
-    metrics within 1e-4 relative.
+    metrics within 1e-4 relative;
+  * K8's view-major observation index exactly, and a numpy model of
+    K8's reduction order within 1e-5 of each array's largest magnitude
+    of the plain version's and JAX's.
 """
 
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -290,3 +294,282 @@ def test_edge_cli_ba_steps_matches_jax(cube, tmp_path):
     stats = json.loads((tmp_path / "work_torch" / "stats.json").read_text())
     assert stats["counts"]["joint_ba"] == 2
     assert "ba_mse_after" in stats["metrics"]
+
+
+# ----------------------------------------------------------------------
+# K8's view-major observation index and a numpy model of its reductions
+# ----------------------------------------------------------------------
+
+def _index_cases():
+    """(cam, mask, V) layouts: dense at V = 1, 33, 65; the random packed
+    layout (O != V, a duplicate on every third row, masked -1 slots); a
+    present slot with cam -1 (clamped to camera 0, as everywhere in BA);
+    N = 0; nothing present."""
+    from test_torch_cuda_kernels import random_ba_problem
+    cases = {}
+    for V in (1, 33, 65):
+        _, (cam, _, mask) = random_ba_problem(V, 97, "dense", seed=V)
+        cases[f"dense-V{V}"] = (cam, mask, V)
+    _, (cam, _, mask) = random_ba_problem(33, 97, "packed")
+    cases["packed-V33"] = (cam, mask, 33)
+    cam2, mask2 = cam.copy(), mask.copy()
+    cam2[4, -2], mask2[4, -2] = -1, True
+    cases["present-minus-one"] = (cam2, mask2, 33)
+    cases["N0"] = (np.zeros((0, 5), np.int32), np.zeros((0, 5), bool), 7)
+    cases["none-present"] = (cam, np.zeros_like(mask), 33)
+    return cases
+
+
+@pytest.mark.parametrize("case", list(_index_cases()))
+def test_observation_index(case):
+    """Every present slot once, under its camera, in (n, o) order within
+    its view; the first-of-pair flags; the largest view's count."""
+    cam, mask, V = _index_cases()[case]
+    idx = tba.observation_index(torch.as_tensor(cam), torch.as_tensor(mask),
+                                V)
+    N, O = cam.shape
+    slot, start, first = (getattr(idx, k).numpy() for k in
+                          ("slot", "start", "first"))
+    assert idx.slot.dtype == torch.int32 and idx.start.dtype == torch.int32
+    assert start.shape == (V + 1,) and start[0] == 0
+    want, want_first = [], []
+    for v in range(V):
+        seg = [n * O + o for n in range(N) for o in range(O)
+               if mask[n, o] and max(cam[n, o], 0) == v]
+        want += seg
+        want_first += [k == 0 or seg[k] // O != seg[k - 1] // O
+                       for k in range(len(seg))]
+        assert start[v + 1] - start[v] == len(seg)
+    np.testing.assert_array_equal(slot, np.asarray(want, np.int32))
+    np.testing.assert_array_equal(first, np.asarray(want_first, bool))
+    assert np.array_equal(np.sort(slot), np.flatnonzero(mask.reshape(-1)))
+    assert idx.max_count == (int(np.diff(start).max()) if V else 0)
+    if case == "packed-V33":
+        assert (~first).sum() == (N + 2) // 3       # the duplicates
+    if case == "present-minus-one":
+        assert 4 * O + O - 2 in slot[start[0]:start[1]]
+
+
+def test_observation_index_rejects_a_camera_beyond_v():
+    cam = np.array([[0, 1], [2, 5]], np.int32)
+    with pytest.raises(ValueError, match=">= V"):
+        tba.observation_index(torch.as_tensor(cam),
+                              torch.ones(2, 2, dtype=torch.bool), 4)
+
+
+F32 = np.float32
+
+
+def _observe_np(K, R, t, X, xy):
+    """csrc/ba_blocks.cu `observe` on numpy f32 arrays, in its operation
+    order: K, R [M, 3, 3], t, X [M, 3], xy [M, 2] -> r [M, 2],
+    jc [M, 2, 6], jx [M, 2, 3]."""
+    p = [R[:, i, 0] * X[:, 0] + R[:, i, 1] * X[:, 1] + R[:, i, 2] * X[:, 2]
+         + t[:, i] for i in range(3)]
+    small = np.abs(p[2]) < F32(1e-9)
+    z = np.where(small, F32(1e-9), p[2])
+    pz = [p[0] / z, p[1] / z, p[2] / z]
+    a = F32(1.0) / z
+    r, jc, jx = [], [], []
+    for i in range(2):
+        k0, k1, k2 = K[:, i, 0], K[:, i, 1], K[:, i, 2]
+        proj = k0 * pz[0] + k1 * pz[1] + k2 * pz[2]
+        r.append(xy[:, i] - proj)
+        d = [k0 * a, k1 * a, np.where(small, k2, k2 - proj) * a]
+        jc.append(np.stack([p[1] * d[2] - p[2] * d[1],
+                            p[2] * d[0] - p[0] * d[2],
+                            p[0] * d[1] - p[1] * d[0], *d], -1))
+        jx.append(np.stack([R[:, 0, j] * d[0] + R[:, 1, j] * d[1]
+                            + R[:, 2, j] * d[2] for j in range(3)], -1))
+    return np.stack(r, -1), np.stack(jc, 1), np.stack(jx, 1)
+
+
+def _tree(x):
+    """A warp's shuffle-down tree over the last axis (32 lanes): what
+    lane 0 holds."""
+    for off in (16, 8, 4, 2, 1):
+        x = x[..., :off] + x[..., off:2 * off]
+    return x[..., 0]
+
+
+def _in_order(x):
+    """A sequential f32 sum over the first axis, from 0."""
+    s = np.zeros(x.shape[1:], F32)
+    for row in x:
+        s = s + row
+    return s
+
+
+def _k8_model(arrays, obs, damping, index):
+    """K8's reductions in numpy f32, step by step as the kernels order
+    them.  Point phase: lane v of a point's warp (views v, v + 32, ...)
+    walks the slots in order for its B rows and its share of Hxx and gx;
+    the shares meet in a butterfly; each lane inverts and forms its A
+    rows.  View phase: chunks of BA_VIEW_OBS index entries, 4 a thread
+    of 256 in order, a shuffle tree a warp, the 8 warps in order; the
+    finish sums each view's chunks in order, and the residual over every
+    (view, chunk) partial by 1,024 strided threads, a tree a warp and the
+    32 warps in order."""
+    K, R, t, X = arrays
+    cam, xy, mask = obs
+    V, (N, O) = K.shape[0], cam.shape
+    cl = np.maximum(cam, 0)
+    h = np.zeros((N, 32, 6), F32)
+    g = np.zeros((N, 32, 3), F32)
+    B = np.zeros((N, 3, V, 6), F32)
+    for p in range(-(-V // 32)):
+        b = np.zeros((N, 32, 3, 6), F32)
+        for o in range(O):
+            lane = cl[:, o] - 32 * p
+            rows = np.flatnonzero(mask[:, o] & (lane >= 0) & (lane < 32))
+            if not len(rows):
+                continue
+            v, ln = cl[rows, o], lane[rows]
+            r, jc, jx = _observe_np(K[v], R[v], t[v], X[rows], xy[rows, o])
+            h[rows, ln] += np.stack(
+                [jx[:, 0, i] * jx[:, 0, j] + jx[:, 1, i] * jx[:, 1, j]
+                 for i in range(3) for j in range(i, 3)], -1)
+            g[rows, ln] += jx[:, 0] * r[:, :1] + jx[:, 1] * r[:, 1:]
+            b[rows, ln] += (jx[:, 0, :, None] * jc[:, 0, None, :]
+                            + jx[:, 1, :, None] * jc[:, 1, None, :])
+        views = np.arange(32 * p, min(32 * p + 32, V))
+        B[:, :, views] = b[:, :len(views)].transpose(0, 2, 1, 3)
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        h = h + h[:, lanes ^ off]
+        g = g + g[:, lanes ^ off]
+    h, gx = h[:, 0], g[:, 0]
+    dmp = F32(damping)
+    a, bb, cc = (h[:, 0] + dmp * h[:, 0]) + F32(1e-8), h[:, 1], h[:, 2]
+    d, e, f = h[:, 1], (h[:, 3] + dmp * h[:, 3]) + F32(1e-8), h[:, 4]
+    gg, hh, ii = h[:, 2], h[:, 4], (h[:, 5] + dmp * h[:, 5]) + F32(1e-8)
+    det = (a * (e * ii - f * hh) - bb * (d * ii - f * gg)
+           + cc * (d * hh - e * gg))
+    det = np.where(np.abs(det) < F32(1e-20),
+                   np.where(det < 0, F32(-1e-20), F32(1e-20)), det)
+    inv = np.stack([
+        np.stack([e * ii - f * hh, cc * hh - bb * ii, bb * f - cc * e], -1),
+        np.stack([f * gg - d * ii, a * ii - cc * gg, cc * d - a * f], -1),
+        np.stack([d * hh - e * gg, bb * gg - a * hh, a * e - bb * d], -1),
+    ], -2) / det[:, None, None]
+    A = (B[:, 0, :, :, None] * inv[:, None, None, 0, :]
+         + B[:, 1, :, :, None] * inv[:, None, None, 1, :]
+         + B[:, 2, :, :, None] * inv[:, None, None, 2, :])   # [N, V, 6, 3]
+    A = A.transpose(1, 2, 0, 3)
+
+    slot, start, first = (getattr(index, k).numpy() for k in
+                          ("slot", "start", "first"))
+    chunks = max(1, -(-index.max_count // tba.BA_VIEW_OBS))
+    partial = np.zeros((V, chunks, tba.BA_SUMS), F32)
+    upper = [(i, j) for i in range(6) for j in range(i, 6)]
+    xy_flat = xy.reshape(-1, 2)
+    for v in range(V):
+        seg = slot[start[v]:start[v + 1]]
+        n = seg // O
+        one = lambda x: np.repeat(x[v:v + 1], len(seg), 0)
+        r, jc, _ = _observe_np(one(K), one(R), one(t), X[n], xy_flat[seg])
+        agx = np.stack([A[v, i, n, 0] * gx[n, 0] + A[v, i, n, 1] * gx[n, 1]
+                        + A[v, i, n, 2] * gx[n, 2] for i in range(6)], -1)
+        terms = np.concatenate([
+            np.stack([jc[:, 0, i] * jc[:, 0, j] + jc[:, 1, i] * jc[:, 1, j]
+                      for i, j in upper], -1),
+            jc[:, 0] * r[:, :1] + jc[:, 1] * r[:, 1:],
+            np.where(first[start[v]:start[v + 1], None], agx, F32(0)),
+            (r[:, 0] * r[:, 0] + r[:, 1] * r[:, 1])[:, None]], -1)
+        terms = np.concatenate(
+            [terms, np.zeros((chunks * tba.BA_VIEW_OBS - len(seg),
+                              tba.BA_SUMS), F32)])
+        for c in range(chunks):
+            per_thread = _in_order(terms[c * tba.BA_VIEW_OBS:(c + 1)
+                                         * tba.BA_VIEW_OBS].reshape(4, 256, -1))
+            warps = _tree(per_thread.reshape(8, 32, -1).transpose(0, 2, 1))
+            partial[v, c] = _in_order(warps)
+    tot = np.stack([_in_order(partial[v]) for v in range(V)])
+    Hcc = np.zeros((V, 6, 6), F32)
+    for q, (i, j) in enumerate(upper):
+        Hcc[:, i, j] = Hcc[:, j, i] = tot[:, q]
+    gc = tot[:, 21:27]
+    rows = partial.reshape(V * chunks, -1)[:, 33]
+    rows = np.concatenate([rows, np.zeros((-len(rows)) % 1024, F32)])
+    per_thread = _in_order(rows.reshape(-1, 1024))
+    resid = _in_order(_tree(per_thread.reshape(32, 32)))
+    return tba.BABlocks(*(torch.as_tensor(x) for x in (
+        inv, gx, B, A, Hcc, gc, gc - tot[:, 27:33], resid)),
+        n_obs=torch.as_tensor(int(start[V])))
+
+
+def _model_cases():
+    from test_torch_cuda_kernels import random_ba_problem
+    cases = {f"{lay}-V{V}": (V, 203, lay) for V in (1, 33, 65)
+             for lay in ("dense", "packed")}
+    cases["dense-V4-chunks"] = (4, 3001, "dense")
+    return cases, random_ba_problem
+
+
+@pytest.mark.parametrize("case", ["scene-packed", "scene-dense",
+                                  *_model_cases()[0]])
+def test_k8_reduction_model_matches_plain_and_jax(ba_problem, case):
+    """The model of K8's reductions against `_ba_blocks_plain` and JAX's
+    `ba_schur_local` (S too): within 1e-5 of each array's largest
+    magnitude, the residual sum within 1e-5 relative, the observation
+    count exact.  The random problems as the card's tests make them
+    (V = 1 with damping 1: one view leaves depth unobservable), and one
+    with three chunks of view sums a view."""
+    if case.startswith("scene"):
+        sfmd, arrays = ba_problem
+        obs = _observations(sfmd, case.split("-")[1])
+        damping = 1e-4
+    else:
+        cases, make = _model_cases()
+        V, N, layout = cases[case]
+        arrays, obs = make(V, N, layout)
+        damping = 1.0 if V == 1 else 1e-4
+    V = arrays[0].shape[0]
+    targs = [torch.as_tensor(a) for a in obs]
+    index = tba.observation_index(targs[0], targs[2], V)
+    got = _k8_model(arrays, obs, damping, index)
+    if case == "dense-V4-chunks":
+        assert index.max_count > 2 * tba.BA_VIEW_OBS
+    _, ts = _states(arrays)
+    ref = tba._ba_blocks_plain(ts, *targs, damping=damping)
+    for name in tba.BABlocks._fields:
+        g, r = getattr(got, name), getattr(ref, name)
+        assert g.shape == r.shape, name
+        if name == "n_obs":
+            assert int(g) == int(r) == obs[2].sum()
+        elif name == "resid_sq":
+            np.testing.assert_allclose(float(g), float(r), rtol=1e-5)
+        else:
+            assert _rel(g, r) < 1e-5, name
+    js, _ = _states(arrays)
+    S_j, rhs_j, Hinv_j, gx_j, _, onehot, rsq_j, n_j = jax.jit(
+        jba.ba_schur_local)(js, *(jnp.asarray(a) for a in obs),
+                            damping=damping)
+    S_j = np.asarray(S_j).transpose(0, 2, 1, 3).reshape(6 * V, 6 * V)
+    for g, r in ((tba.schur_complement(got), S_j), (got.rhs, rhs_j),
+                 (got.Hxx_inv, Hinv_j), (got.gx, gx_j)):
+        assert _rel(g, r) < 1e-5
+    np.testing.assert_allclose(float(got.resid_sq), float(rsq_j), rtol=1e-5)
+    assert int(n_j) == int(got.n_obs)
+
+
+def test_ba_run_builds_the_index_once(ba_problem, monkeypatch):
+    """ba_run builds the observation index once for all its steps, and
+    its steps equal steps that each build their own, bit for bit (on
+    the CPU, where the plain version runs)."""
+    sfmd, arrays = ba_problem
+    _, ts = _states(arrays)
+    obs = [torch.as_tensor(a) for a in _observations(sfmd, "packed")]
+    built = []
+    real = tba.observation_index
+    monkeypatch.setattr(tba, "observation_index",
+                        lambda *a: built.append(1) or real(*a))
+    st, mses = tba.ba_run(ts, *obs, 3)
+    assert len(built) == 1
+    st2, mses2 = ts, []
+    for _ in range(3):
+        st2, mse = tba.ba_step_single(st2, *obs)
+        mses2.append(mse)
+    for name in ("R", "t", "X"):
+        assert torch.equal(getattr(st, name), getattr(st2, name)), name
+    assert torch.equal(mses, torch.stack(mses2))

@@ -950,19 +950,102 @@ def _ba_problem(layout, device):
     return state, obs
 
 
-@pytest.mark.parametrize("layout", ["packed", "dense"])
-def test_ba_blocks_kernel_matches_plain(cuda, layout):
+def random_ba_problem(V, N, layout, seed=0):
+    """A seeded BA problem as numpy f32 arrays (K, R, t, X) and (cam, xy,
+    mask): V cameras 4 units from the origin looking at it, N points in
+    a ball of radius 0.5, observations with 0.5 px of noise, the poses
+    and points perturbed (rotations 0.002 rad, t 0.005, X 0.01).
+    "dense": O = V, cam = arange(V), each view present with probability
+    0.7 (at least min(V, 2) a point).  "packed": O = min(V, 5) + 1,
+    2-5 distinct views a point (1 when V = 1) in random order, a
+    duplicate of the first in the last slot on every third row, the
+    other slots masked with cam -1.  With V >= 2 every point sees two
+    views, so Hxx is well conditioned and sum orders move its inverse
+    only by f32 rounding."""
+    from edgegraph3d_tpu_torch.ops import ba
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=(V, 3))
+    c = 4.0 * c / np.linalg.norm(c, axis=1, keepdims=True)
+    z = -c / 4.0
+    x = np.cross(z, rng.normal(size=(V, 3)))
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    R = np.stack([x, np.cross(z, x), z], axis=1)
+    t = -np.einsum("vij,vj->vi", R, c)
+    K = np.tile(np.array([[400.0, 0.0, 160.0], [0.0, 400.0, 120.0],
+                          [0.0, 0.0, 1.0]]), (V, 1, 1))
+    K[:, 0, 0] += rng.uniform(-20, 20, V)
+    u = rng.normal(size=(N, 3))
+    X = 0.5 * rng.uniform(0, 1, (N, 1)) ** (1 / 3) * u / np.linalg.norm(
+        u, axis=1, keepdims=True)
+    q = np.einsum("vij,nj->nvi", R, X) + t
+    proj = np.einsum("vij,nvj->nvi", K, q / q[..., 2:])[..., :2]
+    proj += rng.normal(0, 0.5, proj.shape)
+    if layout == "dense":
+        O = V
+        cam = np.tile(np.arange(V, dtype=np.int32), (N, 1))
+        mask = rng.random((N, V)) < 0.7
+        two = np.argsort(rng.random((N, V)), axis=1)[:, :2]
+        mask[np.arange(N)[:, None], two] = True
+        xy = np.where(mask[..., None], proj, 0.0)
+    else:
+        O = min(V, 5) + 1
+        cam = np.full((N, O), -1, np.int32)
+        xy = np.zeros((N, O, 2))
+        mask = np.zeros((N, O), bool)
+        for n in range(N):
+            k = 1 if V == 1 else int(rng.integers(2, min(V, 5) + 1))
+            views = rng.permutation(V)[:k]
+            cam[n, :k], xy[n, :k], mask[n, :k] = views, proj[n, views], True
+            if n % 3 == 0:
+                cam[n, -1], xy[n, -1], mask[n, -1] = views[0], xy[n, 0], True
+    w = rng.normal(0, 0.002, (V, 3))
+    R = ba.exp_so3(torch.as_tensor(w)).numpy() @ R
+    t = t + rng.normal(0, 0.005, t.shape)
+    X = X + rng.normal(0, 0.01, X.shape)
+    f32 = lambda a: np.asarray(a, np.float32)
+    return (f32(K), f32(R), f32(t), f32(X)), (cam, f32(xy), mask)
+
+
+def _on(device, arrays, obs):
+    from edgegraph3d_tpu_torch.ops import ba
+    state = ba.BAState(*(torch.as_tensor(a, device=device) for a in arrays))
+    return state, [torch.as_tensor(a, device=device) for a in obs]
+
+
+#: (layout, V, N) of the random problems K8 is held to: V around the
+#: lane boundaries (one, two and three 32-view passes), N not a multiple
+#: of a block's 8 points, and a view with more observations than one
+#: block of the view sums takes (1,024)
+BA_KERNEL_CASES = [
+    pytest.param("packed", None, None, id="packed"),
+    pytest.param("dense", None, None, id="dense"),
+    *(pytest.param(layout, V, 203, id=f"{layout}-V{V}")
+      for V in (1, 31, 32, 33, 65) for layout in ("dense", "packed")),
+    pytest.param("dense", 4, 3001, id="dense-V4-chunks"),
+]
+
+
+@pytest.mark.parametrize("layout,V,N", BA_KERNEL_CASES)
+def test_ba_blocks_kernel_matches_plain(cuda, layout, V, N):
     """K8 against its plain version on the same card inputs: every
     output within 2e-5 of the array's largest magnitude (the sums run in
     another order), the observation count exact, and two launches bit
-    for bit the same (no float atomics)."""
+    for bit the same (no float atomics).  The 8-view scene's problems
+    (V None) and the random ones; at V = 1 a point sees one view, its
+    depth is unobservable and Hxx has rank 2, so that case runs with
+    damping 1 (the condition number of Hxx + damping diag(Hxx) would
+    otherwise multiply f32 rounding by ~1e4)."""
     from edgegraph3d_tpu_torch.ops import ba
-    state, obs = _ba_problem(layout, cuda)
+    if V is None:
+        state, obs = _ba_problem(layout, cuda)
+    else:
+        state, obs = _on(cuda, *random_ba_problem(V, N, layout))
+    damping = 1.0 if V == 1 else 1e-4
     n0 = kernels.LAUNCHES["ba_blocks"]
-    got = ba.ba_blocks(state, *obs, damping=1e-4)
+    got = ba.ba_blocks(state, *obs, damping=damping)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["ba_blocks"] == n0 + 1
-    ref = ba._ba_blocks_plain(state, *obs, damping=1e-4)
+    ref = ba._ba_blocks_plain(state, *obs, damping=damping)
     for name in ba.BABlocks._fields:
         g, r = getattr(got, name), getattr(ref, name)
         assert g.shape == r.shape, name
@@ -971,9 +1054,63 @@ def test_ba_blocks_kernel_matches_plain(cuda, layout):
             continue
         scale = max(float(r.abs().max()), 1e-30)
         assert float((g - r).abs().max()) <= 2e-5 * scale, name
-    again = ba.ba_blocks(state, *obs, damping=1e-4)
+    again = ba.ba_blocks(state, *obs, damping=damping)
     for name in ba.BABlocks._fields:
         assert torch.equal(getattr(again, name), getattr(got, name)), name
+
+
+@pytest.mark.parametrize("V,where", [(70, "static"), (71, "optin"),
+                                     (338, "optin"), (339, "global")])
+def test_ba_blocks_tile_placements(cuda, V, where):
+    """K8's point-kernel tables at their byte boundaries (684 V + 1,024
+    bytes: the camera table, the staged A tile and the slot masks; 48 KiB
+    of shared memory up to V = 70, opted in up to V = 338 on an H100,
+    else cameras from device memory and A stored from the lanes): the
+    bytes as the C source counts them, the placement the wrapper
+    records, and every output within 2e-5 of the plain version's largest
+    magnitude."""
+    from edgegraph3d_tpu_torch.ops import ba
+    assert kernels.lib().eg3d_ba_blocks_smem(V) == ba.ba_table_bytes(V)
+    assert kernels.table_placement(
+        ba.ba_table_bytes(V), kernels.smem_optin_bytes(cuda)) == where
+    state, obs = _on(cuda, *random_ba_problem(V, 37, "dense", seed=V))
+    got = ba.ba_blocks(state, *obs)
+    torch.cuda.synchronize()
+    assert kernels.LAST_PLACEMENT["ba_blocks"] == where
+    ref = ba._ba_blocks_plain(state, *obs)
+    for name in ba.BABlocks._fields:
+        g, r = getattr(got, name), getattr(ref, name)
+        scale = max(float(r.abs().max()), 1e-30)
+        assert float((g - r).abs().max()) <= 2e-5 * scale, name
+
+
+def test_observation_index_on_card_matches_cpu(cuda):
+    """The index built on the card (a stable sort on the device) equals
+    the one built on the CPU, on the packed layout with duplicates and
+    -1 cameras."""
+    from edgegraph3d_tpu_torch.ops import ba
+    _, (cam, _, mask) = random_ba_problem(33, 500, "packed")
+    a = ba.observation_index(torch.as_tensor(cam, device=cuda),
+                             torch.as_tensor(mask, device=cuda), 33)
+    b = ba.observation_index(torch.as_tensor(cam), torch.as_tensor(mask), 33)
+    for name in ("slot", "start", "first"):
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
+    assert a.max_count == b.max_count
+
+
+def test_ba_run_index_once_on_card(cuda):
+    """ba_run (the index built once) against steps that each rebuild it:
+    bit for bit on the card."""
+    from edgegraph3d_tpu_torch.ops import ba
+    state, obs = _on(cuda, *random_ba_problem(33, 203, "packed"))
+    st, mses = ba.ba_run(state, *obs, 3)
+    st2, mses2 = state, []
+    for _ in range(3):
+        st2, mse = ba.ba_step_single(st2, *obs)
+        mses2.append(mse)
+    for name in ("R", "t", "X"):
+        assert torch.equal(getattr(st, name), getattr(st2, name)), name
+    assert torch.equal(mses, torch.stack(mses2))
 
 
 def test_ba_run_on_card_matches_cpu(cuda):

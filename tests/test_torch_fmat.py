@@ -230,7 +230,7 @@ def test_epipolar_consumers_ignore_the_sign_of_f(cube):
                               device="cpu")
     flipped = t_ref.context_from_arrays(
         ctx.plg_coords, ctx.plg_length, ctx.grids, ctx.P_mats,
-        -ctx.F_table.numpy(), ctx.cell, CFG)
+        -ctx.F_table.numpy(), ctx.cell, CFG, "cpu")
     a = t_ref.reconstruct_from_refpoints(sfmd, ctx, max_starting_views=2)
     b = t_ref.reconstruct_from_refpoints(sfmd, flipped, max_starting_views=2)
     assert len(a.X) > 50

@@ -1,8 +1,8 @@
 """CPU models of the kernels' device-side rules, held against the plain
 twins and the JAX package:
 
-  * kernels.table_placement, which places K3's, K6's and K7's per-block
-    tables in shared memory (up to 48 KiB, then opted in up to the card's
+  * kernels.table_placement, which places K3's, K6's, K7's and K8's
+    per-block tables in shared memory (up to 48 KiB, then opted in up to the card's
     limit) or in device memory, at the byte counts of each kernel's
     boundaries on an H100 (232,448 B opt-in limit);
   * K6's selection, as one thread runs it per (sample, member) pair: a
@@ -25,6 +25,7 @@ from edgegraph3d_tpu.ops import polyline_ops as jpo
 from edgegraph3d_tpu_torch import kernels
 from edgegraph3d_tpu_torch.matching import expansion
 from edgegraph3d_tpu_torch.matching import polyline_stages as tps
+from edgegraph3d_tpu_torch.ops import ba
 from edgegraph3d_tpu_torch.ops import polyline_ops as tpo
 from edgegraph3d_tpu_torch.ops import triangulation
 from edgegraph3d_tpu_torch.ops.geometry import epipolar_line_fma
@@ -40,12 +41,15 @@ OPTIN = kernels.H100_SMEM_OPTIN_BYTES
     ("K7 closest", 1024, "static"), ("K7 closest", 1025, "optin"),
     ("K7 closest", 4842, "optin"), ("K7 closest", 4843, "global"),
     ("K6", 93, "static"), ("K6", 94, "optin"), ("K6", 443, "optin"),
-    ("K6", 444, "global")])
+    ("K6", 444, "global"),
+    ("K8", 70, "static"), ("K8", 71, "optin"), ("K8", 338, "optin"),
+    ("K8", 339, "global")])
 def test_table_placement_at_kernel_boundaries(kernel, size, where):
-    """`size` is K3's and K7's camera count V, K6's member count K (at
-    L = 64, the stage-1/2 sweep's S = 24 samples staying in device
+    """`size` is K3's, K7's and K8's camera count V, K6's member count K
+    (at L = 64, the stage-1/2 sweep's S = 24 samples staying in device
     memory)."""
     n_bytes = {"K3": lambda n: triangulation.gn_table_bytes(n),
+               "K8": lambda n: ba.ba_table_bytes(n),
                "K7 epipolar": lambda n: expansion.k7_table_bytes(n, True),
                "K7 closest": lambda n: expansion.k7_table_bytes(n, False),
                "K6": lambda n: tps.k6_table_bytes(n, 64)}[kernel](size)

@@ -106,12 +106,13 @@ def test_cuda_request_without_gpu_raises(cube, monkeypatch):
 
 
 @pytest.mark.parametrize("fn", ["gauss_newton_filter", "compute_inliers",
-                                "filter_sfm_data", "communities_from_edges"])
+                                "filter_sfm_data", "communities_from_edges",
+                                "context_from_arrays"])
 def test_library_functions_default_to_the_card(cube, monkeypatch, fn):
     """The public library functions default to device="cuda": without a
     GPU the default raises, and the CPU runs only when asked for."""
     from edgegraph3d_tpu_torch.filtering import outliers
-    from edgegraph3d_tpu_torch.matching import communities
+    from edgegraph3d_tpu_torch.matching import communities, refpoints
     sfmd, _, _ = cube
     edges = np.array([[0, 1], [1, 2], [2, 0]], np.int32)
     call = {
@@ -123,6 +124,10 @@ def test_library_functions_default_to_the_card(cube, monkeypatch, fn):
             sfmd, sfmd.n_points, **kw),
         "communities_from_edges": lambda **kw:
             communities.communities_from_edges(edges, np.ones(3), 3, **kw),
+        "context_from_arrays": lambda **kw: refpoints.context_from_arrays(
+            np.zeros((1, 1, 2, 2)), np.zeros((1, 1)),
+            np.zeros((1, 1, 1, 1, 6)), sfmd.P[:1], np.zeros((1, 1, 3, 3)),
+            10.0, **kw),
     }[fn]
     assert call(device="cpu") is not None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -93,7 +93,7 @@ def ctxs():
     jctx = jrp.build_context(sfmd, stack, cfg)
     tctx = trp.context_from_arrays(
         jctx.plg_coords, jctx.plg_length, jctx.grids, jctx.P_mats,
-        jctx.F_table, jctx.cell, TConfig().replace(**KW))
+        jctx.F_table, jctx.cell, TConfig().replace(**KW), "cpu")
     return sfmd, jctx, tctx
 
 
