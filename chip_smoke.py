@@ -110,7 +110,31 @@ its final `ok` line:
      1e-3 px, equal images; `json_to_ply --images` on the -i run's
      output JSON (as many colored vertices as points) and
      `coordinate_system_transform` onto a seeded similarity of the
-     camera centers and back (within 1e-6 scene units).
+     camera centers and back (within 1e-6 scene units);
+  8. the mesh (edgegraph3d_tpu_torch/parallel), after phase 7.  (a) One
+     process, a mesh of MESH_SHARDS shards on cuda:0 (and, where there
+     are more cards, a mesh over all of them): the full scene's default
+     stages and cube8's stage 3 through run_pipeline(mesh=...), each with
+     the launch counts set to 0 just before it and read just after,
+     against phases 4 and 3 (the same points, view lists equal, points
+     within 1e-5), every main-path kernel launched and every shard
+     launching K1-K4 and K7 (the per-shard counts logged); stage 3 of the
+     full scene with device claiming sharded over the mesh, bit-equal to
+     phase 6's host claiming; one shard's K4 launches (the direction
+     trials and the walk) on its block of the first refpoint chunk's
+     seeds against the plain twin (0 decision mismatches); 3 steps of
+     the distributed BA on phase 6's perturbed augmented scene against 3
+     of the single-device ba_run (MESH_BA_TOL), K8 launched 3 times on
+     every shard, and one shard's K8 blocks against the plain version
+     (BA_BLOCK_TOL).  (b) Two processes on cuda:0 joined over gloo (the
+     `--mesh-worker` mode below), 2 shards each: the sharded GN on
+     cube8's refpoints, 2 steps of the distributed BA on the K8_SHAPE
+     problem and cube8's stage 3 through run_pipeline(mesh=global_mesh());
+     both processes must agree bit for bit, the GN and stage 3 with the
+     one-process runs of (a) bit for bit, the BA with (a)'s mesh within
+     MESH_BA_TOL.  (c) The same with an NCCL group of one process per
+     card.  The phase's wall is logged with the card's name and power
+     limit.
 
 Each kernel's bound is the larger of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its f32
@@ -145,6 +169,20 @@ does the same for K8 on a seeded problem of phase 6's shape (K8_SHAPE:
 index's build, the wrapper, its launch alone into preallocated outputs,
 each CUDA entry's device time and one LM step's wall; it needs no phase
 4, so an earlier checkout and this one compare in one call.
+
+    python3 chip_smoke.py --mesh-worker RANK WORLD PORT OUT [BACKEND]
+
+is one process of phase 8(b) (BACKEND gloo, the default) or (c) (nccl):
+it joins a group of WORLD processes at localhost:PORT as RANK and writes
+its results to OUT (npz); phase 8 starts and waits for them.
+
+    python3 chip_smoke.py --mesh-cards
+
+runs phase 8 across every card of a machine with two or more, alone
+(`mesh_cards`): one shard a card in one process, and an NCCL group of
+one process a card, each against the one-card runs; it also times the
+full scene's stage-3 seeding and following with the shards stepped
+together against one after another (`time_shard_steps`).
 """
 
 from __future__ import annotations
@@ -156,6 +194,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -204,13 +243,18 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def card_name() -> str:
-    """The card's name and power limit, as nvidia-smi prints them."""
+def card_names() -> list:
+    """Each card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
-    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+    return smi.stdout.strip().splitlines()
+
+
+def card_name() -> str:
+    """The first card's name and power limit."""
+    return (card_names() or [""])[0]
 
 
 def cuda_time(fn, reps: int, warmup: bool = True, warm_s: float = 0.25):
@@ -1334,13 +1378,20 @@ def _write_scene_files(root, sfmd, edges):
     sfm_io.write_sfm_data(sfmd, os.path.join(root, "input.json"))
 
 
+#: each run_main_path call's output scene, by name (phase 8 holds the
+#: mesh runs against them)
+MAIN_OUTPUTS = {}
+
+
 def run_main_path(name, scene, max_starting_views, stages=(1, 2, 3),
-                  config=None, via_files=False, working_folder=None):
+                  config=None, via_files=False, working_folder=None,
+                  mesh=None):
     """One pipeline run on the card with the launch counts set to 0 just
     before it and read just after.  `via_files` goes through
     `edge_matching` on files in a temporary directory; else
-    `working_folder` (optional) is run_pipeline's.  Returns (launches,
-    stage counts)."""
+    `working_folder` (optional) and `mesh` (optional) are run_pipeline's.
+    Keeps the output in MAIN_OUTPUTS[name].  Returns (launches, stage
+    counts)."""
     import tempfile
 
     import torch
@@ -1382,7 +1433,8 @@ def run_main_path(name, scene, max_starting_views, stages=(1, 2, 3),
             out = run_pipeline(sfmd, edges, cfg,
                                working_folder=working_folder,
                                max_starting_views=max_starting_views,
-                               stats=stats, stages=stages, device="cuda")
+                               stats=stats, stages=stages, device="cuda",
+                               mesh=mesh)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(kernels.LAUNCHES)
@@ -1398,6 +1450,7 @@ def run_main_path(name, scene, max_starting_views, stages=(1, 2, 3),
             log(stats.report())
             counts = dict(stats.counts)
     peak = torch.cuda.max_memory_allocated()
+    MAIN_OUTPUTS[name] = out
     qual = quality_metrics(out, sfmd, curves)
     # the working folder's checkpoints (host JSON writing) are left out
     # of views_per_s, so that it compares with runs without a folder
@@ -1778,7 +1831,8 @@ def check_device_claiming(full, cfg, device="cuda"):
     with claiming_backend="device" and "host": the same points bit for
     bit, the same counts and counters (but the device backend's own),
     and no fallback to the host pass.  Logs the chunks and their fixpoint
-    rounds (the device_claiming_* counters)."""
+    rounds (the device_claiming_* counters).  Returns the host backend's
+    points."""
     import dataclasses
 
     import numpy as np
@@ -1824,6 +1878,7 @@ def check_device_claiming(full, cfg, device="cuda"):
              f"backend's ({len(pd.X)} against {len(ph.X)} points)")
     log(f"  device claiming: {len(pd.X)} points, equal to the host "
         "backend's bit for bit")
+    return ph
 
 
 def epipolar_median_px(F, sfmd):
@@ -2150,6 +2205,528 @@ def check_debug_and_host_tools(cube):
                 detection_max_abs_err=err)
 
 
+# ----------------------------------------------------------------------
+# phase 8: the mesh on the card (edgegraph3d_tpu_torch/parallel)
+# ----------------------------------------------------------------------
+
+#: shards of phase 8's one-process mesh, all on cuda:0
+MESH_SHARDS = 4
+#: the distributed BA against the single-device BA: rotations, points
+#: and the MSE absolute (tests/test_ba.py's bounds); translations, which
+#: those tests leave out, within phase 6's BA_CAM_TOL (1 + max |t|)
+MESH_BA_TOL = dict(R=1e-5, X=1e-4, mse=1e-3)
+#: the kernels the sharded sweeps and the distributed BA launch per shard
+SHARD_KERNELS = ("grid_topm_query", "epipolar_topm_query", "triangulate_gn",
+                 "follow_walk", "expand_chains", "ba_blocks")
+
+
+def shard_launches() -> dict:
+    """Per global shard, the launches of SHARD_KERNELS since the last
+    sharded.reset_shard_launches()."""
+    from edgegraph3d_tpu_torch.parallel import sharded
+    return {g: {k: c[k] for k in SHARD_KERNELS}
+            for g, c in sorted(sharded.SHARD_LAUNCHES.items())}
+
+
+def same_scene(label, got, ref, x_tol=1e-5) -> float:
+    """Two output scenes: the same point count and observation lists
+    (so equal observation masks), points within x_tol.  Returns the
+    largest point difference."""
+    import numpy as np
+    if got.n_points != ref.n_points:
+        fail(f"{label}: {got.n_points} points against {ref.n_points}")
+    if len(got.obs_cam) != len(ref.obs_cam) or any(
+            not np.array_equal(a, b)
+            for a, b in zip(got.obs_cam, ref.obs_cam)):
+        fail(f"{label}: the observation lists differ")
+    d = float(np.abs(got.points - ref.points).max()) if got.n_points else 0.0
+    if not d <= x_tol:
+        fail(f"{label}: points differ by {d} > {x_tol}")
+    log(f"  {label}: {got.n_points} points, observation lists equal, "
+        f"max point difference {d:.3g} (tolerance {x_tol})")
+    return d
+
+
+def check_mesh_main_path(full, cube, mesh, label):
+    """Phase 8(a): the full scene's default stages and cube8's stage 3
+    through run_pipeline(mesh=...) against phases 4 and 3, with the
+    per-shard launches of the sharded kernels logged; every shard must
+    launch K1-K4 and K7 on the full scene."""
+    from edgegraph3d_tpu_torch import kernels
+    from edgegraph3d_tpu_torch.parallel import sharded
+
+    sharded.reset_shard_launches()
+    launches, _ = run_main_path(f"full {label}", full, None, mesh=mesh)
+    per_shard = shard_launches()
+    log(f"  full {label}: launches per shard {json.dumps(per_shard)}")
+    missing = [k for k in kernels.MAIN_PATH_KERNELS if launches[k] <= 0]
+    idle = [(g, k) for g in range(mesh.size) for k in SHARD_KERNELS[:5]
+            if per_shard.get(g, {}).get(k, 0) <= 0]
+    if missing or idle:
+        fail(f"full {label}: kernels not launched: {missing}, "
+             f"(shard, kernel) pairs with no launch: {idle}")
+    same_scene(f"full {label} against phase 4", MAIN_OUTPUTS[f"full {label}"],
+               MAIN_OUTPUTS["full"])
+    sharded.reset_shard_launches()
+    run_main_path(f"cube8 stage 3 {label}", cube, 2, stages=(3,), mesh=mesh)
+    log(f"  cube8 stage 3 {label}: launches per shard "
+        f"{json.dumps(shard_launches())}")
+    same_scene(f"cube8 stage 3 {label} against phase 3",
+               MAIN_OUTPUTS[f"cube8 stage 3 {label}"],
+               MAIN_OUTPUTS["cube8 stage 3"])
+    return launches, per_shard
+
+
+def check_mesh_claiming(full, cfg, host_pts, mesh):
+    """Phase 8(a): stage 3 of the full scene with device claiming sharded
+    over the mesh, bit-equal to phase 6's host claiming, no fallback."""
+    import numpy as np
+
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    from edgegraph3d_tpu_torch.pipeline import (PipelineStats,
+                                                reconstruct_all_stages)
+    from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
+
+    sfmd, edges, _ = full
+    c = cfg.replace(claiming_backend="device")
+    ctx = rp.build_context(sfmd, extract_plgs(edges, c), c,
+                           device=mesh.device, mesh=mesh)
+    stats = PipelineStats()
+    pts = reconstruct_all_stages(sfmd, ctx, stats, stages=(3,))
+    own = {k: v for k, v in stats.counters.items()
+           if k.startswith("device_claiming")}
+    log(f"  stage 3, device claiming on the mesh: stage3_refpoints_s="
+        f"{stats.timings['stage3_refpoints']:.4f} {json.dumps(own)}")
+    if own.get("device_claiming_fallback", 0) or \
+            not own.get("device_claiming_rounds", 0):
+        fail(f"mesh device claiming: fell back or never ran: {own}")
+    same = all(np.array_equal(getattr(pts, f), getattr(host_pts, f))
+               for f in ("X", "obs_xy", "obs_mask", "seed_refpoint",
+                         "seed_id", "chain_order"))
+    if not same:
+        fail(f"mesh device claiming: {len(pts.X)} points differ from the "
+             f"host claiming's {len(host_pts.X)}")
+    log(f"  mesh device claiming: {len(pts.X)} points, equal to host "
+        "claiming's bit for bit")
+
+
+def ba_state_errors(st, ref) -> dict:
+    """The distributed BA's final state against another: max abs
+    differences and the translation bound."""
+    d = {n: float((getattr(st, n).to(getattr(ref, n).device)
+                   - getattr(ref, n)).abs().max()) for n in ("R", "t", "X")}
+    d["t_tol"] = BA_CAM_TOL * (1 + float(ref.t.abs().max()))
+    return d
+
+
+def ba_within(d, mse_diff) -> bool:
+    return (d["R"] <= MESH_BA_TOL["R"] and d["t"] <= d["t_tol"]
+            and d["X"] <= MESH_BA_TOL["X"] and mse_diff <= MESH_BA_TOL["mse"])
+
+
+def augmented_ba_problem(aug, dev):
+    """Phase 6's joint-BA problem: the augmented scene's dense
+    observations and its seeded perturbation, on `dev`."""
+    import numpy as np
+    import torch
+
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    N, V = aug.n_points, aug.n_cameras
+    obs_xy, obs_mask = rp.dense_observations(aug)
+    cam = torch.arange(V, dtype=torch.int32, device=dev).repeat(N, 1)
+    xy = torch.as_tensor(np.asarray(obs_xy, np.float32), device=dev)
+    mask = torch.as_tensor(obs_mask, device=dev)
+    return perturbed_ba_state(aug, dev), (cam, xy, mask)
+
+
+def check_mesh_ba(mesh, state0, obs, label):
+    """Phase 8(a): 3 steps of sharded.distributed_ba on `label`'s problem
+    (state0, obs on the mesh's first device) against 3 of the
+    single-device ba_run, to MESH_BA_TOL, each shard launching K8 once a
+    step; then one shard's K8 blocks against the plain version
+    (BA_BLOCK_TOL).  Returns K8's launches in the distributed run."""
+    import torch
+
+    from edgegraph3d_tpu_torch.ops import ba
+    from edgegraph3d_tpu_torch.parallel import sharded
+    from edgegraph3d_tpu_torch.parallel.mesh import shard_bounds
+
+    dev = mesh.device
+    cam, xy, mask = obs
+    N = len(state0.X)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    st_s, mses_s = ba.ba_run(state0, cam, xy, mask, 3)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    sharded.reset_shard_launches()
+    st_d, mses_d = sharded.distributed_ba(mesh, state0, cam, xy, mask, 3)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    d = ba_state_errors(st_d, st_s)
+    mse_diff = float((mses_d.to(dev) - mses_s).abs().max())
+    per_shard = {g: c["ba_blocks"] for g, c in shard_launches().items()}
+    log(f"  distributed BA, {mesh.size} shards, 3 steps on {label} "
+        f"(N={N}): mse per step {mses_d.tolist()} (single "
+        f"{mses_s.tolist()}); against ba_run {json.dumps(d)}, mse "
+        f"{mse_diff:.3g} (tolerances {json.dumps(MESH_BA_TOL)}); walls_s "
+        f"single {t1 - t0:.4f} mesh {t2 - t1:.4f}; K8 launches per shard "
+        f"{json.dumps(per_shard)}")
+    if not ba_within(d, mse_diff):
+        fail(f"distributed BA differs from ba_run: {d}, mse {mse_diff}")
+    if sorted(per_shard.values()) != [3] * mesh.size:
+        fail(f"distributed BA: K8 launches per shard {per_shard}, not 3")
+    g = min(1, mesh.size - 1)
+    lo, hi = shard_bounds(N, mesh.size)[g]
+    sd = mesh.devices[g % mesh.local]
+    st_g = ba.BAState(*(a.to(sd) for a in state0[:3]), state0.X[lo:hi].to(sd))
+    obs_g = tuple(a[lo:hi].to(sd) for a in (cam, xy, mask))
+    rel, err = ba_step1_errors(ba.ba_blocks(st_g, *obs_g),
+                               ba._ba_blocks_plain(st_g, *obs_g))
+    log(f"  shard {g} K8 blocks ({hi - lo} points on {sd}) against the "
+        f"plain version, error / largest magnitude: {json.dumps(rel)}")
+    if max(rel.values()) > BA_BLOCK_TOL:
+        fail(f"shard {g} K8 blocks differ from the plain version: {rel}")
+    return sum(per_shard.values())
+
+
+def check_mesh_k4_shard(full, cfg, mesh):
+    """Phase 8(a): one shard's K4 launches (the direction trials and the
+    walk of one follow_seeds call) on its block of the first refpoint
+    chunk's seeds, on its device against the context's replica there,
+    against the plain twin: 0 decision mismatches."""
+    import torch
+
+    from edgegraph3d_tpu_torch.matching import following
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    from edgegraph3d_tpu_torch.parallel.mesh import shard_bounds
+    from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
+
+    sfmd, edges, _ = full
+    ctx = rp.build_context(sfmd, extract_plgs(edges, cfg), cfg,
+                           device=mesh.device, mesh=mesh)
+    obs_xy, obs_mask = rp.dense_observations(sfmd)
+    seeds = rp.compute_seeds_chunk(ctx, *(
+        torch.as_tensor(x[:1024], device=mesh.device)
+        for x in (obs_xy, obs_mask, obs_mask)))
+    n = len(seeds["cams"])
+    g = min(1, mesh.size - 1)
+    lo, hi = shard_bounds(n, mesh.size)[g]
+    sd = mesh.devices[g % mesh.local]
+    rc = ctx.on(sd)
+    st = rp._seed_tuple({k: seeds[k][lo:hi].to(sd)
+                         for k in ("cams", "pl_id", "seg", "t", "xy", "X")})
+    both = following.SeedTuple(*[torch.cat([a, a]) for a in st])
+    ones = torch.ones(hi - lo, dtype=torch.int32, device=sd)
+    for mode, fargs in zip(("warm", "cold"), captured_follow_walks(
+            rc, both, torch.cat([ones, -ones]))):
+        got = following.follow_walk(*fargs)
+        walk, gn = following.follow_params(cfg, mode == "warm")
+        want = following._follow_plain(*fargs[:12], fargs[12], *walk, *gn)
+        mism, err, rel = follow_diff(got, want)
+        log(f"  shard {g} follow_walk {mode} ({2 * (hi - lo)} lanes on "
+            f"{sd}, of the first refpoint chunk's {n} seeds): "
+            f"decision_mismatches={mism} max_abs_err={err:.3g} "
+            f"X_max_rel_err={rel:.3g}")
+        if mism or rel > 1e-4 or err > COORD_TOL_PX:
+            fail(f"shard {g} follow_walk {mode} differs from its plain "
+                 f"twin: {mism} mismatches, err {err}, X rel {rel}")
+    del ctx, rc
+
+
+def gn_problem(device):
+    """Phase 8's per-point GN problem: cube8's refpoints, their packed
+    observations (all 8 views at most) and points perturbed by 0.01
+    (seed 0): (P_obs, xy, mask, X0) on `device`."""
+    import numpy as np
+    import torch
+
+    from edgegraph3d_tpu_torch.core import sfm as sfm_io
+    sfmd = cube8_scene()[0]
+    packed = sfm_io.pack_observations(sfmd.obs_cam, sfmd.obs_xy, max_obs=8,
+                                      dtype=np.float32)
+    X0 = sfmd.points + np.random.default_rng(0).normal(
+        0, 0.01, sfmd.points.shape)
+    P_obs = sfmd.P[np.clip(packed.cam_idx, 0, None)]
+    return tuple(torch.as_tensor(np.asarray(a, dt), device=device)
+                 for a, dt in ((P_obs, np.float32), (packed.xy, np.float32),
+                               (packed.mask, bool), (X0, np.float32)))
+
+
+#: the distributed BA problem of the phase-8 workers: K8_SHAPE's seeded
+#: problem (--time-k8's), 2 steps
+WORKER_BA_STEPS = 2
+
+
+def mesh_worker(rank: int, world: int, port: int, out: str,
+                backend: str = "gloo") -> int:
+    """One process of phase 8(b) / (c): joins a process group of `world`
+    processes over `backend` at localhost:`port`, drives 2 shards (on
+    cuda:0 for gloo, on card rank for nccl), and runs the sharded GN
+    (gn_problem), WORKER_BA_STEPS steps of the distributed BA (the
+    K8_SHAPE problem) and cube8's stage 3 through
+    run_pipeline(mesh=global_mesh()); writes the results to `out` (npz)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from edgegraph3d_tpu_torch.parallel import distributed, sharded
+    from edgegraph3d_tpu_torch.pipeline import run_pipeline
+
+    t0 = time.time()
+    distributed.initialize(f"localhost:{port}", world, rank,
+                           local_device_count=2, backend=backend)
+    card = rank % torch.cuda.device_count() if backend == "nccl" else 0
+    mesh = distributed.global_mesh(devices=[f"cuda:{card}"] * 2)
+    dev = mesh.device
+    X, _, ok = sharded.sharded_gauss_newton(mesh, *gn_problem(dev))
+    state, obs = k8_problem(dev)
+    st, mses = sharded.distributed_ba(mesh, state, *obs, WORKER_BA_STEPS)
+    sfmd, edges, _ = cube8_scene()
+    res = run_pipeline(sfmd, edges, bench_config(), max_starting_views=2,
+                       stages=(3,), mesh=mesh, device=dev)
+    torch.cuda.synchronize()
+    np.savez(out, gn_X=X.cpu().numpy(), gn_ok=ok.cpu().numpy(),
+             ba_R=st.R.cpu().numpy(), ba_t=st.t.cpu().numpy(),
+             ba_X=st.X.cpu().numpy(), ba_mses=mses.cpu().numpy(),
+             points=res.points, obs=np.concatenate(res.obs_cam),
+             n_points=res.n_points, size=mesh.size, first=mesh.first,
+             launches=json.dumps(shard_launches()),
+             wall_s=time.time() - t0)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_mesh_workers(world: int, backend: str, tmp: str) -> list:
+    """Start `world` mesh_worker processes, wait for them (600 s), kill
+    them all if one fails or hangs; returns their results."""
+    import numpy as np
+    port = free_port()
+    outs = [os.path.join(tmp, f"{backend}{r}.npz") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-worker", str(r),
+         str(world), str(port), outs[r], backend], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    except subprocess.TimeoutExpired:
+        logs.append("timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        fail(f"{backend} mesh workers failed "
+             f"{[p.returncode for p in procs]}: "
+             + " | ".join(x[-3000:] for x in logs))
+    return [dict(np.load(o)) for o in outs]
+
+
+def check_worker_results(label, res, ref):
+    """Phase 8(b) / (c): every process's results equal bit for bit; the
+    GN and stage 3 equal the one-process references `ref` bit for bit,
+    the distributed BA within MESH_BA_TOL of ref's one-process mesh run."""
+    import numpy as np
+    import torch
+    for r, got in enumerate(res):
+        log(f"  {label} rank {r}: global shards {int(got['size'])}, first "
+            f"{int(got['first'])}, wall {float(got['wall_s']):.1f}s, "
+            f"launches per shard {got['launches']}")
+        for k in ("gn_X", "gn_ok", "ba_R", "ba_t", "ba_X", "ba_mses",
+                  "points", "obs", "n_points"):
+            if not np.array_equal(got[k], res[0][k]):
+                fail(f"{label}: rank {r}'s {k} differs from rank 0's")
+    got = res[0]
+    for k in ("gn_X", "gn_ok", "points", "obs"):
+        if not np.array_equal(got[k], ref[k]):
+            fail(f"{label}: {k} differs from the one-process run")
+    st = lambda p: SimpleNamespace(**{n: torch.as_tensor(p["ba_" + n])
+                                      for n in "RtX"})
+    d = ba_state_errors(st(got), st(ref))
+    mse_diff = float(np.abs(got["ba_mses"] - ref["ba_mses"]).max())
+    log(f"  {label}: GN ({len(got['gn_X'])} points, {int(got['gn_ok'].sum())}"
+        f" valid) and cube8 stage 3 ({int(got['n_points'])} points) equal "
+        f"to the one-process run bit for bit; distributed BA against the "
+        f"one-process mesh: {json.dumps(d)}, mse {mse_diff:.3g}, mses "
+        f"{got['ba_mses'].tolist()}")
+    if not ba_within(d, mse_diff):
+        fail(f"{label}: distributed BA differs from the one-process mesh")
+
+
+def worker_reference(mesh, label) -> dict:
+    """The one-process results the mesh workers are held against: the
+    unsharded GN on gn_problem, WORKER_BA_STEPS distributed BA steps on
+    `mesh` (K8_SHAPE's problem), and check_mesh_main_path's cube8 stage 3
+    run on `mesh` (`label`)."""
+    import numpy as np
+    import torch
+
+    from edgegraph3d_tpu_torch.ops.triangulation import gauss_newton_batched
+    from edgegraph3d_tpu_torch.parallel import sharded
+
+    dev = mesh.device
+    X, _, ok = gauss_newton_batched(*gn_problem(dev))
+    state, obs = k8_problem(dev)
+    st, mses = sharded.distributed_ba(mesh, state, *obs, WORKER_BA_STEPS)
+    out = MAIN_OUTPUTS[f"cube8 stage 3 {label}"]
+    ref = dict(gn_X=X.cpu().numpy(), gn_ok=ok.cpu().numpy(),
+               ba_R=st.R.cpu().numpy(), ba_t=st.t.cpu().numpy(),
+               ba_X=st.X.cpu().numpy(), ba_mses=mses.cpu().numpy(),
+               points=out.points, obs=np.concatenate(out.obs_cam))
+    del state, obs, st
+    torch.cuda.empty_cache()
+    return ref
+
+
+def check_mesh(full, cube, cfg, aug, host_claims):
+    """Phase 8: the mesh on the card.  (a) one process, MESH_SHARDS
+    shards on cuda:0 (and a mesh over every card where there are more);
+    (b) two processes on cuda:0 joined over gloo, 2 shards each; (c) an
+    NCCL group of one process per card, 2 shards each.  Returns the
+    launches of (a)'s full-scene run (K8's: of its distributed BA) and
+    that run's launches per shard."""
+    import torch
+
+    from edgegraph3d_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=["cuda:0"] * MESH_SHARDS)
+    label = f"mesh{MESH_SHARDS}"
+    launches, per_shard = check_mesh_main_path(full, cube, mesh, label)
+    check_mesh_claiming(full, cfg, host_claims, mesh)
+    check_mesh_k4_shard(full, cfg, mesh)
+    launches["ba_blocks"] = check_mesh_ba(
+        mesh, *augmented_ba_problem(aug, mesh.device),
+        "the perturbed augmented scene")
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        check_mesh_main_path(full, cube, make_mesh(), f"cards{n_cards}")
+
+    ref = worker_reference(mesh, label)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        check_worker_results("gloo, 2 processes on cuda:0",
+                             run_mesh_workers(2, "gloo", tmp), ref)
+        log(f"  gloo workers: {time.time() - t0:.1f}s")
+        t0 = time.time()
+        check_worker_results(f"nccl, {n_cards} process(es), one a card",
+                             run_mesh_workers(n_cards, "nccl", tmp), ref)
+        log(f"  nccl workers: {time.time() - t0:.1f}s")
+    return launches, per_shard
+
+def time_shard_steps(full, cfg, mesh):
+    """`--mesh-cards`: the full scene's stage-3 seeding and following
+    (compute_and_follow_seeds: K1-K4 on every shard of every refpoint
+    chunk) on the mesh of cards, with the seeding's shards stepped
+    together (sharded._run_shards: every shard's work queued before any
+    reads back) and run one after another (each to its end before the
+    next starts), in the order stepped, one after another, one after
+    another, stepped after a warm-up; and on one card.  The results must
+    be equal bit for bit.  Logs each wall (every card synchronized)."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    from edgegraph3d_tpu_torch.parallel import sharded
+    from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
+
+    sfmd, edges, _ = full
+    stack = extract_plgs(edges, cfg)
+    one = rp.build_context(sfmd, stack, cfg, device=mesh.device)
+    ctx = rp.build_context(sfmd, stack, cfg, device=mesh.device, mesh=mesh)
+    stepped = sharded._run_shards
+
+    def one_after_another(jobs):
+        return [rp.run_steps(r) if inspect.isgenerator(r) else r
+                for r in (sharded._on_shard(g, fn, *args)
+                          for g, fn, args in jobs)]
+
+    def run(c, step):
+        sharded._run_shards = stepped if step else one_after_another
+        try:
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
+            t0 = time.time()
+            round0, n = rp.compute_and_follow_seeds(sfmd, c)
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
+            return time.time() - t0, round0, n
+        finally:
+            sharded._run_shards = stepped
+
+    _, ref, n_ref = run(one, True)
+    walls = {"one card": [run(one, True)[0]]}
+    for mode in ("stepped", "one after another", "one after another",
+                 "stepped"):
+        wall, round0, n = run(ctx, mode == "stepped")
+        same = n == n_ref and len(round0) == len(ref) and all(
+            a[0] == b[0] and np.array_equal(a[2], b[2])
+            and np.array_equal(a[3], b[3])
+            and all(np.array_equal(a[1][k], b[1][k]) for k in a[1])
+            for a, b in zip(round0, ref))
+        if not same:
+            fail(f"stage-3 seeding and following on {mesh.size} cards "
+                 f"({mode}) differ from one card's")
+        walls.setdefault(mode, []).append(wall)
+    log(f"  stage-3 seeding + following, {n_ref} seeds, equal on every "
+        f"run: walls (s) {json.dumps(walls)}")
+    return walls
+
+
+def mesh_cards() -> int:
+    """`--mesh-cards`: phase 8 across every card of a machine with two or
+    more, alone: the full scene's default stages and cube8's stage 3 on
+    one card, then on a one-process mesh of all the cards (one shard a
+    card; a shard on cuda:1 and above launches there while cuda:0 is
+    current), shard 1's K4 launches against the plain twin, 3 distributed
+    BA steps on K8_SHAPE's problem against ba_run, and an NCCL group of
+    one process a card (2 shards each) against the one-process runs."""
+    import torch
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        fail("--mesh-cards needs two CUDA GPUs or more")
+    sys.path.insert(0, HERE)
+    from edgegraph3d_tpu_torch import kernels
+    from edgegraph3d_tpu_torch.parallel.mesh import make_mesh
+
+    t_start = time.time()
+    n = torch.cuda.device_count()
+    log(f"{n} cards: {card_names()}")
+    kernels.build()
+    kernels.lib()
+    full, cube, cfg = full_scene(), cube8_scene(), bench_config()
+    run_main_path("full", full, None)
+    run_main_path("cube8 stage 3", cube, 2, stages=(3,))
+    mesh = make_mesh()
+    label = f"cards{n}"
+    t0 = time.time()
+    check_mesh_main_path(full, cube, mesh, label)
+    time_shard_steps(full, cfg, mesh)
+    check_mesh_k4_shard(full, cfg, mesh)
+    check_mesh_ba(mesh, *k8_problem(mesh.device), "the K8_SHAPE problem")
+    ref = worker_reference(mesh, label)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_worker_results(f"nccl, {n} processes, one a card",
+                             run_mesh_workers(n, "nccl", tmp), ref)
+    log(f"mesh over {n} cards: {time.time() - t0:.1f}s of "
+        f"{time.time() - t_start:.1f}s")
+    log(json.dumps({"mesh_cards_ok": True, "cards": n}))
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -2226,7 +2803,6 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches["ba_blocks"] = check_joint_ba(aug, results)
-    del aug
     torch.cuda.empty_cache()
     # torch.profiler's CUDA trace has come back empty in this process
     # after phase 4 (PERF.md section 7), so K8's kernels are also timed
@@ -2238,7 +2814,7 @@ def main() -> int:
         fail(f"--time-k8 failed ({k8.returncode}): {k8.stdout[-2000:]} "
              f"{k8.stderr[-2000:]}")
     log(f"  K8 alone in a fresh process: {k8.stdout.strip().splitlines()[-1]}")
-    check_device_claiming(full, cfg)
+    host_claims = check_device_claiming(full, cfg)
     check_lmeds(full, cfg)
     ba_launches, _ = run_main_path(
         "cube8 LMedS F + joint BA", cube, 2,
@@ -2257,9 +2833,16 @@ def main() -> int:
         f" s; with stage-2 sets {debug['span_stage2']['wall_s']:.3f} s)")
     log(f"phase 7 wall {time.time() - t0:.1f}s")
 
+    log("== phase 8: the mesh (edgegraph3d_tpu_torch/parallel)")
+    t0 = time.time()
+    mesh_launches, per_shard = check_mesh(full, cube, cfg, aug, host_claims)
+    del aug, host_claims
+    log(f"phase 8 wall {time.time() - t0:.1f}s on {card}")
+
     kern = [dict(name=k, route="cuda", source=KERNEL_META[k][0],
                  replaces=KERNEL_META[k][1], launches=launches[k],
-                 **results[k]) for k in kernels.KERNEL_NAMES]
+                 mesh_launches=mesh_launches[k], **results[k])
+            for k in kernels.KERNEL_NAMES]
     log(f"total smoke wall {time.time() - t_start:.1f}s")
     log(json.dumps({"kernels": kern}))
     log(card)
@@ -2426,6 +3009,12 @@ def time_k1_k6(root: str) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--mesh-cards"]:
+        sys.exit(mesh_cards())
+    if len(sys.argv) in (6, 7) and sys.argv[1] == "--mesh-worker":
+        sys.exit(mesh_worker(int(sys.argv[2]), int(sys.argv[3]),
+                             int(sys.argv[4]), sys.argv[5],
+                             *sys.argv[6:]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k8":
         sys.exit(time_k8(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k1-k6":

@@ -251,15 +251,20 @@ __global__ void follow_walk_kernel(Args a) {
   }
 }
 
-// A few blocks per SM (fewer when the seeds do not fill them): the
-// threads refill until the counter passes S.
+// A few blocks per SM of the current device (fewer when the seeds do
+// not fill them): the threads refill until the counter passes S.  The
+// SM count is looked up per device (the wrapper makes the tensors'
+// device current), and cached per device index.
 int blocks_for(int S, int threads) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
+  constexpr int kMaxDevices = 64;
+  static int sms_of[kMaxDevices] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int sms = dev >= 0 && dev < kMaxDevices ? sms_of[dev] : 0;
+  if (sms <= 0) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (sms <= 0) sms = 1;
+    if (dev >= 0 && dev < kMaxDevices) sms_of[dev] = sms;
   }
   const int need = (S + threads - 1) / threads;
   return need < 4 * sms ? need : 4 * sms;

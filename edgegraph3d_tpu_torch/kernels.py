@@ -5,7 +5,11 @@ one shared library with a plain C interface, compiled by nvcc for Hopper
 (sm_90a) at first use into `_build/` and loaded with ctypes.  The
 library is rebuilt when any source is newer than it.  Each C entry
 launches on the caller's stream and returns `cudaGetLastError()`;
-`check()` raises on non-zero.
+`check()` raises on non-zero.  Every wrapper calls its C entry inside
+`on_device(t)`, so that the launch, `cudaFuncSetAttribute` and
+`cudaGetDevice` in the entry act on the device of the tensors it was
+given, not on the thread's current device (a mesh's shards sit on
+`cuda:1` and above while `cuda:0` is current).
 
 `LAUNCHES` holds one plain-integer launch count per kernel.  The
 wrappers (detection.grid_topm_query / epipolar_topm_query,
@@ -226,6 +230,13 @@ def lib():
                 fn.restype = ctypes.c_int
             _LIB = handle
         return _LIB
+
+
+def on_device(t):
+    """Context manager that makes t's CUDA device the current one for a
+    C entry's launch (a launch goes to the current device)."""
+    import torch
+    return torch.cuda.device(t.device)
 
 
 def stream_of(t) -> int:

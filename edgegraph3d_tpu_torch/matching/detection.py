@@ -186,10 +186,11 @@ def grid_topm_query(grids: torch.Tensor, view: torch.Tensor,
     if Q == 0:
         return out
     n_rows = Q // V if view_cycle and Q % V == 0 else 0
-    rc = kernels.lib().eg3d_grid_topm(
-        grids.data_ptr(), V, GH, GW, K, view.data_ptr(), pts.data_ptr(), Q,
-        float(cell), float(radius), M, n_rows, *_out_ptrs(out),
-        kernels.stream_of(pts))
+    with kernels.on_device(pts):
+        rc = kernels.lib().eg3d_grid_topm(
+            grids.data_ptr(), V, GH, GW, K, view.data_ptr(), pts.data_ptr(), Q,
+            float(cell), float(radius), M, n_rows, *_out_ptrs(out),
+            kernels.stream_of(pts))
     kernels.check(rc, "grid_topm_query")
     kernels.LAUNCHES["grid_topm_query"] += 1
     return out
@@ -226,12 +227,13 @@ def epipolar_topm_query(grids: torch.Tensor, view: torch.Tensor,
         return out
     use = exclude_parallel_cos is not None
     order = _view_major_order(view, V)
-    rc = kernels.lib().eg3d_epipolar_topm(
-        grids.data_ptr(), V, GH, GW, K, view.data_ptr(), pts.data_ptr(),
-        lines.data_ptr(), radius.data_ptr(), order.data_ptr(), Q,
-        float(cell), M, 0, int(use),
-        float(exclude_parallel_cos) if use else 0.0, *_out_ptrs(out),
-        kernels.stream_of(pts))
+    with kernels.on_device(pts):
+        rc = kernels.lib().eg3d_epipolar_topm(
+            grids.data_ptr(), V, GH, GW, K, view.data_ptr(), pts.data_ptr(),
+            lines.data_ptr(), radius.data_ptr(), order.data_ptr(), Q,
+            float(cell), M, 0, int(use),
+            float(exclude_parallel_cos) if use else 0.0, *_out_ptrs(out),
+            kernels.stream_of(pts))
     kernels.check(rc, "epipolar_topm_query")
     kernels.LAUNCHES["epipolar_topm_query"] += 1
     return out

@@ -278,20 +278,21 @@ def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
     cam_buf = torch.empty((K, Omax), dtype=torch.int32, device=dev)
     obs_x = torch.empty((K, Omax), dtype=torch.float32, device=dev)
     obs_y = torch.empty((K, Omax), dtype=torch.float32, device=dev)
-    rc = kernels.lib().eg3d_expand_chains(
-        grids.data_ptr(), V, GH, GW, Kc, float(cell), P_mats.data_ptr(),
-        F_table.data_ptr(), obs3.data_ptr(), cams3.data_ptr(),
-        slots.data_ptr(), chain_valid.data_ptr(), order.data_ptr(),
-        *(int(n) for n in counts), T, Omax,
-        float(math.sqrt(cfg.expand_max_projection_distsq)),
-        int(epipolar),
-        float(cfg.quasiparallel_cos),
-        cfg.follow_gn_iters, float(cfg.gn_epsilon),
-        float(cfg.match_gn_max_mse), 1e-5,
-        kernels.place("expand_chains", k7_table_bytes(V, epipolar), dev),
-        X.data_ptr(),
-        cam_buf.data_ptr(), obs_x.data_ptr(), obs_y.data_ptr(),
-        out_xy.data_ptr(), out_ok.data_ptr(), kernels.stream_of(X))
+    with kernels.on_device(X):
+        rc = kernels.lib().eg3d_expand_chains(
+            grids.data_ptr(), V, GH, GW, Kc, float(cell), P_mats.data_ptr(),
+            F_table.data_ptr(), obs3.data_ptr(), cams3.data_ptr(),
+            slots.data_ptr(), chain_valid.data_ptr(), order.data_ptr(),
+            *(int(n) for n in counts), T, Omax,
+            float(math.sqrt(cfg.expand_max_projection_distsq)),
+            int(epipolar),
+            float(cfg.quasiparallel_cos),
+            cfg.follow_gn_iters, float(cfg.gn_epsilon),
+            float(cfg.match_gn_max_mse), 1e-5,
+            kernels.place("expand_chains", k7_table_bytes(V, epipolar), dev),
+            X.data_ptr(),
+            cam_buf.data_ptr(), obs_x.data_ptr(), obs_y.data_ptr(),
+            out_xy.data_ptr(), out_ok.data_ptr(), kernels.stream_of(X))
     kernels.check(rc, "expand_chains")
     kernels.LAUNCHES["expand_chains"] += 1
     return X, out_xy, out_ok

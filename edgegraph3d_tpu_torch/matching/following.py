@@ -224,13 +224,14 @@ def follow_walk(coords, lengths, F_table, P_mats, cams, pl, seg0, t0, xy0,
     if S == 0:
         return out
     counter = torch.zeros(1, **i32)
-    rc = kernels.lib().eg3d_follow_walk(
-        coords.data_ptr(), lengths.data_ptr(), V, P, L, F_table.data_ptr(),
-        P_mats.data_ptr(), cams.data_ptr(), pl.data_ptr(), seg0.data_ptr(),
-        t0.data_ptr(), xy0.data_ptr(), dirs.data_ptr(), active0.data_ptr(),
-        kernels.ptr(X0), S, T, *(float(w) for w in walk), int(gn[0]),
-        float(gn[1]), float(gn[2]), DET_MIN, counter.data_ptr(),
-        *(a.data_ptr() for a in out), kernels.stream_of(xy0))
+    with kernels.on_device(xy0):
+        rc = kernels.lib().eg3d_follow_walk(
+            coords.data_ptr(), lengths.data_ptr(), V, P, L, F_table.data_ptr(),
+            P_mats.data_ptr(), cams.data_ptr(), pl.data_ptr(), seg0.data_ptr(),
+            t0.data_ptr(), xy0.data_ptr(), dirs.data_ptr(), active0.data_ptr(),
+            kernels.ptr(X0), S, T, *(float(w) for w in walk), int(gn[0]),
+            float(gn[1]), float(gn[2]), DET_MIN, counter.data_ptr(),
+            *(a.data_ptr() for a in out), kernels.stream_of(xy0))
     kernels.check(rc, "follow_walk")
     kernels.LAUNCHES["follow_walk"] += 1
     return out

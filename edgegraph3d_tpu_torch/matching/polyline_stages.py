@@ -414,12 +414,13 @@ def group_seed_sample(coords, lengths, cams, mask, F_table, n_samples: int,
            torch.empty((G, K, S, K, 2), **b))
     if G == 0 or K == 0:
         return out
-    rc = kernels.lib().eg3d_group_seed_sample(
-        coords.data_ptr(), lengths.data_ptr(), cams.data_ptr(),
-        mask.data_ptr(), G, K, L, F_table.data_ptr(), V, S, float(spacing),
-        float(qcos), float(qdist),
-        kernels.place("group_seed_sample", k6_table_bytes(K, L), dev),
-        *(o.data_ptr() for o in out), kernels.stream_of(coords))
+    with kernels.on_device(coords):
+        rc = kernels.lib().eg3d_group_seed_sample(
+            coords.data_ptr(), lengths.data_ptr(), cams.data_ptr(),
+            mask.data_ptr(), G, K, L, F_table.data_ptr(), V, S, float(spacing),
+            float(qcos), float(qdist),
+            kernels.place("group_seed_sample", k6_table_bytes(K, L), dev),
+            *(o.data_ptr() for o in out), kernels.stream_of(coords))
     kernels.check(rc, "group_seed_sample")
     kernels.LAUNCHES["group_seed_sample"] += 1
     return out
@@ -540,9 +541,10 @@ def _chunk_seeds(ctx, table, lo: int, hi: int, n_samples: int) -> dict:
 def group_seeds_and_follow(groups: list[np.ndarray],
                            ctx: rp.MatchingContext, n_samples: int = 24,
                            max_members: int = 8, group_chunk: int = 64):
-    """Seeding + bidirectional following, chunk by chunk over match sets.
-    Returns (round0 list for sweep_seeds(precomputed=...), n_seeds_total)
-    or (None, 0)."""
+    """Seeding + bidirectional following, chunk by chunk over match sets
+    (the following sharded over ctx.mesh when there is one).  Returns
+    (round0 list for sweep_seeds(precomputed=...), n_seeds_total) or
+    (None, 0)."""
     if not groups:
         return None, 0
     cfg = ctx.config
@@ -556,9 +558,7 @@ def group_seeds_and_follow(groups: list[np.ndarray],
         if n_seeds == 0:
             continue
         st = rp._seed_tuple(seeds)
-        fwd, bwd, _ = following.follow_seeds_bidirectional(
-            st, ctx.plg_coords, ctx.plg_length, ctx.P_mats, ctx.F_table, cfg,
-            cfg.max_follow_steps)
+        fwd, bwd = rp.follow_bidirectional(ctx, st)
         rows, meta = following.pack_follow_outputs(
             fwd, bwd, st.valid, cfg.new_point_min_steps)
         round0.append((seed_lo, rp._seeds_to_host(seeds, lo),

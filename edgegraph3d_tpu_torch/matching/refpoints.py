@@ -19,6 +19,18 @@ per-refpoint loop, see the JAX module docstring):
      chain extension from the expanded view sets (chain ends re-anchored
      by K1, their polylines gathered by kernel K5).
 
+With a mesh (`build_context(mesh=...)`, parallel/mesh.py) the work-item
+axis of each sweep is sharded over the mesh's shards, each running the
+single-device code on its block against a replica of the context
+tensors on its device (parallel/sharded.py): the refpoints of each
+seeding chunk (`compute_seeds_chunk`), the seeds of following, the
+chains of expansion, the seeds of device claiming.  The sweeps are the
+single-device ones, with the same chunks: a sharded step returns its
+work items in the order the unsharded step gives them, so the mesh run
+equals the single-device run.  Chain extension's locate/follow and the
+seeding of stage-1/2 match sets run unsharded on the mesh's first
+device, as in the JAX package.
+
 Buffers are sized from counts: the JAX fixed capacities (cap_s,
 cap_rows, gn_cap) and their overflow redo paths do not exist here.
 Chunk sizes only bound memory; outputs do not depend on them (all
@@ -28,7 +40,8 @@ order).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -50,7 +63,12 @@ from edgegraph3d_tpu_torch.plgs.polyline_graph import PLGStack
 
 @dataclass
 class MatchingContext:
-    """Device-resident inputs shared by all matching stages."""
+    """Device-resident inputs shared by all matching stages.
+
+    With `mesh` set (parallel/mesh.Mesh), `device` is the mesh's first
+    device, every sweep shards its work-item axis over the mesh, and
+    `replicas` holds the context tensors on each other device of the
+    mesh (one copy per distinct device, built by build_context)."""
     plg_coords: torch.Tensor    # [V,P,L,2] f32
     plg_length: torch.Tensor    # [V,P] i32
     grids: torch.Tensor         # [V,GH,GW,K,6] f32
@@ -59,10 +77,34 @@ class MatchingContext:
     cell: float
     config: EdgeGraphConfig
     device: torch.device
+    mesh: object = None
+    replicas: dict = field(default_factory=dict, repr=False)
 
     @property
     def on_cuda(self) -> bool:
         return self.device.type == "cuda"
+
+    @property
+    def n_shards(self) -> int:
+        return self.mesh.size if self.mesh is not None else 1
+
+    def on(self, device) -> "MatchingContext":
+        """The context on `device` (itself, or its replica there, made
+        once and kept), unsharded."""
+        device = torch.device(device)
+        if device == self.device and self.mesh is None:
+            return self
+        rep = self.replicas.get(device)
+        if rep is None:
+            rep = dataclasses.replace(
+                self, device=device, mesh=None, replicas={},
+                **{f: getattr(self, f).to(device) for f in _CONTEXT_TENSORS})
+            self.replicas[device] = rep
+        return rep
+
+
+_CONTEXT_TENSORS = ("plg_coords", "plg_length", "grids", "P_mats",
+                    "F_table")
 
 
 def context_from_arrays(plg_coords, plg_length, grids, P_mats, F_table,
@@ -126,17 +168,30 @@ def lmeds_fundamental_table(sfmd: SfMData, config: EdgeGraphConfig,
 
 def build_context(sfmd: SfMData, stack: PLGStack,
                   config: EdgeGraphConfig = DEFAULT_CONFIG,
-                  cell: float = 10.0, device="cuda") -> MatchingContext:
+                  cell: float = 10.0, device="cuda",
+                  mesh=None) -> MatchingContext:
+    """The context on `device`; with `mesh`, on the mesh's first device
+    (which must be of `device`'s type), with a replica of its tensors on
+    each other device of the mesh."""
     if config.dtype != "float32":
         raise NotImplementedError("the port computes in float32 only")
+    if mesh is not None:
+        if mesh.device.type != resolve_device(device).type:
+            raise ValueError(f"mesh on {mesh.device} but device={device!r}")
+        device = mesh.device
     if config.fmat_source == "lmeds":
         F = lmeds_fundamental_table(sfmd, config, device).cpu()
     else:
         F = all_fundamental_matrices(sfmd.P, sfmd.center)
     grids = build_grids(stack, sfmd.widths, sfmd.heights, cell,
                         config.grid_cell_capacity)
-    return context_from_arrays(stack.coords, stack.length, grids, sfmd.P,
-                               F.numpy(), cell, config, device)
+    ctx = context_from_arrays(stack.coords, stack.length, grids, sfmd.P,
+                              F.numpy(), cell, config, device)
+    if mesh is not None:
+        ctx.mesh = mesh
+        for d in mesh.devices:
+            ctx.on(d)
+    return ctx
 
 
 def dense_observations(sfmd: SfMData):
@@ -167,15 +222,34 @@ def dense_observations(sfmd: SfMData):
 # Seed formation
 # ----------------------------------------------------------------------
 
+def run_steps(steps):
+    """Drive a step generator to its end and return its value.  A step
+    generator (`*_steps`) yields right before each read back from the
+    device (a compaction's count), so that parallel/sharded.py can queue
+    every shard's work up to that point before any shard waits."""
+    while True:
+        try:
+            next(steps)
+        except StopIteration as done:
+            return done.value
+
+
 def _start_sweep(ctx: MatchingContext, obs_xy, start_mask,
                  starting_dist: float, M: int) -> dict:
     """Starting intersections of a refpoint chunk (K1 over all (n, v)),
     compacted in (n, v, m) order.  obs_xy [N,V,2], start_mask [N,V]."""
+    return run_steps(_start_sweep_steps(ctx, obs_xy, start_mask,
+                                        starting_dist, M))
+
+
+def _start_sweep_steps(ctx: MatchingContext, obs_xy, start_mask,
+                       starting_dist: float, M: int):
     N, V = start_mask.shape
     view = torch.arange(V, dtype=torch.int32, device=ctx.device).repeat(N)
     c = grid_topm_query(ctx.grids, view, obs_xy.reshape(N * V, 2), ctx.cell,
                         starting_dist, M, view_cycle=True)
     s_valid = c.valid.reshape(N, V, M) & start_mask[..., None]
+    yield
     idx = torch.nonzero(s_valid.reshape(-1)).flatten()
     return dict(ridx=idx // (V * M), vs=(idx // M) % V,
                 pl=c.pl_id.reshape(-1)[idx], seg=c.seg.reshape(-1)[idx],
@@ -188,6 +262,12 @@ def _seed_from_starts(ctx: MatchingContext, starts: dict, obs_xy, obs_mask,
     """Epipolar correspondences (K2) + 3-view triangulation (K3) for the
     compacted starts; returns the valid seeds in start order:
     cams/pl_id/seg [n,3] i32, t [n,3], xy [n,3,2], X [n,3], ridx [n]."""
+    return run_steps(_seed_from_starts_steps(ctx, starts, obs_xy, obs_mask,
+                                             M))
+
+
+def _seed_from_starts_steps(ctx: MatchingContext, starts: dict, obs_xy,
+                            obs_mask, M: int):
     cfg = ctx.config
     dev = ctx.device
     ridx, vs = starts["ridx"], starts["vs"]
@@ -231,6 +311,7 @@ def _seed_from_starts(ctx: MatchingContext, starts: dict, obs_xy, obs_mask,
     cams3 = torch.stack([vs, v1, v2], -1).to(torch.int32)      # [K,3]
     cand = c1_ok[:, :, None] & c2_ok[:, None, :] \
         & two_views[:, None, None]
+    yield
     rows = torch.nonzero(cand.reshape(-1)).flatten()
     rk, i1, i2 = rows // (M * M), (rows // M) % M, rows % M
     ok = torch.zeros(K * M * M, dtype=torch.bool, device=dev)
@@ -249,6 +330,7 @@ def _seed_from_starts(ctx: MatchingContext, starts: dict, obs_xy, obs_mask,
     unique = ok.sum(-1) == 1
     pick = torch.where(ok, torch.arange(M * M, device=dev), M * M) \
         .amin(-1).clamp_max(M * M - 1)
+    yield
     keep = torch.nonzero(unique & two_views).flatten()
     pk = pick[keep]
     j1, j2 = pk // M, pk % M
@@ -312,12 +394,46 @@ def _start_mask(obs_mask: np.ndarray, max_starting_views: int | None):
 
 def compute_seeds_chunk(ctx: MatchingContext, obs_xy, obs_mask, start_mask):
     """Seeds of one refpoint chunk (device tensors), in (refpoint,
-    starting view, candidate) order."""
+    starting view, candidate) order.  On a mesh the chunk's rows are
+    padded up to a multiple of the shard count with rows that start
+    nowhere, shard d seeds rows [d Nd, (d + 1) Nd) on its device (K1,
+    then K2 + K3: sharded_start_sweep, sharded_seed_from_starts), and
+    the shards' seeds are rejoined in shard order, their block-local
+    refpoint rows plus the block offset: the same seeds in the same
+    order as without a mesh."""
     cfg = ctx.config
     M = cfg.max_candidates_per_view
-    starts = _start_sweep(ctx, obs_xy, start_mask,
-                          cfg.detection_starting_dist_px, M)
-    return _seed_from_starts(ctx, starts, obs_xy, obs_mask, M)
+    if ctx.mesh is None:
+        starts = _start_sweep(ctx, obs_xy, start_mask,
+                              cfg.detection_starting_dist_px, M)
+        return _seed_from_starts(ctx, starts, obs_xy, obs_mask, M)
+    from edgegraph3d_tpu_torch.parallel import sharded
+    nd = ctx.n_shards
+    pad = -len(obs_xy) % nd
+    ox, om, sm = (torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
+                  for a in (obs_xy, obs_mask, start_mask))
+    starts, n_starts = sharded.sharded_start_sweep(ctx, ox, sm)
+    seeds, n = sharded.sharded_seed_from_starts(ctx, starts, n_starts, ox,
+                                                om)
+    seeds["ridx"] = seeds["ridx"] + torch.repeat_interleave(
+        torch.arange(nd, device=n.device) * (len(ox) // nd), n)
+    return seeds
+
+
+def follow_bidirectional(ctx: MatchingContext, seeds):
+    """following.follow_seeds_bidirectional of a SeedTuple against ctx,
+    its seed axis sharded over ctx.mesh when there is one; returns (fwd,
+    bwd) in seed order."""
+    cfg = ctx.config
+    if ctx.mesh is not None:
+        from edgegraph3d_tpu_torch.parallel import sharded
+        fwd, bwd, _ = sharded.sharded_follow_bidirectional(
+            ctx, seeds, cfg.max_follow_steps)
+    else:
+        fwd, bwd, _ = following.follow_seeds_bidirectional(
+            seeds, ctx.plg_coords, ctx.plg_length, ctx.P_mats, ctx.F_table,
+            cfg, cfg.max_follow_steps)
+    return fwd, bwd
 
 
 def compute_and_follow_seeds(sfmd: SfMData, ctx: MatchingContext,
@@ -346,9 +462,7 @@ def compute_and_follow_seeds(sfmd: SfMData, ctx: MatchingContext,
         if n_seeds == 0:
             continue
         st = _seed_tuple(seeds)
-        fwd, bwd, _ = following.follow_seeds_bidirectional(
-            st, ctx.plg_coords, ctx.plg_length, ctx.P_mats, ctx.F_table, cfg,
-            cfg.max_follow_steps)
+        fwd, bwd = follow_bidirectional(ctx, st)
         rows, meta = following.pack_follow_outputs(
             fwd, bwd, st.valid, cfg.new_point_min_steps)
         round0.append((seed_lo, _seeds_to_host(seeds, lo),
@@ -399,12 +513,13 @@ def _resolve_claims(ctx: MatchingContext, manager, *args,
                     skip_start_check: bool = False):
     """Dispatch a seed sweep's claiming to config.claiming_backend: the
     host-sequential MatchesManager pass, or the device fixpoint
-    (matching/claiming_device.py) on ctx.device."""
+    (matching/claiming_device.py) on ctx.device, its seed axis sharded
+    over ctx.mesh when there is one."""
     if ctx.config.claiming_backend == "device":
         from edgegraph3d_tpu_torch.matching import claiming_device
         return claiming_device.apply_device_claiming(
             manager, *args, skip_start_check=skip_start_check,
-            device=ctx.device)
+            device=ctx.device, mesh=ctx.mesh)
     return manager.resolve_and_claim(
         *args, skip_start_check=skip_start_check)
 
@@ -431,7 +546,8 @@ def sweep_seeds(seeds_np: dict | None, seed_ref: np.ndarray | None,
     chain points.  Chains that hit max_follow_steps continue from their
     final position in up to `max_continuation_rounds` direction-pinned
     rounds.  With `precomputed` (from compute_and_follow_seeds) round 0's
-    follows are already done.
+    follows are already done.  On a mesh (ctx.mesh) every follow is
+    sharded over it (parallel/sharded.py).
 
     Returns (X, obs3, cams3, refs, seed_ids, orders) or None."""
     cfg = ctx.config
@@ -456,9 +572,12 @@ def sweep_seeds(seeds_np: dict | None, seed_ref: np.ndarray | None,
         tens["X"] = tens["X"].to(torch.float32)
         seeds = _seed_tuple(tens)
         if fixed_perm is None:
-            fwd, bwd, _ = following.follow_seeds_bidirectional(
-                seeds, ctx.plg_coords, ctx.plg_length, ctx.P_mats,
-                ctx.F_table, cfg, cfg.max_follow_steps)
+            fwd, bwd = follow_bidirectional(ctx, seeds)
+        elif ctx.mesh is not None:
+            from edgegraph3d_tpu_torch.parallel import sharded
+            fwd = sharded.sharded_follow_fixed(
+                ctx, seeds, cfg.max_follow_steps, fixed_perm, fixed_dirs)
+            bwd = following.dead_follow_result(fwd, seeds)
         else:
             fwd = following.follow_seeds(
                 seeds, ctx.plg_coords, ctx.plg_length, ctx.P_mats,
@@ -642,8 +761,11 @@ def expand_and_assemble(ctx: MatchingContext, X, obs3, cams3, refs,
                         chain_chunk: int | None = None) -> EdgePoints:
     """Chain-aware expansion of every swept chain to all other views
     with GN re-validation (matching/expansion.py), then EdgePoints
-    assembly.  Point coordinates take the per-view re-refined values."""
+    assembly.  Point coordinates take the per-view re-refined values.
+    On a mesh each chunk's chains are sharded over it
+    (sharded_expand_compact)."""
     from edgegraph3d_tpu_torch.matching import expansion
+    from edgegraph3d_tpu_torch.parallel import sharded
 
     V = ctx.P_mats.shape[0]
     Np = len(X)
@@ -654,7 +776,12 @@ def expand_and_assemble(ctx: MatchingContext, X, obs3, cams3, refs,
     X_out = np.asarray(X, np.float64).copy()
     for rows, args, extent in chain_chunks(ctx, X, obs3, cams3, seed_ids,
                                            orders, chain_t, chain_chunk):
-        Xr, oxy, ook = expansion.expand_chains_compact(*args, extent=extent)
+        if ctx.mesh is None:
+            Xr, oxy, ook = expansion.expand_chains_compact(*args,
+                                                           extent=extent)
+        else:
+            Xr, oxy, ook = sharded.sharded_expand_compact(ctx, *args[5:],
+                                                          extent=extent)
         X_out[rows] = Xr.cpu().numpy()
         obs_xy[rows] = oxy.cpu().numpy()
         obs_mask[rows] = ook.cpu().numpy()

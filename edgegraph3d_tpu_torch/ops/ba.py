@@ -264,15 +264,16 @@ def _ba_blocks_launch(state: BAState, obs_cam, obs_xy, obs_mask,
     V = K.shape[0]
     N, O = obs_cam.shape
     place = kernels.place("ba_blocks", ba_table_bytes(V), X.device)
-    rc = kernels.lib().eg3d_ba_blocks(
-        K.data_ptr(), R.data_ptr(), t.data_ptr(), V, X.data_ptr(),
-        obs_cam.data_ptr(), obs_xy.data_ptr(), obs_mask.data_ptr(), N, O,
-        float(damping), index.slot.data_ptr(), index.start.data_ptr(),
-        index.first.data_ptr(), index.max_count, partial.shape[1], place,
-        out.Hxx_inv.data_ptr(), out.gx.data_ptr(), out.B.data_ptr(),
-        out.A.data_ptr(), partial.data_ptr(), out.Hcc.data_ptr(),
-        out.gc.data_ptr(), out.rhs.data_ptr(), out.resid_sq.data_ptr(),
-        out.n_obs.data_ptr(), kernels.stream_of(X))
+    with kernels.on_device(X):
+        rc = kernels.lib().eg3d_ba_blocks(
+            K.data_ptr(), R.data_ptr(), t.data_ptr(), V, X.data_ptr(),
+            obs_cam.data_ptr(), obs_xy.data_ptr(), obs_mask.data_ptr(), N, O,
+            float(damping), index.slot.data_ptr(), index.start.data_ptr(),
+            index.first.data_ptr(), index.max_count, partial.shape[1], place,
+            out.Hxx_inv.data_ptr(), out.gx.data_ptr(), out.B.data_ptr(),
+            out.A.data_ptr(), partial.data_ptr(), out.Hcc.data_ptr(),
+            out.gc.data_ptr(), out.rhs.data_ptr(), out.resid_sq.data_ptr(),
+            out.n_obs.data_ptr(), kernels.stream_of(X))
     kernels.check(rc, "ba_blocks")
 
 
@@ -349,18 +350,16 @@ def ba_schur_local(state: BAState, obs_cam, obs_xy, obs_mask,
     return schur_complement(blocks), blocks
 
 
-def ba_apply(state: BAState, S: torch.Tensor, blocks: BABlocks,
-             damping: float = 1e-4, fix_first_camera: bool = True):
-    """Solve the camera system and update the state.  The 6V system is
-    ill-conditioned in f32 (rotation blocks ~ (f X)^2 against translation
-    blocks ~ f^2): relative damping, camera 0 clamped as the gauge and a
-    Jacobi preconditioner, as in the JAX package.  Returns
-    (new state, dc [V,6], dx [N,3])."""
-    V = state.K.shape[0]
-    N = state.X.shape[0]
-    n = 6 * V
+def solve_cameras(S: torch.Tensor, rhs: torch.Tensor, damping: float = 1e-4,
+                  fix_first_camera: bool = True) -> torch.Tensor:
+    """dc [V, 6] from the (reduced) Schur system S [6V, 6V] and rhs
+    [V, 6].  The 6V system is ill-conditioned in f32 (rotation blocks ~
+    (f X)^2 against translation blocks ~ f^2): relative damping, camera 0
+    clamped as the gauge and a Jacobi preconditioner, as in the JAX
+    package."""
+    n = S.shape[0]
     eye = torch.eye(n, dtype=S.dtype, device=S.device)
-    rhs = blocks.rhs.reshape(n)
+    rhs = rhs.reshape(n)
     S = S + (damping * torch.diagonal(S) + 1e-12) * eye
     if fix_first_camera:
         free = torch.arange(n, device=S.device) >= 6
@@ -368,17 +367,33 @@ def ba_apply(state: BAState, S: torch.Tensor, blocks: BABlocks,
         rhs = torch.where(free, rhs, 0.0)
     precond = 1.0 / torch.sqrt(torch.clamp_min(torch.diagonal(S), 1e-12))
     S_p = S * precond[:, None] * precond[None, :]
-    dc = (torch.linalg.solve(S_p, rhs * precond) * precond).reshape(V, 6)
+    return (torch.linalg.solve(S_p, rhs * precond) * precond).reshape(-1, 6)
 
-    # point updates: dx = Hxx^-1 (gx - Hxc dc)
+
+def point_updates(blocks: BABlocks, dc: torch.Tensor) -> torch.Tensor:
+    """dx [N, 3] = Hxx^-1 (gx - Hxc dc) for the points of `blocks`."""
+    N = blocks.gx.shape[0]
+    n = dc.numel()
     corr = torch.matmul(blocks.B.reshape(3 * N, n),
                         dc.reshape(n)).reshape(N, 3)
-    dx = torch.matmul(blocks.Hxx_inv, (blocks.gx - corr)[..., None])[..., 0]
+    return torch.matmul(blocks.Hxx_inv, (blocks.gx - corr)[..., None])[..., 0]
 
-    # p' = exp(w)(R X + t) + u  ->  R' = exp(w) R, t' = exp(w) t + u
+
+def camera_updates(state: BAState, dc: torch.Tensor):
+    """(R', t'): p' = exp(w)(R X + t) + u -> R' = exp(w) R,
+    t' = exp(w) t + u."""
     dR = exp_so3(dc[:, :3])
-    R_new = dR @ state.R
-    t_new = (dR @ state.t[..., None])[..., 0] + dc[:, 3:]
+    return dR @ state.R, (dR @ state.t[..., None])[..., 0] + dc[:, 3:]
+
+
+def ba_apply(state: BAState, S: torch.Tensor, blocks: BABlocks,
+             damping: float = 1e-4, fix_first_camera: bool = True):
+    """Solve the camera system and update the state (solve_cameras,
+    point_updates, camera_updates).  Returns (new state, dc [V,6],
+    dx [N,3])."""
+    dc = solve_cameras(S, blocks.rhs, damping, fix_first_camera)
+    dx = point_updates(blocks, dc)
+    R_new, t_new = camera_updates(state, dc)
     return BAState(K=state.K, R=R_new, t=t_new, X=state.X + dx), dc, dx
 
 

@@ -38,10 +38,11 @@ def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     out = torch.empty((S, W), dtype=torch.float32, device=table.device)
     if S == 0:
         return out
-    rc = kernels.lib().eg3d_gather_rows(
-        table.data_ptr(), R, W, rows.data_ptr(),
-        int(rows.dtype == torch.int64), S, out.data_ptr(),
-        kernels.stream_of(table))
+    with kernels.on_device(table):
+        rc = kernels.lib().eg3d_gather_rows(
+            table.data_ptr(), R, W, rows.data_ptr(),
+            int(rows.dtype == torch.int64), S, out.data_ptr(),
+            kernels.stream_of(table))
     kernels.check(rc, "gather_rows")
     kernels.LAUNCHES["gather_rows"] += 1
     return out

@@ -223,11 +223,12 @@ def triangulate_gn(P_mats: torch.Tensor, cams: torch.Tensor,
         return X, mse, valid
     place = 0 if O == 3 else kernels.place(
         "triangulate_gn", gn_table_bytes(V), dev)
-    rc = kernels.lib().eg3d_triangulate_gn(
-        P_mats.data_ptr(), V, cams.data_ptr(), xy.data_ptr(),
-        mask.data_ptr(), N, O, kernels.ptr(X0), max_iters, epsilon,
-        accept_mse, det_min, place, X.data_ptr(), mse.data_ptr(),
-        valid.data_ptr(), kernels.stream_of(xy))
+    with kernels.on_device(xy):
+        rc = kernels.lib().eg3d_triangulate_gn(
+            P_mats.data_ptr(), V, cams.data_ptr(), xy.data_ptr(),
+            mask.data_ptr(), N, O, kernels.ptr(X0), max_iters, epsilon,
+            accept_mse, det_min, place, X.data_ptr(), mse.data_ptr(),
+            valid.data_ptr(), kernels.stream_of(xy))
     kernels.check(rc, "triangulate_gn")
     kernels.LAUNCHES["triangulate_gn"] += 1
     return X, mse, valid

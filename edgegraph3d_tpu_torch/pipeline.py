@@ -17,9 +17,12 @@ Port of edgegraph3d_tpu/pipeline.py:
        detection images run kernels K1 and K2)
 
 `run_pipeline` and `edge_matching` keep the reference signatures
-(default stages=(1, 2, 3)); mesh sharding is not ported yet and raises
-NotImplementedError rather than being skipped.  `device` defaults to
-"cuda" and never falls back to the CPU on its own.
+(default stages=(1, 2, 3)).  `device` defaults to "cuda" and never falls
+back to the CPU on its own.  With `mesh` (parallel/mesh.py, one process,
+or parallel/distributed.global_mesh across processes) the sweeps shard
+their work-item axis and joint BA its points over the mesh
+(parallel/sharded.py); the unsharded device work runs on the mesh's
+first device, and the result equals the single-device run's.
 """
 
 from __future__ import annotations
@@ -39,8 +42,6 @@ from edgegraph3d_tpu_torch.filtering.outliers import filter_sfm_data
 from edgegraph3d_tpu_torch.io.images import load_edge_images
 from edgegraph3d_tpu_torch.matching import refpoints as refpoints_mod
 from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
-
-_NOT_PORTED = "is not ported to the torch package yet (ROADMAP queue A item {})"
 
 
 @dataclass
@@ -127,7 +128,9 @@ def reconstruct_all_stages(sfmd, ctx, stats: PipelineStats,
     manager (stage 1 similarity, stage 2 closeness, stage 3 refpoints,
     each skipping intervals claimed by earlier stages), then expansion
     and chain extension.  A `debug` dict receives what the debug images
-    draw: groups1, groups2, manager and edge_points."""
+    draw: groups1, groups2, manager and edge_points.  On a mesh
+    (ctx.mesh) the same stages shard their seeding, following and
+    expansion over it."""
     from edgegraph3d_tpu_torch.matching import matches as matches_mod
     from edgegraph3d_tpu_torch.matching import polyline_stages
 
@@ -192,36 +195,51 @@ def reconstruct_all_stages(sfmd, ctx, stats: PipelineStats,
 
 
 def joint_ba_refine(sfmd: sfm_io.SfMData, n_steps: int,
-                    damping: float = 1e-4, device="cuda"):
+                    damping: float = 1e-4, device="cuda", mesh=None):
     """Joint Schur-complement LM over the (augmented) scene: camera
     poses AND all 3D points free, intrinsics fixed, camera 0
     gauge-fixed (ops/ba.py; kernel K8 on the card).  Observations are
     dense, one slot per view (O = V, cam = arange(V)).  The JAX
     package's pow2 padding of the point axis (a compile-cache measure)
-    is dropped: padded rows would add exact zeros to S and rhs.
+    is dropped: padded rows would add exact zeros to S and rhs.  With
+    `mesh`, the point axis is padded to a multiple of its shard count
+    (rows with no observation) and the steps run sharded
+    (sharded.distributed_ba); the rest runs on the mesh's first device.
 
     Returns (refined SfMData, mse_before, mse_after) in px^2, with R and
     t in float64 and the centers recomputed."""
     import dataclasses
 
     from edgegraph3d_tpu_torch.ops import ba as ba_ops
+    from edgegraph3d_tpu_torch.parallel.mesh import pad_to_multiple
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     N, V = sfmd.n_points, sfmd.n_cameras
     if N == 0 or n_steps <= 0:
         return sfmd, None, None
     obs_xy, obs_mask = refpoints_mod.dense_observations(sfmd)
+    points = sfmd.points
+    if mesh is not None:
+        obs_xy, obs_mask, points = (pad_to_multiple(a, mesh.size)
+                                    for a in (obs_xy, obs_mask, points))
+    Np = len(points)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    cam = torch.arange(V, dtype=torch.int32, device=dev).repeat(N, 1)
+    cam = torch.arange(V, dtype=torch.int32, device=dev).repeat(Np, 1)
     xy = f32(obs_xy)
     mask = torch.as_tensor(obs_mask, device=dev)
     state = ba_ops.BAState(K=f32(sfmd.K), R=f32(sfmd.R), t=f32(sfmd.t),
-                           X=f32(sfmd.points))
-    st, mses = ba_ops.ba_run(state, cam, xy, mask, n_steps, damping)
+                           X=f32(points))
+    if mesh is None:
+        st, mses = ba_ops.ba_run(state, cam, xy, mask, n_steps, damping)
+    else:
+        from edgegraph3d_tpu_torch.parallel import sharded
+        st, mses = sharded.distributed_ba(mesh, state, cam, xy, mask,
+                                          n_steps, damping)
     mse_after = ba_ops.ba_mse(st, cam, xy, mask)
     # one read back to the host for everything
-    flat = torch.cat([st.X.reshape(-1), st.R.reshape(-1), st.t.reshape(-1),
-                      mses, mse_after.reshape(1)]).cpu().numpy()
+    flat = torch.cat([st.X[:N].reshape(-1), st.R.reshape(-1),
+                      st.t.reshape(-1), mses,
+                      mse_after.reshape(1)]).cpu().numpy()
     o1, o2, o3 = N * 3, N * 3 + V * 9, N * 3 + V * 12
     R_new = flat[o1:o2].reshape(V, 3, 3).astype(np.float64)
     t_new = flat[o2:o3].reshape(V, 3).astype(np.float64)
@@ -245,10 +263,15 @@ def run_pipeline(
 ) -> sfm_io.SfMData:
     """In-memory pipeline: returns the filtered, edge-augmented scene.
     With `debug_images` and a working folder, the `-i` debug-image suite
-    is written into the folder (utils/drawing.save_debug_images)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding " + _NOT_PORTED.format(10))
+    is written into the folder (utils/drawing.save_debug_images).  With
+    `mesh` (parallel/mesh.Mesh; its devices of `device`'s type), the
+    sweeps and joint BA are sharded over it and the unsharded device
+    work runs on its first device."""
     dev = resolve_device(device)
+    if mesh is not None:
+        if mesh.device.type != dev.type:
+            raise ValueError(f"mesh on {mesh.device} but device={device!r}")
+        dev = mesh.device
     stats = stats if stats is not None else PipelineStats()
 
     t0 = time.time()
@@ -272,7 +295,8 @@ def run_pipeline(
               " budget — raise it to keep full recall", file=sys.stderr)
 
     t0 = time.time()
-    ctx = refpoints_mod.build_context(sfmd, stack, config, device=dev)
+    ctx = refpoints_mod.build_context(sfmd, stack, config, device=dev,
+                                      mesh=mesh)
     stats.log("context(F+grids)", t0)
 
     debug: dict | None = {} if debug_images else None
@@ -310,7 +334,8 @@ def run_pipeline(
         # the outlier filter below
         t0 = time.time()
         augmented, mse0, mse1 = joint_ba_refine(
-            augmented, config.ba_steps, config.ba_damping, device=dev)
+            augmented, config.ba_steps, config.ba_damping, device=dev,
+            mesh=mesh)
         stats.log("joint_ba", t0, config.ba_steps)
         if mse0 is not None:
             stats.metrics["ba_mse_before"] = mse0

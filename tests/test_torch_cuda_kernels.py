@@ -1207,3 +1207,58 @@ def test_optional_paths_on_gpu(cuda):
         lines = x1 @ F[i, j].numpy().T
         d = np.abs((lines * x2).sum(1)) / np.linalg.norm(lines[:, :2], axis=1)
         assert np.median(d) < 0.5, (i, j)
+
+
+@pytest.fixture(scope="module")
+def second_card(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs: a launch on cuda:1 while cuda:0 "
+                    "is current")
+    return torch.device("cuda", 1)
+
+
+def test_kernels_launch_on_their_tensors_card(scene, chains, second_card):
+    """K1, K3 and K7 on tensors of cuda:1 while cuda:0 is the current
+    device (kernels.on_device): each result equals the cuda:0 launch's,
+    and the current device is left as it was."""
+    sfmd, ctx = scene
+    other = ctx.on(second_card)
+    torch.cuda.set_device(0)
+    view, pts = _queries(ctx, 4099, 5)
+    ref = detection.grid_topm_query(ctx.grids, view, pts, ctx.cell, 10.0, 4)
+    got = detection.grid_topm_query(other.grids, view.to(second_card),
+                                    pts.to(second_card), ctx.cell, 10.0, 4)
+    assert got.pl_id.device == second_card
+    _assert_same_candidates(
+        detection.Candidates(*(a.to(ctx.device) for a in got)), ref)
+    rng = np.random.default_rng(3)
+    X, cams, xy, mask = _gn_problem(sfmd, sfmd.P, 5000, 3, rng)
+    gn = lambda c, d: triangulation.triangulate_gn(
+        c.P_mats, torch.as_tensor(cams, device=d),
+        torch.as_tensor(xy, device=d), torch.as_tensor(mask, device=d))
+    for a, b in zip(gn(other, second_card), gn(ctx, ctx.device)):
+        assert torch.equal(a.cpu(), b.cpu())
+    C, T, extent, tensors = chains
+    k7 = lambda c, d: expansion.expand_chains_compact(
+        c.plg_coords, c.grids, c.P_mats, c.F_table, c.cell,
+        *(a.to(d) for a in tensors), c.config, C, T, extent)
+    for a, b in zip(k7(other, second_card), k7(ctx, ctx.device)):
+        assert torch.equal(a.cpu(), b.cpu())
+    assert torch.cuda.current_device() == 0
+
+
+def test_stage3_on_a_mesh_of_cards_matches_one_card(scene, second_card):
+    """Stage 3 on a mesh over every card equals the one-card run."""
+    from edgegraph3d_tpu_torch.parallel.mesh import make_mesh
+    sfmd, ctx = scene
+    one = refpoints.reconstruct_from_refpoints(sfmd, ctx,
+                                               max_starting_views=2)
+    mctx = refpoints.build_context(
+        sfmd, extract_plgs(synthetic.make_scene(
+            n_cams=8, n_refpoints_per_curve=16, width=320, height_px=240,
+            focal=400.0, seed=3)[1], CFG), CFG, mesh=make_mesh())
+    pts = refpoints.reconstruct_from_refpoints(sfmd, mctx,
+                                               max_starting_views=2)
+    assert len(pts.X) == len(one.X) > 0
+    np.testing.assert_array_equal(pts.X, one.X)
+    np.testing.assert_array_equal(pts.obs_mask, one.obs_mask)

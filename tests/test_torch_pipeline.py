@@ -85,18 +85,6 @@ def test_default_stages_match_jax(cube):
         assert name in ts.timings
 
 
-@pytest.mark.parametrize("option", ["mesh"])
-def test_unported_options_raise(cube, option):
-    """Stages 1 and 2, joint BA, device claiming, the LMedS table and the
-    debug images run now; mesh sharding still raises, naming its
-    ROADMAP item."""
-    sfmd, imgs, _ = cube
-    cfg = TConfig().replace(**KW)
-    kw = {"mesh": dict(config=cfg, mesh=object())}[option]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tp.run_pipeline(sfmd, imgs, device="cpu", **kw)
-
-
 def test_debug_images_write_the_jax_suite(cube, tmp_path):
     """run_pipeline(debug_images=True) with a working folder writes the
     JAX package's debug-image files (the same names), every family of
@@ -192,8 +180,9 @@ def test_working_folder_outputs(cube, tmp_path):
 
 def test_port_never_imports_jax(tmp_path):
     """Run the port's pipeline, default stages with the optional paths
-    (joint BA, device claiming, the LMedS table), in a fresh interpreter
-    where importing jax (or the JAX package) fails."""
+    (joint BA, device claiming, the LMedS table), alone and on a 2-shard
+    CPU mesh (parallel/), in a fresh interpreter where importing jax (or
+    the JAX package) fails."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -206,6 +195,7 @@ def test_port_never_imports_jax(tmp_path):
         import edgegraph3d_tpu_torch.cli.filter
         import edgegraph3d_tpu_torch.ops.ba
         import edgegraph3d_tpu_torch.matching.claiming_device
+        from edgegraph3d_tpu_torch.parallel import distributed, mesh, sharded
         sfmd, imgs, curves = synthetic.make_cube_scene(
             n_cams=6, n_refpoints_per_edge=4, width=320, height_px=240,
             focal=400.0, seed=7)
@@ -216,6 +206,10 @@ def test_port_never_imports_jax(tmp_path):
                                         fmat_source="lmeds")
         out = run_pipeline(sfmd, imgs, cfg, max_starting_views=2,
                            device="cpu")
+        two = run_pipeline(sfmd, imgs, cfg, max_starting_views=2,
+                           device="cpu",
+                           mesh=mesh.make_mesh(devices=["cpu"] * 2))
+        assert two.n_points == out.n_points
         assert not any(m == "jax" or m.startswith("jax.")
                        for m, v in sys.modules.items() if v is not None)
         print("POINTS", out.n_points - sfmd.n_points)
