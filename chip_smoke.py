@@ -134,12 +134,34 @@ its final `ok` line:
      one-process runs of (a) bit for bit, the BA with (a)'s mesh within
      MESH_BA_TOL.  (c) The same with an NCCL group of one process per
      card.  The phase's wall is logged with the card's name and power
-     limit.
+     limit;
+  9. float64 on stage 3 (EdgeGraphConfig(dtype="float64"), which runs
+     stage 3 only), after phase 8.  (a) The full scene's f64 context
+     (P, F and the polylines in f64, the grids in f32): each f64
+     instantiation against its plain twin in f64 on the card at phase
+     2's shapes, 0 decision mismatches and coordinates within
+     F64_COORD_TOL: K1 with f64 points, K2 with f64 lines over the f32
+     starts, K3's O = 3 body (cold) and its general body (the padded
+     loop, O = 49, warm), K4's two launches of one follow_seeds call, K5
+     on the f64 polyline table (bit-equal to table[rows]) and K7 over
+     the full scene's f64 stage-3 expansion (bit-equal); each logged
+     with its kernel / plain ms and its f64 bound.  (b) The full scene
+     through run_pipeline(stages=(3,)) in f64 and in f32, each under the
+     quality gates: every f64 instantiation launched in the f64 run,
+     and the f64 edge-point count, its view-list flips against the f32
+     run (points matched by position) and both walls logged; K7 in
+     "epipolar" mode on the same chains in (a), its f64 table (61,152 B)
+     opted in to shared memory above 48 KiB.  (c)
+     cube8 stage 3 in f64 on MESH_SHARDS shards of cuda:0, bit-equal to
+     the single-device f64 run.  The JSON line gains one entry per f64
+     instantiation, its launches from (b), its mesh_launches from (c).
 
 Each kernel's bound is the larger of the bytes it must move (each input
-read once, each output written once) over 3.35 TB/s and its f32
-operations over 67 TFLOP/s (an H100 SXM's published peaks), both counted
-from this run's inputs with the per-item costs in FLOPS below.
+read once, each output written once) over 3.35 TB/s and its operations
+over the peak rate of their type, 67 TFLOP/s in f32 and 34 TFLOP/s in
+f64 (an H100 SXM's published peaks outside the tensor cores), both
+counted from this run's inputs with the per-item costs in FLOPS below
+(the same counts for an f64 operation as for an f32 one).
 
 Prints one JSON line of per-kernel results and, as its last line,
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -187,6 +209,7 @@ together against one after another (`time_shard_steps`).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -204,6 +227,7 @@ DECISION_TOL = 1e-4          # fraction of rows whose decisions may differ
 COORD_TOL_PX = 1e-3
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32, outside the tensor cores
+PEAK_F64_FLOPS = 34e12       # H100 SXM f64, outside the tensor cores
 #: f32 operations per item of work, counted from the kernels' arithmetic:
 #: a grid entry tested by K1 / K2, a GN iteration (per observation and per
 #: solve), a DLT (per observation and the 4x4 solve), a walk step of K4,
@@ -321,11 +345,12 @@ def _cand_diff(a, b):
     return int(bad.sum()), err, int(a.valid.shape[0])
 
 
-def bound(n_bytes: float, flops: float):
+def bound(n_bytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    f32 operations over the f32 peak."""
+    the operations over the peak rate of their type (f32 by default;
+    PEAK_F64_FLOPS for the f64 bodies)."""
     t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_f = flops / PEAK_F32_FLOPS * 1e3
+    t_f = flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -380,8 +405,8 @@ def gn_iterations(P_mats, cams, xy, mask, X0, max_iters, epsilon, accept,
 
 
 def gn_flops(mask, iters, cold):
-    """f32 operations of GN (and DLT when cold) over the live
-    observations of every row, at `iters` mean iterations."""
+    """Operations of GN (and DLT when cold) over the live observations
+    of every row, at `iters` mean iterations."""
     live = float(mask.sum())
     rows = mask.shape[0]
     f = iters * (FLOPS["gn_obs"] * live + FLOPS["gn_iter"] * rows)
@@ -391,14 +416,15 @@ def gn_flops(mask, iters, cold):
 
 
 def record_into(results, name, mism, rows, err, ms, plain_ms, err_tol,
-                gated=None, exact=False, work=(0.0, 0.0), library_ms=None):
+                gated=None, exact=False, work=(0.0, 0.0), library_ms=None,
+                peak=PEAK_F32_FLOPS):
     """Log and gate one kernel's comparison.  `gated` is the error held
     against err_tol (default: err); `exact` allows no decision mismatch
     at all (else DECISION_TOL of the rows); `mism` None: the kernel's
     decisions are not among its outputs, and none is compared.  `work`
-    is (bytes, f32 operations) for the bound."""
+    is (bytes, operations) for the bound, the operations at `peak`."""
     gated = err if gated is None else gated
-    bound_ms, bound_by = bound(*work)
+    bound_ms, bound_by = bound(*work, peak=peak)
     log(f"  {name}: rows={rows} decision_mismatches="
         f"{'not compared' if mism is None else mism} "
         f"max_abs_err={err:.3g} gated_err={gated:.3g} kernel_ms={ms:.4f} "
@@ -761,10 +787,11 @@ def follow_diff(got, ref):
     return int(bad.sum()), err, top(d[ref.valid & ok[:, None]])
 
 
-def follow_work(ctx, args, T, walk, gn, ref):
-    """(bytes, f32 operations) of one K4 call from this run's counts, and
+def follow_work(ctx, args, T, walk, gn, ref, fs=4):
+    """(bytes, operations) of one K4 call from this run's counts, and
     the counts: the walk steps tried, the GN runs (one per walked step up
-    to the cut) and their mean iterations."""
+    to the cut) and their mean iterations.  `fs` is the bytes of a float
+    (4, or 8 for the f64 body)."""
     import torch
 
     from edgegraph3d_tpu_torch.matching import following
@@ -791,9 +818,10 @@ def follow_work(ctx, args, T, walk, gn, ref):
         flops += n_gn * (3 * FLOPS["dlt_obs"] + FLOPS["dlt_solve"])
     V, Pn, L, _ = coords.shape
     polys = torch.unique(cams.long() * Pn + pl.long()).numel()
-    n_bytes = (polys * (8 * L + 4) + S * (85 + 28 + (12 if X0 is not None
-                                                       else 0))
-               + S * T * 61 + V * 48 + V * V * 36)
+    n_bytes = (polys * (2 * L * fs + 4)
+               + S * (49 + 9 * fs + 16 + 3 * fs
+                      + (3 * fs if X0 is not None else 0))
+               + S * T * (13 + 12 * fs) + V * 12 * fs + V * V * 9 * fs)
     return (n_bytes, flops), dict(walk_steps=tried, gn_runs=n_gn,
                                   mean_gn_iterations=round(its, 4),
                                   accepted=int(ref.valid.sum()))
@@ -836,7 +864,7 @@ def compare_stage12_kernels(ctx, sfmd, results):
             fail(f"gather_rows {label}: the launch alone differs")
         dev_ms = device_ms(launch, 20, "gather_rows")
         lib_dev_ms = device_ms(lambda: table[rows], 20, "")
-        n_bytes = rows.numel() * (8 * table.shape[1] + rows.element_size())
+        n_bytes = gather_bytes(table, rows)
         log(f"  gather_rows {label}: table={tuple(table.shape)} "
             f"rows={len(rows)} ({rows.dtype}) mismatched_rows={bad} "
             f"max_abs_err={err:.3g} calls_per_event_pair={reps} "
@@ -971,6 +999,15 @@ def compare_stage12_kernels(ctx, sfmd, results):
     return groups
 
 
+def gather_bytes(table, rows) -> int:
+    """Bytes K5 must move: each distinct row it reads once, the indices,
+    and every output row written once."""
+    import torch
+    row = table.shape[1] * table.element_size()
+    return (torch.unique(rows).numel() * row
+            + rows.numel() * (rows.element_size() + row))
+
+
 def tile_histogram(extent):
     """Chains per K7 tile bucket (<= 8, <= 16, <= 32, <= 64 slots)."""
     import numpy as np
@@ -1027,7 +1064,7 @@ def bucket_pieces(args, extent):
     return pieces
 
 
-def check_expansion(ctx, label, chunks):
+def check_expansion(ctx, label, chunks, peak=PEAK_F32_FLOPS):
     """K7 against its plain version over every chunk of one expansion,
     laid out as refpoints.expand_and_assemble lays them out
     (refpoints.chain_chunks): decisions, out_xy and X bit-equal.  The
@@ -1098,8 +1135,9 @@ def check_expansion(ctx, label, chunks):
     live = sum(count["gn_mask"])
     gn_f = its * (FLOPS["gn_obs"] * live + FLOPS["gn_iter"] * count["gn_rows"])
     cells = torch.unique(torch.cat(count["cells"])).numel()
-    n_bytes = (K * (12 + 24) + C * (12 + 5 * T) + len(chunks) * V * 48
-               + cells * Kc * 24 + K * 12 + K * V * 9)
+    fs = ctx.P_mats.element_size()
+    n_bytes = (K * 9 * fs + C * (12 + 5 * T) + len(chunks) * V * 12 * fs
+               + cells * Kc * 24 + K * 3 * fs + K * V * (2 * fs + 1))
     flops = FLOPS["grid_entry"] * count["entries"] + gn_f
     hist = np.sum([tile_histogram(e) for _, e in chunks], 0).tolist()
     log(f"  expand_chains {label}: {C} chains in {len(chunks)} chunks, {K} "
@@ -1110,7 +1148,7 @@ def check_expansion(ctx, label, chunks):
         f"max_abs_err={err:.3g} kernel_ms one launch per chunk={ms:.4f} "
         f"one per bucket ({sum(map(len, pieces))} launches)="
         f"{split_ms:.4f} plain_ms={pms:.4f} bytes={n_bytes:.6g} "
-        f"flops={flops:.6g} bound_ms={bound(n_bytes, flops)[0]:.6f}")
+        f"flops={flops:.6g} bound_ms={bound(n_bytes, flops, peak)[0]:.6f}")
     if not exact:
         fail(f"expand_chains {label}: not bit-equal to its plain version")
     return bad, K, err, ms, pms, (n_bytes, flops)
@@ -1381,6 +1419,9 @@ def _write_scene_files(root, sfmd, edges):
 #: each run_main_path call's output scene, by name (phase 8 holds the
 #: mesh runs against them)
 MAIN_OUTPUTS = {}
+#: per run_main_path run: launches per kernel and dtype, and the wall
+MAIN_DTYPE_LAUNCHES = {}
+MAIN_WALLS = {}
 
 
 def run_main_path(name, scene, max_starting_views, stages=(1, 2, 3),
@@ -1437,7 +1478,10 @@ def run_main_path(name, scene, max_starting_views, stages=(1, 2, 3),
                                mesh=mesh)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = kernels.launch_totals()
+        MAIN_DTYPE_LAUNCHES[name] = {k: dict(v) for k, v in
+                                     kernels.LAUNCHES.items()}
+        MAIN_WALLS[name] = wall
         expansion.expand_chains_compact = k7
         if via_files:
             with open(os.path.join(work, "stats.json")) as f:
@@ -1465,6 +1509,9 @@ def run_main_path(name, scene, max_starting_views, stages=(1, 2, 3),
     log(f"{name} stage counts: {json.dumps(counts)}")
     log(f"{name} quality: {json.dumps(qual)}")
     log(f"{name} launches: {json.dumps(launches)}")
+    if any(c["float64"] for c in MAIN_DTYPE_LAUNCHES[name].values()):
+        log(f"{name} float64 launches: " + json.dumps(
+            {k: c["float64"] for k, c in MAIN_DTYPE_LAUNCHES[name].items()}))
     if not via_files and "joint_ba" in counts:
         log(f"{name} joint BA: {json.dumps(stats.metrics)}")
     log(f"{name} K7 calls (chains, chains by tile bucket): {k7_calls}")
@@ -1672,7 +1719,7 @@ def check_joint_ba(aug, results, device="cuda"):
             torch.cuda.synchronize()
             walls.append(time.time() - t0)
             mses.append(float(mse))
-        launches = kernels.LAUNCHES["ba_blocks"]
+        launches = kernels.launch_totals()["ba_blocks"]
         after = float(ba.ba_mse(st, *obs))
         log(f"  joint BA {label}: mse per step {mses}, after {after}, "
             f"step walls_s {walls}, K8 launches {launches}, "
@@ -1996,13 +2043,13 @@ def run_debug_path(name, scene, root, config=None):
 
     def spanned(*a, **kw):
         torch.cuda.synchronize()
-        before = dict(kernels.LAUNCHES)
+        before = kernels.launch_totals()
         t0 = time.time()
         save(*a, **kw)
         torch.cuda.synchronize()
         span["wall_s"] = time.time() - t0
-        span["launches"] = {k: kernels.LAUNCHES[k] - before[k]
-                            for k in before}
+        after = kernels.launch_totals()
+        span["launches"] = {k: after[k] - before[k] for k in before}
 
     def timed_detect(*a, **kw):
         # its results are read back to the host inside, so the host
@@ -2027,7 +2074,7 @@ def run_debug_path(name, scene, root, config=None):
                           debug_images=True, device="cuda")
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = kernels.launch_totals()
     finally:
         drawing.save_debug_images = save
         drawing.detection_candidates = detect
@@ -2727,6 +2774,315 @@ def mesh_cards() -> int:
     return 0
 
 
+# ----------------------------------------------------------------------
+# phase 9: float64, stage 3 (EdgeGraphConfig(dtype="float64"))
+# ----------------------------------------------------------------------
+
+#: f64 coordinates: each double body against its plain twin in f64 on the
+#: card.  Both round every operation once in f64 (the walk's fused
+#: multiply-adds correctly rounded on both sides), so the differences
+#: expected are at the last bit (~1e-13 px at 1600 px); 1e-9 leaves room
+#: for a reordered sum and none for an f32 rounding (~1e-4 px here).
+F64_COORD_TOL = 1e-9
+
+
+def f64_name(k: str) -> str:
+    return f"{k} (float64)"
+
+
+def compare_kernels_f64(full, cfg, results):
+    """Phase 9(a): each f64 instantiation (K1, K2, K3 at O = 3 and in its
+    general body, K4, K5, K7) against its plain twin in f64, at phase 2's
+    full-scale shapes with the full scene's f64 context, 0 decision
+    mismatches allowed, timed with CUDA events and bounded at the f64
+    peak."""
+    import torch
+
+    from edgegraph3d_tpu_torch import kernels
+    from edgegraph3d_tpu_torch.matching import detection, following
+    from edgegraph3d_tpu_torch.matching import matches
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    from edgegraph3d_tpu_torch.ops import gather, triangulation
+    from edgegraph3d_tpu_torch.ops.geometry import epipolar_line
+    from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
+
+    sfmd = full[0]
+    cfg64 = cfg.replace(dtype="float64")
+    ctx = rp.build_context(sfmd, extract_plgs(full[1], cfg64), cfg64,
+                           device="cuda")
+    dev = ctx.device
+    M = cfg.max_candidates_per_view
+    obs_xy, obs_mask = rp.dense_observations(sfmd)
+    N, V = obs_mask.shape
+    Kc = ctx.grids.shape[3]
+    log(f"  f64 context: P {ctx.P_mats.dtype}, F {ctx.F_table.dtype}, "
+        f"polylines {ctx.plg_coords.dtype}, grids {ctx.grids.dtype}")
+
+    def record(name, *a, **kw):
+        record_into(results, f64_name(name), *a, exact=True,
+                    peak=PEAK_F64_FLOPS, **kw)
+
+    # K1 as chain extension launches it (M = 1, extension_reanchor_px):
+    # the f64 projections of every scene point through every f64 camera,
+    # (refpoint, view) rows.  They are not f32 values, so a body that
+    # rounded its query points to f32 would disagree with the twin.
+    ox = torch.as_tensor(obs_xy, device=dev)
+    view = torch.arange(V, dtype=torch.int32, device=dev).repeat(N)
+    X = torch.as_tensor(sfmd.points, dtype=torch.float64, device=dev)
+    pts = rp._project_pos(ctx.P_mats, X).reshape(N * V, 2).contiguous()
+    off_f32 = float((pts.float().double() != pts).any(1).double().mean())
+    if pts.dtype != torch.float64 or off_f32 < 0.9:
+        fail(f"grid_topm_query (float64): query points {pts.dtype}, "
+             f"{off_f32:.4f} of them off the f32 grid (want >= 0.9)")
+    k1 = dict(mism=0, rows=0, err=0.0, ms=0.0, pms=0.0)
+    for m, radius in ((1, cfg.extension_reanchor_px),
+                      (M, cfg.detection_starting_dist_px)):
+        args = (ctx.grids, view, pts, ctx.cell, radius, m)
+        got, ms = cuda_time(lambda: detection.grid_topm_query(
+            *args, view_cycle=True), 10)
+        ref, pms = cuda_time(lambda: detection._grid_topm_plain(*args), 1)
+        mism, err, rows = _cand_diff(got, ref)
+        log(f"  grid_topm_query (float64) M={m} radius={radius}: "
+            f"rows={rows} off_f32_grid={off_f32:.4f} "
+            f"decision_mismatches={mism} max_abs_err={err:.3g} "
+            f"kernel_ms={ms:.4f} plain_ms={pms:.4f}")
+        if m == 1:
+            # the row of the main path's shape; its hits feed K5 below
+            k1.update(mism=mism, rows=rows, err=err, ms=ms, pms=pms)
+            loc = got
+        elif mism or not err <= F64_COORD_TOL:
+            fail(f"grid_topm_query (float64) M={m}: {mism} decision "
+                 f"mismatches, max_abs_err {err} (tolerance "
+                 f"{F64_COORD_TOL})")
+    entries, cells = grid_work(ctx.grids, view, pts, ctx.cell, 1)
+    record("grid_topm_query", k1["mism"], k1["rows"], k1["err"], k1["ms"],
+           k1["pms"], F64_COORD_TOL,
+           work=(k1["rows"] * (20 + 41) + len(cells) * Kc * 24,
+                 FLOPS["grid_entry"] * entries))
+
+    # K2: f64 lines from the f64 F over the f32 starts and observations
+    lo, hi = 0, min(1024, N)
+    om = torch.as_tensor(obs_mask[lo:hi], device=dev)
+    oxc = ox[lo:hi]
+    starts = rp._start_sweep(ctx, oxc, om, cfg.detection_starting_dist_px, M)
+    K = len(starts["ridx"])
+    lines = epipolar_line(ctx.F_table[starts["vs"]],
+                          starts["xy"][:, None, :])
+    radius = torch.clamp_min(torch.clamp_max(starts["dist"] * 3.0, 30.0),
+                             3.0).repeat_interleave(V)
+    view2 = torch.arange(V, dtype=torch.int32, device=dev).repeat(K)
+    args2 = (ctx.grids, view2, oxc[starts["ridx"]].reshape(K * V, 2),
+             lines.reshape(K * V, 3), radius, ctx.cell, M)
+    if lines.dtype != torch.float64:
+        fail(f"f64 epipolar lines came out {lines.dtype}")
+    got, ms = cuda_time(lambda: detection.epipolar_topm_query(*args2), 5)
+    ref, pms = cuda_time(lambda: detection._epipolar_topm_plain(*args2), 1)
+    mism, err, rows = _cand_diff(got, ref)
+    entries, cells = grid_work(ctx.grids, view2, args2[2], ctx.cell, 2)
+    record("epipolar_topm_query", mism, rows, err, ms, pms, F64_COORD_TOL,
+           work=(rows * (8 + 24 + 8 + 4 + 41 * M) + len(cells) * Kc * 24,
+                 FLOPS["epipolar_entry"] * entries))
+
+    # K3: the O = 3 body cold and the general body (the padded loop) warm
+    k3 = dict(err=0.0, mism=0, rows=0, ms=0.0, pms=0.0, bytes=0.0,
+              flops=0.0)
+    for O, warm in ((3, False), (V, True)):
+        a, X0, iters, n = k3_inputs(ctx, sfmd, O, warm)
+        accept = cfg.match_gn_max_mse
+        (Xk, _, okk), ms = cuda_time(lambda: triangulation.triangulate_gn(
+            *a, X0=X0, max_iters=iters, accept_mse=accept), 5)
+        place = kernels.LAST_PLACEMENT.get("triangulate_gn") \
+            if O != 3 else "registers"
+        (Xp, _, okp), pms = cuda_time(
+            lambda: triangulation._triangulate_gn_plain(
+                *a, X0, iters, cfg.gn_epsilon, accept, 1e-5), 1)
+        both = okk & okp
+        its, warp_its = gn_iterations(*a, X0, iters, cfg.gn_epsilon, accept)
+        mask = a[3]
+        k3["bytes"] += V * 96 + n * O * 21 + (n * 24 if warm else 0) \
+            + n * 33
+        k3["flops"] += gn_flops(mask, its, cold=not warm)
+        # the general body's padded loop also runs the absent
+        # observations: work the function does not need, left out of
+        # the bound and logged apart
+        padded = 0.0
+        if O != 3:
+            padded = gn_flops(torch.ones_like(mask), its, cold=not warm) \
+                - gn_flops(mask, its, cold=not warm)
+        log(f"  triangulate_gn (float64) O={O} warm={warm} ({place}): "
+            f"rows={n} valid={int(okp.sum())} mean_iterations={its:.4f} "
+            f"padded_loop_extra_flops={padded:.6g} "
+            f"mean_per_warp_max_iterations={warp_its:.4f} "
+            f"decision_mismatches={int((okk != okp).sum())} "
+            f"kernel_ms={ms:.4f} plain_ms={pms:.4f}")
+        if both.any():
+            k3["err"] = max(k3["err"], float((Xk - Xp).abs()[both].max()))
+        for key, v in (("mism", int((okk != okp).sum())), ("rows", n),
+                       ("ms", ms), ("pms", pms)):
+            k3[key] += v
+        del a, X0, Xk, Xp, okk, okp
+    record("triangulate_gn", k3["mism"], k3["rows"], k3["err"], k3["ms"],
+           k3["pms"], F64_COORD_TOL, work=(k3["bytes"], k3["flops"]))
+
+    # K4: the chunk's seeds, both launches of one follow_seeds call
+    both, drive = follow_seed_tuples(ctx, starts, oxc, om, M)
+    k4 = dict(mism=0, lanes=0, err=0.0, ms=0.0, pms=0.0, bytes=0.0,
+              flops=0.0)
+    for mode, fargs in zip(("warm", "cold"),
+                           captured_follow_walks(ctx, both, drive)):
+        fa, T = fargs[:12], fargs[12]
+        got, ms = cuda_time(lambda: following.follow_walk(*fargs), 10)
+        walk, gn = following.follow_params(cfg, mode == "warm")
+        ref, pms = cuda_time(lambda: following._follow_plain(
+            *fa, T, *walk, *gn), 1)
+        mism, err, rel = follow_diff(got, ref)
+        xerr = float((got.X - ref.X).abs().max())
+        work, counts = follow_work(ctx, fa, T, walk, gn, ref, fs=8)
+        log(f"  follow_walk (float64) {mode}: lanes={len(fa[4])} T={T} "
+            f"decision_mismatches={mism} max_abs_err={err:.3g} "
+            f"X_max_abs_err={xerr:.3g} kernel_ms={ms:.4f} "
+            f"plain_ms={pms:.4f} {json.dumps(counts)}")
+        for key, v in (("mism", mism), ("lanes", len(fa[4])), ("ms", ms),
+                       ("pms", pms), ("bytes", work[0]),
+                       ("flops", work[1])):
+            k4[key] += v
+        k4["err"] = max(k4["err"], err, xerr)
+    record("follow_walk", k4["mism"], k4["lanes"], k4["err"], k4["ms"],
+           k4["pms"], F64_COORD_TOL, work=(k4["bytes"], k4["flops"]))
+
+    # K5: rows of the f64 polyline table at the chain-extension shape
+    P_ = ctx.plg_coords.shape[1]
+    L = ctx.plg_coords.shape[2]
+    rows_i = view.long() * P_ + loc.pl_id[:, 0].clamp_min(0).long()
+    table = ctx.plg_coords.reshape(V * P_, 2 * L)
+    got, ms = cuda_time(lambda: gather.gather_rows(table, rows_i), 200)
+    ref, pms = cuda_time(lambda: table[rows_i], 200)
+    bad = int((got != ref).any(1).sum())
+    n_bytes = gather_bytes(table, rows_i)
+    log(f"  gather_rows (float64): table={tuple(table.shape)} rows="
+        f"{len(rows_i)} mismatched_rows={bad} kernel_ms={ms:.4f} "
+        f"table[rows]_ms={pms:.4f}")
+    record("gather_rows", bad, len(rows_i), 0.0, ms, pms, 0.0,
+           work=(n_bytes, 0.0), library_ms=pms)
+    del table, loc, rows_i, got, ref
+
+    # K7: the whole expansion of the full scene's f64 stage-3 chains
+    t0 = time.time()
+    mgr = matches.MatchesManager(ctx.plg_length.cpu().numpy())
+    round0, _ = rp.compute_and_follow_seeds(sfmd, ctx)
+    X, obs3, cams3, refs, seed_ids, orders = rp.sweep_seeds(
+        None, None, ctx, mgr, precomputed=round0)
+    log(f"  expand_chains (float64): the full scene's {len(X)} f64 stage-3"
+        f" points ({time.time() - t0:.1f}s)")
+    mism, K, err, ms, pms, work = check_expansion(
+        ctx, "stage 3 (float64)", rp.chain_chunks(ctx, X, obs3, cams3,
+                                                  seed_ids, orders),
+        peak=PEAK_F64_FLOPS)
+    expect_k7_placement(ctx.config, V)
+    record("expand_chains", mism, K, err, ms, pms, F64_COORD_TOL, work=work)
+    # "epipolar" mode: its f64 table (1,248 V bytes, 61,152 B here) is
+    # the one that must opt in to shared memory above 48 KiB
+    ep = dataclasses.replace(ctx, config=ctx.config.replace(
+        expand_correspondence_mode="epipolar"))
+    check_expansion(ep, "stage 3 (float64, epipolar)",
+                    rp.chain_chunks(ep, X, obs3, cams3, seed_ids, orders),
+                    peak=PEAK_F64_FLOPS)
+    expect_k7_placement(ep.config, V)
+    del ctx, ep
+    torch.cuda.empty_cache()
+
+
+def expect_k7_placement(config, V: int) -> None:
+    """K7's last f64 launch placed its table where
+    kernels.table_placement puts k7_table_bytes on an H100."""
+    import torch
+
+    from edgegraph3d_tpu_torch import kernels
+    from edgegraph3d_tpu_torch.matching import expansion
+    epipolar = config.expand_correspondence_mode == "epipolar"
+    n_bytes = expansion.k7_table_bytes(V, epipolar, torch.float64)
+    want = kernels.table_placement(n_bytes, kernels.H100_SMEM_OPTIN_BYTES)
+    got = kernels.LAST_PLACEMENT.get("expand_chains")
+    log(f"  expand_chains (float64, {config.expand_correspondence_mode}): "
+        f"table {n_bytes} B at V = {V}, placed {got}")
+    if got != want:
+        fail(f"expand_chains (float64): table of {n_bytes} B placed {got}, "
+             f"not {want}")
+
+
+def observation_flips(a, b, n0, match_tol=1e-3, device="cuda") -> dict:
+    """The edge points of two output scenes matched by position (each of
+    a's to its nearest of b's within match_tol scene units, on the card):
+    the counts, the points of a with no match, and the matched pairs
+    whose view lists differ (an observation flip)."""
+    import numpy as np
+    import torch
+    pa = torch.as_tensor(a.points[n0:], device=device)
+    pb = torch.as_tensor(b.points[n0:], device=device)
+    dist, idx = [], []
+    for lo in range(0, len(pa), 4096):
+        d = torch.cdist(pa[lo:lo + 4096], pb)
+        m = d.min(1)
+        dist.append(m.values)
+        idx.append(m.indices)
+    dist = torch.cat(dist).cpu().numpy() if dist else np.zeros(0)
+    idx = torch.cat(idx).cpu().numpy() if idx else np.zeros(0, np.int64)
+    hit = np.flatnonzero(dist <= match_tol)
+    flips = sum(not np.array_equal(a.obs_cam[n0 + i], b.obs_cam[n0 + j])
+                for i, j in zip(hit, idx[hit]))
+    return dict(points=(a.n_points - n0, b.n_points - n0),
+                unmatched=int(len(pa) - len(hit)),
+                max_matched_distance=float(dist[hit].max()) if len(hit)
+                else 0.0, view_list_flips=int(flips))
+
+
+def check_f64(full, cube, cfg, results):
+    """Phase 9: float64 on stage 3.  (a) compare_kernels_f64; (b) the full
+    scene through run_pipeline(stages=(3,)) in f64 and in f32, each f64
+    instantiation launched, quality floors, the flips and both walls;
+    (c) cube8 stage 3 in f64 on MESH_SHARDS shards of cuda:0 bit-equal to
+    the single-device f64 run.  Returns (f64 launches of (b), of (c)'s
+    mesh run)."""
+    from edgegraph3d_tpu_torch import kernels
+    from edgegraph3d_tpu_torch.parallel import mesh as pmesh
+
+    compare_kernels_f64(full, cfg, results)
+    cfg64 = cfg.replace(dtype="float64")
+    run_main_path("full stage 3 (float64)", full, None, stages=(3,),
+                  config=cfg64)
+    expect_k7_placement(cfg64, full[0].n_cameras)
+    run_main_path("full stage 3 (float32)", full, None, stages=(3,))
+    f64 = {k: c["float64"] for k, c in
+           MAIN_DTYPE_LAUNCHES["full stage 3 (float64)"].items()}
+    f32_in_f64 = {k: c["float32"] for k, c in
+                  MAIN_DTYPE_LAUNCHES["full stage 3 (float64)"].items()
+                  if c["float32"]}
+    missing = [k for k in kernels.F64_KERNELS if f64[k] <= 0]
+    if missing:
+        fail(f"full stage 3 (float64): f64 kernels not launched: {missing}")
+    n0 = full[0].n_points
+    flips = observation_flips(MAIN_OUTPUTS["full stage 3 (float64)"],
+                              MAIN_OUTPUTS["full stage 3 (float32)"], n0)
+    log(f"  full stage 3: float64 edge points {flips['points'][0]}, "
+        f"float32 {flips['points'][1]}; matched by position "
+        f"{json.dumps(flips)}; walls float64 "
+        f"{MAIN_WALLS['full stage 3 (float64)']:.3f} s, float32 "
+        f"{MAIN_WALLS['full stage 3 (float32)']:.3f} s; f64 launches "
+        f"{json.dumps(f64)}; f32 launches in the f64 run "
+        f"{json.dumps(f32_in_f64)} (the f32 filter GN and the f32 starts)")
+    run_main_path("cube8 stage 3 (float64)", cube, 2, stages=(3,),
+                  config=cfg64)
+    mesh = pmesh.make_mesh(devices=["cuda:0"] * MESH_SHARDS)
+    run_main_path("cube8 stage 3 (float64) mesh", cube, 2, stages=(3,),
+                  config=cfg64, mesh=mesh)
+    same_scene(f"cube8 stage 3 (float64) on {MESH_SHARDS} shards of cuda:0",
+               MAIN_OUTPUTS["cube8 stage 3 (float64) mesh"],
+               MAIN_OUTPUTS["cube8 stage 3 (float64)"], x_tol=0.0)
+    mesh_f64 = {k: c["float64"] for k, c in
+                MAIN_DTYPE_LAUNCHES["cube8 stage 3 (float64) mesh"].items()}
+    return f64, mesh_f64
+
+
 def main() -> int:
     try:
         import torch
@@ -2839,10 +3195,21 @@ def main() -> int:
     del aug, host_claims
     log(f"phase 8 wall {time.time() - t0:.1f}s on {card}")
 
+    log("== phase 9: float64, stage 3")
+    t0 = time.time()
+    f64_launches, f64_mesh = check_f64(full, cube, cfg, results)
+    log(f"phase 9 wall {time.time() - t0:.1f}s on {card} (f64 bounds at "
+        f"{PEAK_F64_FLOPS / 1e12:.0f} TFLOP/s and "
+        f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+
     kern = [dict(name=k, route="cuda", source=KERNEL_META[k][0],
                  replaces=KERNEL_META[k][1], launches=launches[k],
                  mesh_launches=mesh_launches[k], **results[k])
             for k in kernels.KERNEL_NAMES]
+    kern += [dict(name=f64_name(k), route="cuda", source=KERNEL_META[k][0],
+                  replaces=KERNEL_META[k][1], launches=f64_launches[k],
+                  mesh_launches=f64_mesh[k], **results[f64_name(k)])
+             for k in kernels.F64_KERNELS]
     log(f"total smoke wall {time.time() - t_start:.1f}s")
     log(json.dumps({"kernels": kern}))
     log(card)
@@ -2940,7 +3307,8 @@ def time_follow(root: str) -> int:
     kernels.reset_launch_counts()
     run()
     torch.cuda.synchronize()
-    out["follow_seeds_launches"] = {k: kernels.LAUNCHES[k] for k in (
+    totals = kernels.launch_totals()
+    out["follow_seeds_launches"] = {k: totals[k] for k in (
         "follow_walk", "triangulate_gn")}
     res, out["follow_seeds_ms"] = cuda_time(run, 10)
     out["follow_digest"] = [int(res.n_steps.sum()),

@@ -61,6 +61,13 @@
 // gathered grid per query against ~35 flops per entry; the bytes that
 // must move are the queries, the [Q, M] outputs and each distinct cell
 // read once (chip_smoke.py counts them).
+//
+// Types.  The lines, radii, thresholds and outputs are of the compute
+// scalar T, the observation points of type Q (grid_query.cuh): f32/f32
+// (the f32 bodies), f64 lines with f32 points (EdgeGraphConfig(dtype=
+// "float64"): the stage-3 seeding's lines come from the f64 F table
+// while its observations stay f32) and f64/f64.  The group merge then
+// shuffles double distances.
 
 #include "grid_query.cuh"
 
@@ -68,33 +75,34 @@ namespace {
 
 constexpr int LANES = 8;  // lanes per query in the group body
 
+template <class T, class Q>
 struct K2Args {
   const float* grids;
   int GH, GW, Kc;
   const int* view;
-  const float* pts;
-  const float* lines;
-  const float* radius;
+  const Q* pts;
+  const T* lines;
+  const T* radius;
   const int* order;  // nullable: identity
-  int Q;
-  float cell;
+  int Q_n;
+  Q cell;
   int use_excl;
-  float excl_cos;
+  T excl_cos;
   int* pl;
   int* seg;
-  float* t;
-  float* xy;
-  float* dist;
+  T* t;
+  T* xy;
+  T* dist;
   uint8_t* valid;
 };
 
-template <int M>
-__global__ void epipolar_topm_kernel(K2Args a) {
+template <int M, class T, class Q>
+__global__ void epipolar_topm_kernel(K2Args<T, Q> a) {
   const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= a.Q) return;
+  if (j >= a.Q_n) return;
   const int64_t q = a.order ? a.order[j] : j;
   const int64_t v = a.view[q];
-  eg3d::TopM<M> top;
+  eg3d::TopM<M, T> top;
   eg3d::epipolar_topm_one<M>(a.grids, a.GH, a.GW, a.Kc, v, a.pts[2 * q],
                              a.pts[2 * q + 1], a.lines[3 * q],
                              a.lines[3 * q + 1], a.lines[3 * q + 2],
@@ -103,18 +111,19 @@ __global__ void epipolar_topm_kernel(K2Args a) {
   top.store(q, a.pl, a.seg, a.t, a.xy, a.dist, a.valid);
 }
 
-template <int M>
-__global__ void epipolar_topm_group_kernel(K2Args a) {
+template <int M, class T, class Q>
+__global__ void epipolar_topm_group_kernel(K2Args<T, Q> a) {
   constexpr int G = LANES;
   const int64_t j = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
   const int gl = threadIdx.x & (G - 1);
-  const bool live = j < a.Q;
+  const bool live = j < a.Q_n;
   const int Kc = a.Kc;
-  eg3d::TopKey<M> top;
+  eg3d::TopKey<M, T> top;
   top.init();
   int64_t q = 0;
   const float* vg = a.grids;  // this query's view of the grid stack
-  float ox = 0.f, oy = 0.f, l0 = 0.f, l1 = 0.f, l2 = 0.f, rad = 0.f;
+  Q ox = Q(0), oy = Q(0);
+  T l0 = T(0), l1 = T(0), l2 = T(0), rad = T(0);
   int cx = 0, cy = 0;
   if (live) {
     q = a.order ? a.order[j] : j;
@@ -136,7 +145,7 @@ __global__ void epipolar_topm_group_kernel(K2Args a) {
       const int yy = eg3d::clampi(cy + r - 2, 0, a.GH - 1);
       const int xx = eg3d::clampi(cx + (c - 5 * r) - 2, 0, a.GW - 1);
       eg3d::Entry en;
-      float d, s, x, y;
+      T d, s, x, y;
       if (eg3d::load_entry(vg + ((yy * a.GW + xx) * Kc + k) * 6, &en) &&
           eg3d::epipolar_entry(en, ox, oy, l0, l1, l2, rad, a.use_excl,
                                a.excl_cos, &d, &s, &x, &y))
@@ -155,7 +164,7 @@ __global__ void epipolar_topm_group_kernel(K2Args a) {
   if (!live || gl >= M) return;
   // lane m < M recomputes and stores the m-th winner from its entry (the
   // same arithmetic that ranked it, so the same values)
-  float dm = eg3d::BIG;
+  T dm = eg3d::big<T>();
   int im = -1, pm = -1;
 #pragma unroll
   for (int m = 0; m < M; ++m) {
@@ -165,15 +174,15 @@ __global__ void epipolar_topm_group_kernel(K2Args a) {
       pm = top.pl[m];
     }
   }
-  const bool ok = dm < eg3d::BIG * 0.5f && pm >= 0;
+  const bool ok = dm < eg3d::big<T>() * T(0.5) && pm >= 0;
   int seg = 0;
-  float t = 0.f, x = 0.f, y = 0.f;
+  T t = T(0), x = T(0), y = T(0);
   if (ok) {
     const int c = im / Kc, k = im - c * Kc, r = c / 5;
     const int yy = eg3d::clampi(cy + r - 2, 0, a.GH - 1);
     const int xx = eg3d::clampi(cx + (c - 5 * r) - 2, 0, a.GW - 1);
     eg3d::Entry en;
-    float d;
+    T d;
     eg3d::load_entry(vg + ((yy * a.GW + xx) * Kc + k) * 6, &en);
     eg3d::epipolar_entry(en, ox, oy, l0, l1, l2, rad, a.use_excl,
                          a.excl_cos, &d, &t, &x, &y);
@@ -185,20 +194,31 @@ __global__ void epipolar_topm_group_kernel(K2Args a) {
   a.t[o] = t;
   a.xy[2 * o] = x;
   a.xy[2 * o + 1] = y;
-  a.dist[o] = ok ? dm : eg3d::BIG;
+  a.dist[o] = ok ? dm : eg3d::big<T>();
   a.valid[o] = ok ? 1 : 0;
 }
 
-template <int M>
-int launch(const K2Args& a, int one_thread, cudaStream_t stream) {
+template <int M, class T, class Q>
+int launch(const K2Args<T, Q>& a, int one_thread, cudaStream_t stream) {
   const int threads = 128;
-  const int64_t lanes = (int64_t)a.Q * (one_thread ? 1 : LANES);
+  const int64_t lanes = (int64_t)a.Q_n * (one_thread ? 1 : LANES);
   const int blocks = (int)((lanes + threads - 1) / threads);
   if (one_thread)
     epipolar_topm_kernel<M><<<blocks, threads, 0, stream>>>(a);
   else
     epipolar_topm_group_kernel<M><<<blocks, threads, 0, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <class T, class Q>
+int launch_m(const K2Args<T, Q>& a, int M, int one_thread, cudaStream_t s) {
+  switch (M) {
+    case 1: return launch<1>(a, one_thread, s);
+    case 2: return launch<2>(a, one_thread, s);
+    case 4: return launch<4>(a, one_thread, s);
+    case 8: return launch<8>(a, one_thread, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -212,14 +232,30 @@ extern "C" int eg3d_epipolar_topm(const float* grids, int V, int GH, int GW,
                                   int* pl, int* seg, float* t, float* xy,
                                   float* dist, uint8_t* valid, void* stream) {
   (void)V;
-  const K2Args a{grids, GH, GW, Kc, view, pts, lines, radius, order, Q, cell,
-                 use_excl, excl_cos, pl, seg, t, xy, dist, valid};
+  const K2Args<float, float> a{grids, GH, GW, Kc, view, pts, lines, radius,
+                               order, Q, cell, use_excl, excl_cos, pl, seg,
+                               t, xy, dist, valid};
+  return launch_m(a, M, one_thread, (cudaStream_t)stream);
+}
+
+// The f64 bodies: double lines, radii and outputs; the points double when
+// pts_f64 != 0, else float (pts then points to floats).
+extern "C" int eg3d_epipolar_topm_f64(
+    const float* grids, int V, int GH, int GW, int Kc, const int* view,
+    const void* pts, int pts_f64, const double* lines, const double* radius,
+    const int* order, int Q, double cell, int M, int one_thread,
+    int use_excl, double excl_cos, int* pl, int* seg, double* t, double* xy,
+    double* dist, uint8_t* valid, void* stream) {
+  (void)V;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (M) {
-    case 1: return launch<1>(a, one_thread, s);
-    case 2: return launch<2>(a, one_thread, s);
-    case 4: return launch<4>(a, one_thread, s);
-    case 8: return launch<8>(a, one_thread, s);
-    default: return (int)cudaErrorInvalidValue;
+  if (pts_f64) {
+    const K2Args<double, double> a{
+        grids, GH, GW, Kc, view, (const double*)pts, lines, radius, order, Q,
+        cell, use_excl, excl_cos, pl, seg, t, xy, dist, valid};
+    return launch_m(a, M, one_thread, s);
   }
+  const K2Args<double, float> a{
+      grids, GH, GW, Kc, view, (const float*)pts, lines, radius, order, Q,
+      (float)cell, use_excl, excl_cos, pl, seg, t, xy, dist, valid};
+  return launch_m(a, M, one_thread, s);
 }

@@ -67,6 +67,14 @@
 // serial sum over observations, and a warp waits in each view for its
 // slowest lane's GN.  Registers and occupancy are in PERF.md (ptxas
 // -v, printed by kernels.build(verbose=True)).
+//
+// One template on the compute scalar T: float, and double for
+// EdgeGraphConfig(dtype="float64"), where the JAX package promotes X,
+// obs3, P and F to f64 (expansion.expand_chains_compact's result_type)
+// and so queries the grid with f64 projections.  The grid stays f32
+// (grid_query.cuh).  The double body's tables take twice the bytes: 96 V,
+// 1,248 V in "epipolar" mode (so the full scene's 49 views, 61,152 B,
+// opt in above 48 KiB).
 
 #include "gn.cuh"
 #include "grid_query.cuh"
@@ -77,27 +85,28 @@ constexpr int WARPS = 4;      // warps per block
 constexpr int MAX_TILES = 4;  // chains per warp (8-lane tiles)
 constexpr unsigned FULL = 0xffffffffu;
 
+template <class T>
 struct K7Args {
   const float* grids;
   int V, GH, GW, Kc;
-  float cell;
-  const float* P_mats;
-  const float* F_table;
-  const float* obs3;
+  T cell;
+  const T* P_mats;
+  const T* F_table;
+  const T* obs3;
   const int* cams3;
   const int* slot_k;
   const uint8_t* chain_valid;
-  int T, Omax;
-  float tol;
+  int T_slots, Omax;
+  T tol;
   int epipolar;
-  float qp_cos;
+  T qp_cos;
   int gn_iters;
-  float gn_eps, accept_mse, det_min;
-  float* X;
+  T gn_eps, accept_mse, det_min;
+  T* X;
   int* cam_buf;
-  float* obs_x;
-  float* obs_y;
-  float* out_xy;
+  T* obs_x;
+  T* obs_y;
+  T* out_xy;
   uint8_t* out_ok;
 };
 
@@ -116,15 +125,16 @@ __host__ __device__ constexpr int tile_width(int b) {
 
 // Observation o of one point during expansion: the first n from its
 // [Omax] buffer row, then the candidate of the current view.
+template <class T>
 struct ExpansionObs {
   const int* cam;
-  const float* x;
-  const float* y;
+  const T* x;
+  const T* y;
   int n;
   int v_new;
-  float x_new, y_new;
-  __device__ __forceinline__ void operator()(int o, int* c, float* ox,
-                                             float* oy, float* m) const {
+  T x_new, y_new;
+  __device__ __forceinline__ void operator()(int o, int* c, T* ox, T* oy,
+                                             T* m) const {
     if (o < n) {
       *c = cam[o];
       *ox = x[o];
@@ -134,13 +144,14 @@ struct ExpansionObs {
       *ox = x_new;
       *oy = y_new;
     }
-    *m = 1.0f;
+    *m = T(1);
   }
 };
 
-// torch.sign for a float: -1, 0, 1 (NaN stays NaN)
-__device__ __forceinline__ float sgn(float d) {
-  return d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : d);
+// torch.sign: -1, 0, 1 (NaN stays NaN)
+template <class T>
+__device__ __forceinline__ T sgn(T d) {
+  return d > T(0) ? T(1) : (d < T(0) ? T(-1) : d);
 }
 
 // Run start (st) and end (en) of the same-polyline monotone run through
@@ -149,22 +160,21 @@ __device__ __forceinline__ float sgn(float d) {
 // polyline with a nonzero step; link[t] = base[t] continuing the
 // previous step's direction (or starting a run); start = prefix max of
 // (link ? -1 : t) clamped at 0; end = suffix min of (link[t + 1] ? T : t).
-template <int W, int S>
+template <int W, int S, class F>
 __device__ __forceinline__ void run_bounds(int tl, int T, const int* cpl,
-                                           const float* cpos,
-                                           const bool* okc, int* st,
-                                           int* en) {
+                                           const F* cpos, const bool* okc,
+                                           int* st, int* en) {
   if constexpr (S == 1) {
     const int pl_up = __shfl_up_sync(FULL, cpl[0], 1, W);
-    const float pos_up = __shfl_up_sync(FULL, cpos[0], 1, W);
+    const F pos_up = __shfl_up_sync(FULL, cpos[0], 1, W);
     const bool ok_up = __shfl_up_sync(FULL, (int)okc[0], 1, W) != 0;
     const bool first = tl == 0;
-    const float d0 = cpos[0] - pos_up;
+    const F d0 = cpos[0] - pos_up;
     const bool base0 = !first && cpl[0] == pl_up && okc[0] && ok_up &&
-                       fabsf(d0) > 0.0f;
-    const float sg0 = sgn(d0);
+                       eg3d::vabs(d0) > F(0);
+    const F sg0 = sgn(d0);
     const bool b_up = __shfl_up_sync(FULL, (int)base0, 1, W) != 0;
-    const float s_up = __shfl_up_sync(FULL, sg0, 1, W);
+    const F s_up = __shfl_up_sync(FULL, sg0, 1, W);
     const bool pb0 = !first && b_up;
     const bool link0 = base0 && (!pb0 || sg0 == s_up);
     int a0 = link0 ? -1 : tl;
@@ -190,31 +200,32 @@ __device__ __forceinline__ void run_bounds(int tl, int T, const int* cpl,
     const int pl_up0 = __shfl_up_sync(FULL, cpl[0], 1);
     const int pl_up1 = __shfl_up_sync(FULL, cpl[1], 1);
     const int pl_31 = __shfl_sync(FULL, cpl[0], 31);
-    const float pos_up0 = __shfl_up_sync(FULL, cpos[0], 1);
-    const float pos_up1 = __shfl_up_sync(FULL, cpos[1], 1);
-    const float pos_31 = __shfl_sync(FULL, cpos[0], 31);
+    const F pos_up0 = __shfl_up_sync(FULL, cpos[0], 1);
+    const F pos_up1 = __shfl_up_sync(FULL, cpos[1], 1);
+    const F pos_31 = __shfl_sync(FULL, cpos[0], 31);
     const bool ok_up0 = __shfl_up_sync(FULL, (int)okc[0], 1) != 0;
     const bool ok_up1 = __shfl_up_sync(FULL, (int)okc[1], 1) != 0;
     const bool ok_31 = __shfl_sync(FULL, (int)okc[0], 31) != 0;
     const bool first = lane == 0;
     const int ppl1 = first ? pl_31 : pl_up1;
-    const float ppos1 = first ? pos_31 : pos_up1;
+    const F ppos1 = first ? pos_31 : pos_up1;
     const bool pok1 = first ? ok_31 : ok_up1;
-    const float d0 = cpos[0] - pos_up0;
-    const float d1 = cpos[1] - ppos1;
+    const F d0 = cpos[0] - pos_up0;
+    const F d1 = cpos[1] - ppos1;
     const bool base0 = !first && cpl[0] == pl_up0 && okc[0] && ok_up0 &&
-                       fabsf(d0) > 0.0f;
-    const bool base1 = cpl[1] == ppl1 && okc[1] && pok1 && fabsf(d1) > 0.0f;
-    const float sg0 = sgn(d0), sg1 = sgn(d1);
+                       eg3d::vabs(d0) > F(0);
+    const bool base1 =
+        cpl[1] == ppl1 && okc[1] && pok1 && eg3d::vabs(d1) > F(0);
+    const F sg0 = sgn(d0), sg1 = sgn(d1);
     const bool b_up0 = __shfl_up_sync(FULL, (int)base0, 1) != 0;
     const bool b_up1 = __shfl_up_sync(FULL, (int)base1, 1) != 0;
     const bool b_31 = __shfl_sync(FULL, (int)base0, 31) != 0;
-    const float s_up0 = __shfl_up_sync(FULL, sg0, 1);
-    const float s_up1 = __shfl_up_sync(FULL, sg1, 1);
-    const float s_31 = __shfl_sync(FULL, sg0, 31);
+    const F s_up0 = __shfl_up_sync(FULL, sg0, 1);
+    const F s_up1 = __shfl_up_sync(FULL, sg1, 1);
+    const F s_31 = __shfl_sync(FULL, sg0, 31);
     const bool pb0 = !first && b_up0;
     const bool pb1 = first ? b_31 : b_up1;
-    const float ps1 = first ? s_31 : s_up1;
+    const F ps1 = first ? s_31 : s_up1;
     const bool link0 = base0 && (!pb0 || sg0 == s_up0);
     const bool link1 = base1 && (!pb1 || sg1 == ps1);
     int a0 = link0 ? -1 : lane;
@@ -257,17 +268,17 @@ __device__ __forceinline__ void run_bounds(int tl, int T, const int* cpl,
 // in the shuffles) on a tile of W lanes with S slots a lane, reading P
 // [V, 12] and the chain's F rows [V, 9] from P_sh / F_sh (shared memory,
 // or common.cuh Ldg tables in device memory).
-template <int W, int S, class Tab>
-__device__ __forceinline__ void expand_tile(const K7Args& a, int64_t c,
+template <int W, int S, class F, class Tab>
+__device__ __forceinline__ void expand_tile(const K7Args<F>& a, int64_t c,
                                             int cam0, int cam1, int cam2,
                                             const Tab P_sh,
                                             const Tab F_sh) {
   const int lane = threadIdx.x & 31;
   const int tl = lane & (W - 1);
-  const int T = a.T, Omax = a.Omax;
+  const int T = a.T_slots, Omax = a.Omax;
   int64_t kk[S];
   bool has[S], cv[S];
-  float px3[S], py3[S], pz3[S], dx0[S], dy0[S];
+  F px3[S], py3[S], pz3[S], dx0[S], dy0[S];
   int nob[S];
 #pragma unroll
   for (int s = 0; s < S; ++s) {
@@ -276,7 +287,7 @@ __device__ __forceinline__ void expand_tile(const K7Args& a, int64_t c,
     kk[s] = in ? (int64_t)a.slot_k[c * T + t] : -1;
     cv[s] = in && a.chain_valid[c * T + t] != 0;
     has[s] = kk[s] >= 0;
-    px3[s] = py3[s] = pz3[s] = dx0[s] = dy0[s] = 0.0f;
+    px3[s] = py3[s] = pz3[s] = dx0[s] = dy0[s] = F(0);
     nob[s] = 0;
     if (has[s]) {
       const int64_t k = kk[s];
@@ -311,34 +322,34 @@ __device__ __forceinline__ void expand_tile(const K7Args& a, int64_t c,
     const bool tuple_v = v == cam0 || v == cam1 || v == cam2;
     const auto Pv = P_sh + v * 12;
     int cpl[S];
-    float cpos[S], cx[S], cy[S];
+    F cpos[S], cx[S], cy[S];
     bool cok[S], okc[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       cpl[s] = -2;
-      cpos[s] = 0.0f;
-      cx[s] = cy[s] = 0.0f;
+      cpos[s] = F(0);
+      cx[s] = cy[s] = F(0);
       cok[s] = false;
       if (has[s] && !tuple_v) {
-        const float x = px3[s], y = py3[s], z = pz3[s];
-        const float xH = Pv[0] * x + Pv[1] * y + Pv[2] * z + Pv[3];
-        const float yH = Pv[4] * x + Pv[5] * y + Pv[6] * z + Pv[7];
-        const float zH = Pv[8] * x + Pv[9] * y + Pv[10] * z + Pv[11];
-        if (zH > 0.0f) {
-          const float zg = (fabsf(zH) < 1e-12f) ? 1e-12f : zH;
-          const float qx = xH / zg;
-          const float qy = yH / zg;
-          eg3d::TopM<2> top;
+        const F x = px3[s], y = py3[s], z = pz3[s];
+        const F xH = Pv[0] * x + Pv[1] * y + Pv[2] * z + Pv[3];
+        const F yH = Pv[4] * x + Pv[5] * y + Pv[6] * z + Pv[7];
+        const F zH = Pv[8] * x + Pv[9] * y + Pv[10] * z + Pv[11];
+        if (zH > F(0)) {
+          const F zg = (eg3d::vabs(zH) < F(1e-12)) ? F(1e-12) : zH;
+          const F qx = xH / zg;
+          const F qy = yH / zg;
+          eg3d::TopM<2, F> top;
           eg3d::grid_topm_one<2>(a.grids, a.GH, a.GW, a.Kc, v, qx, qy,
                                  a.cell, a.tol, top);
           if (top.ok(0) && !top.ok(1)) {
             const int pl = top.pl[0];
             int seg = top.seg[0];
-            float tt = top.t[0], ex = top.x[0], ey = top.y[0];
+            F tt = top.t[0], ex = top.x[0], ey = top.y[0];
             if (a.epipolar) {
-              float l0, l1, l2;
+              F l0, l1, l2;
               eg3d::epipolar(F_sh + v * 9, dx0[s], dy0[s], &l0, &l1, &l2);
-              eg3d::TopM<4> ep;
+              eg3d::TopM<4, F> ep;
               eg3d::epipolar_topm_one<4>(a.grids, a.GH, a.GW, a.Kc, v, qx,
                                          qy, l0, l1, l2, a.tol, a.cell, 1,
                                          a.qp_cos, ep);
@@ -355,7 +366,7 @@ __device__ __forceinline__ void expand_tile(const K7Args& a, int64_t c,
               }
             }
             cpl[s] = pl;
-            cpos[s] = (float)seg + tt;
+            cpos[s] = (F)seg + tt;
             cx[s] = ex;
             cy[s] = ey;
             cok[s] = true;
@@ -377,10 +388,10 @@ __device__ __forceinline__ void expand_tile(const K7Args& a, int64_t c,
       const bool cont = run_len >= (touches ? 2 : 3) || short_chain;
       if (!cont || nob[s] >= Omax) continue;
       const int64_t k = kk[s];
-      const ExpansionObs ob{a.cam_buf + k * Omax, a.obs_x + k * Omax,
-                            a.obs_y + k * Omax, nob[s], v, cx[s], cy[s]};
-      const eg3d::GNResult r = eg3d::gauss_newton(
-          P_sh, ob, nob[s] + 1, (float)(nob[s] + 1), px3[s], py3[s], pz3[s],
+      const ExpansionObs<F> ob{a.cam_buf + k * Omax, a.obs_x + k * Omax,
+                               a.obs_y + k * Omax, nob[s], v, cx[s], cy[s]};
+      const eg3d::GNResult<F> r = eg3d::gauss_newton(
+          P_sh, ob, nob[s] + 1, (F)(nob[s] + 1), px3[s], py3[s], pz3[s],
           a.gn_iters, a.gn_eps, a.accept_mse, a.det_min);
       if (!r.valid) continue;
       px3[s] = r.x;
@@ -405,8 +416,8 @@ __device__ __forceinline__ void expand_tile(const K7Args& a, int64_t c,
 }
 
 // The tile body of bucket b (warp-uniform) on tables P_sh / F_sh.
-template <int B, class Tab>
-__device__ __forceinline__ void run_tile(const K7Args& a, int b, int64_t c,
+template <int B, class F, class Tab>
+__device__ __forceinline__ void run_tile(const K7Args<F>& a, int b, int64_t c,
                                          int cam0, int cam1, int cam2,
                                          const Tab P_sh, const Tab F_sh) {
   if constexpr (B < 4) {
@@ -429,11 +440,12 @@ __device__ __forceinline__ void run_tile(const K7Args& a, int b, int64_t c,
 // branching on its bucket.  kGlobal = false: P and each tile's F rows
 // are staged in shared memory (eg3d_expand_chains_smem bytes); true:
 // both are read from device memory through the read-only path.
-template <int B, bool kGlobal>
-__global__ void expand_chains_kernel(K7Args a, const int* __restrict__ order,
+template <int B, bool kGlobal, class F>
+__global__ void expand_chains_kernel(K7Args<F> a,
+                                     const int* __restrict__ order,
                                      Buckets bk) {
-  extern __shared__ float smem[];
-  float* P_sh = smem;  // [V, 12]
+  extern __shared__ __align__(16) unsigned char smem[];
+  F* P_sh = reinterpret_cast<F*>(smem);  // [V, 12]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   if constexpr (!kGlobal) {
@@ -457,55 +469,94 @@ __global__ void expand_chains_kernel(K7Args a, const int* __restrict__ order,
     if (i < bk.n[b]) c = order[bk.chain_off[b] + i];
   }
   // [V, 9] F rows of this tile's chain ("epipolar" mode)
-  float* F_sh = P_sh + a.V * 12 + (warp * MAX_TILES + tile) * a.V * 9;
+  F* F_sh = P_sh + a.V * 12 + (warp * MAX_TILES + tile) * a.V * 9;
   int cam0 = -1, cam1 = -1, cam2 = -1;
   if (c >= 0) {
     cam0 = a.cams3[3 * c];
     cam1 = a.cams3[3 * c + 1];
     cam2 = a.cams3[3 * c + 2];
     if (!kGlobal && a.epipolar) {
-      const float* Fr = a.F_table + (int64_t)cam0 * a.V * 9;
+      const F* Fr = a.F_table + (int64_t)cam0 * a.V * 9;
       for (int i = lane - tile * W; i < a.V * 9; i += W) F_sh[i] = Fr[i];
     }
   }
   if constexpr (kGlobal) {
-    const eg3d::Ldg F_rows{a.F_table + (int64_t)max(cam0, 0) * a.V * 9};
-    run_tile<B>(a, b, c, cam0, cam1, cam2, eg3d::Ldg{a.P_mats}, F_rows);
+    const eg3d::LdgT<F> F_rows{a.F_table +
+                               (int64_t)max(cam0, 0) * a.V * 9};
+    run_tile<B>(a, b, c, cam0, cam1, cam2, eg3d::LdgT<F>{a.P_mats}, F_rows);
   } else {
     __syncthreads();
-    run_tile<B>(a, b, c, cam0, cam1, cam2, (const float*)P_sh,
-                (const float*)F_sh);
+    run_tile<B>(a, b, c, cam0, cam1, cam2, (const F*)P_sh, (const F*)F_sh);
   }
 }
 
-template <int B, bool kGlobal>
-int launch(const K7Args& a, const int* order, const Buckets& bk, int smem,
+template <int B, bool kGlobal, class F>
+int launch(const K7Args<F>& a, const int* order, const Buckets& bk, int smem,
            cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        expand_chains_kernel<B, kGlobal>,
+        expand_chains_kernel<B, kGlobal, F>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (bk.warp_off[4] + WARPS - 1) / WARPS;
-  expand_chains_kernel<B, kGlobal><<<blocks, 32 * WARPS, smem, stream>>>(
+  expand_chains_kernel<B, kGlobal, F><<<blocks, 32 * WARPS, smem, stream>>>(
       a, order, bk);
   return (int)cudaGetLastError();
 }
 
-template <int B>
-int launch_placed(const K7Args& a, const int* order, const Buckets& bk,
+template <int B, class F>
+int launch_placed(const K7Args<F>& a, const int* order, const Buckets& bk,
                   int place, int smem, cudaStream_t stream) {
   if (place == 2) return launch<B, true>(a, order, bk, 0, stream);
   if (place == 0 && smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   return launch<B, false>(a, order, bk, smem, stream);
 }
 
+template <class F>
+int smem_bytes(int V, int epipolar) {
+  return (V * 12 + (epipolar ? WARPS * MAX_TILES * V * 9 : 0)) *
+         (int)sizeof(F);
+}
+
+// The chunk's launch: the buckets from their sizes, then one kernel (a
+// single-bucket body when only one bucket is used).
+template <class F>
+int expand_chains(const K7Args<F>& a, const int* order, int n8, int n16,
+                  int n32, int n64, int place, cudaStream_t s) {
+  if (a.T_slots < 1 || a.T_slots > 64 || a.Omax < 3 || n8 < 0 || n16 < 0 ||
+      n32 < 0 || n64 < 0)
+    return (int)cudaErrorInvalidValue;
+  Buckets bk;
+  const int n[4] = {n8, n16, n32, n64};
+  int chains = 0, warps = 0;
+  for (int b = 0; b < 4; ++b) {
+    const int per_warp = 32 / tile_width(b);
+    bk.n[b] = n[b];
+    bk.chain_off[b] = chains;
+    bk.warp_off[b] = warps;
+    chains += n[b];
+    warps += (n[b] + per_warp - 1) / per_warp;
+  }
+  bk.warp_off[4] = warps;
+  if (warps == 0) return (int)cudaSuccess;
+  const int smem = smem_bytes<F>(a.V, a.epipolar);
+  const int used = (n8 > 0) + (n16 > 0) + (n32 > 0) + (n64 > 0);
+  if (used > 1) return launch_placed<4>(a, order, bk, place, smem, s);
+  if (n8) return launch_placed<0>(a, order, bk, place, smem, s);
+  if (n16) return launch_placed<1>(a, order, bk, place, smem, s);
+  if (n32) return launch_placed<2>(a, order, bk, place, smem, s);
+  return launch_placed<3>(a, order, bk, place, smem, s);
+}
+
 }  // namespace
 
 extern "C" int eg3d_expand_chains_smem(int V, int epipolar) {
-  return (V * 12 + (epipolar ? WARPS * MAX_TILES * V * 9 : 0)) *
-         (int)sizeof(float);
+  return smem_bytes<float>(V, epipolar);
+}
+
+extern "C" int eg3d_expand_chains_smem_f64(int V, int epipolar) {
+  return smem_bytes<double>(V, epipolar);
 }
 
 // order [n8 + n16 + n32 + n64]: chain indices into cams3 / slot_k /
@@ -521,32 +572,28 @@ extern "C" int eg3d_expand_chains(
     float accept_mse, float det_min, int place, float* X, int* cam_buf,
     float* obs_x, float* obs_y, float* out_xy, uint8_t* out_ok,
     void* stream) {
-  if (T < 1 || T > 64 || Omax < 3 || n8 < 0 || n16 < 0 || n32 < 0 ||
-      n64 < 0)
-    return (int)cudaErrorInvalidValue;
-  Buckets bk;
-  const int n[4] = {n8, n16, n32, n64};
-  int chains = 0, warps = 0;
-  for (int b = 0; b < 4; ++b) {
-    const int per_warp = 32 / tile_width(b);
-    bk.n[b] = n[b];
-    bk.chain_off[b] = chains;
-    bk.warp_off[b] = warps;
-    chains += n[b];
-    warps += (n[b] + per_warp - 1) / per_warp;
-  }
-  bk.warp_off[4] = warps;
-  if (warps == 0) return (int)cudaSuccess;
-  const int smem = eg3d_expand_chains_smem(V, epipolar);
-  const K7Args a{grids, V, GH, GW, Kc, cell, P_mats, F_table, obs3, cams3,
-                 slot_k, chain_valid, T, Omax, tol, epipolar, qp_cos,
-                 gn_iters, gn_eps, accept_mse, det_min, X, cam_buf, obs_x,
-                 obs_y, out_xy, out_ok};
-  cudaStream_t s = (cudaStream_t)stream;
-  const int used = (n8 > 0) + (n16 > 0) + (n32 > 0) + (n64 > 0);
-  if (used > 1) return launch_placed<4>(a, order, bk, place, smem, s);
-  if (n8) return launch_placed<0>(a, order, bk, place, smem, s);
-  if (n16) return launch_placed<1>(a, order, bk, place, smem, s);
-  if (n32) return launch_placed<2>(a, order, bk, place, smem, s);
-  return launch_placed<3>(a, order, bk, place, smem, s);
+  const K7Args<float> a{grids, V, GH, GW, Kc, cell, P_mats, F_table, obs3,
+                        cams3, slot_k, chain_valid, T, Omax, tol, epipolar,
+                        qp_cos, gn_iters, gn_eps, accept_mse, det_min, X,
+                        cam_buf, obs_x, obs_y, out_xy, out_ok};
+  return expand_chains(a, order, n8, n16, n32, n64, place,
+                       (cudaStream_t)stream);
+}
+
+// The f64 body: double P, F, obs3, X, thresholds, buffers and out_xy.
+extern "C" int eg3d_expand_chains_f64(
+    const float* grids, int V, int GH, int GW, int Kc, double cell,
+    const double* P_mats, const double* F_table, const double* obs3,
+    const int* cams3, const int* slot_k, const uint8_t* chain_valid,
+    const int* order, int n8, int n16, int n32, int n64, int T, int Omax,
+    double tol, int epipolar, double qp_cos, int gn_iters, double gn_eps,
+    double accept_mse, double det_min, int place, double* X, int* cam_buf,
+    double* obs_x, double* obs_y, double* out_xy, uint8_t* out_ok,
+    void* stream) {
+  const K7Args<double> a{grids, V, GH, GW, Kc, cell, P_mats, F_table, obs3,
+                         cams3, slot_k, chain_valid, T, Omax, tol, epipolar,
+                         qp_cos, gn_iters, gn_eps, accept_mse, det_min, X,
+                         cam_buf, obs_x, obs_y, out_xy, out_ok};
+  return expand_chains(a, order, n8, n16, n32, n64, place,
+                       (cudaStream_t)stream);
 }

@@ -46,35 +46,42 @@
 // Bound on the H100: latency of the sequential steps (a few segment tests
 // of three 64-point polylines, then a DLT and up to gn_iters GN
 // iterations), with data-dependent trip counts.
+//
+// One template on the compute scalar T: float, and double for
+// EdgeGraphConfig(dtype="float64"), where the JAX package walks and
+// triangulates everything in f64 (polylines, F, P, positions, X) and XLA
+// contracts the walk's multiply-adds in f64 too (common.cuh fmaT: the
+// hardware's fma.rn.f64).  The double body keeps twice the walk state in
+// registers (ptxas -v in PERF.md).
 
 #include "gn.cuh"
 
 namespace {
 
 // next_intersection_bounded_xy: returns found; writes seg/t/x/y.
-__device__ __forceinline__ bool intersect(const eg3d::Poly& p, int seg, float t,
-                                          float cx, float cy, int dir,
-                                          float l0, float l1, float l2,
-                                          float min_d, float max_d,
-                                          float qcos, float qdist, int* nseg,
-                                          float* nt, float* nx, float* ny) {
+template <class T>
+__device__ __forceinline__ bool intersect(const eg3d::PolyT<const T*>& p,
+                                          int seg, T t, T cx, T cy, int dir,
+                                          T l0, T l1, T l2, T min_d, T max_d,
+                                          T qcos, T qdist, int* nseg, T* nt,
+                                          T* nx, T* ny) {
   const bool fwd = dir > 0;
   const int hi = p.len - 2;
   int j = fwd ? (seg < 0 ? 0 : seg) : (seg < hi ? seg : hi);
   for (; fwd ? (j <= hi) : (j >= 0); j += fwd ? 1 : -1) {
-    const float ax = p.c[2 * j], ay = p.c[2 * j + 1];
-    const float bx = p.c[2 * (j + 1)], by = p.c[2 * (j + 1) + 1];
-    const eg3d::SegLine r =
+    const T ax = p.c[2 * j], ay = p.c[2 * j + 1];
+    const T bx = p.c[2 * (j + 1)], by = p.c[2 * (j + 1) + 1];
+    const eg3d::SegLine<T> r =
         eg3d::seg_line(ax, ay, bx, by, l0, l1, l2, qcos, qdist);
-    const float s = r.s;
+    const T s = r.s;
     const bool s_ok = (j == seg) ? (fwd ? (s >= t) : (s <= t)) : true;
     if (r.quasi) return false;  // quasi-parallel event first: stop
     if (r.has && s_ok) {
-      const float sx = ax + s * (bx - ax);
-      const float sy = ay + s * (by - ay);
-      const float ex = sx - cx;
-      const float ey = sy - cy;
-      const float dsq = ex * ex + ey * ey;
+      const T sx = ax + s * (bx - ax);
+      const T sy = ay + s * (by - ay);
+      const T ex = sx - cx;
+      const T ey = sy - cy;
+      const T dsq = ex * ex + ey * ey;
       *nseg = j;
       *nt = s;
       *nx = sx;
@@ -85,34 +92,35 @@ __device__ __forceinline__ bool intersect(const eg3d::Poly& p, int seg, float t,
   return false;  // reached the extreme
 }
 
+template <class T>
 struct Args {
-  const float* coords;
+  const T* coords;
   const int* lengths;
   int P, L;
-  const float* F_table;
+  const T* F_table;
   int V;
-  const float* P_mats;
+  const T* P_mats;
   const int* cams;
   const int* pls;
   const int* seg0;
-  const float* t0;
-  const float* xy0;
+  const T* t0;
+  const T* xy0;
   const int* dirs;
   const uint8_t* active0;
-  const float* X0;  // null: cold GN (DLT first)
-  int S, T;
-  float step, min_d, max_d, qcos, qdist;
+  const T* X0;  // null: cold GN (DLT first)
+  int S, T_steps;
+  T step, min_d, max_d, qcos, qdist;
   int gn_iters;
-  float epsilon, accept_mse, det_min;
+  T epsilon, accept_mse, det_min;
   int* counter;
   uint8_t* valid;
   int* n_steps;
-  float* X;
-  float* obs;
+  T* X;
+  T* obs;
   int* seg;
-  float* t;
+  T* t;
   int* final_seg;
-  float* final_t;
+  T* final_t;
 };
 
 // The next seed for the calling thread from the counter (zeroed by the
@@ -129,17 +137,18 @@ __device__ __forceinline__ int grab(int* counter) {
 }
 
 // One lane's walk state: the seed's polylines, position and matrices.
+template <class T>
 struct Lane {
   int64_t s;
-  eg3d::Poly poly[3];
+  eg3d::PolyT<const T*> poly[3];
   int seg[3], dir[3];
-  float t[3], x[3], y[3];
-  float F1[9], F2[9];
-  eg3d::LocalObs<3> ob;  // P rows of the 3 cameras; points set per step
-  int i;                 // next step
+  T t[3], x[3], y[3];
+  T F1[9], F2[9];
+  eg3d::LocalObs<3, T> ob;  // P rows of the 3 cameras; points set per step
+  int i;                    // next step
   bool active;
 
-  __device__ __forceinline__ void load(const Args& a, int64_t seed) {
+  __device__ __forceinline__ void load(const Args<T>& a, int64_t seed) {
     s = seed;
     int c[3];
 #pragma unroll
@@ -158,39 +167,39 @@ struct Lane {
       x[k] = a.xy0[6 * s + 2 * k];
       y[k] = a.xy0[6 * s + 2 * k + 1];
       dir[k] = a.dirs[3 * s + k];
-      const float* p = a.P_mats + (int64_t)c[k] * 12;
+      const T* p = a.P_mats + (int64_t)c[k] * 12;
 #pragma unroll
       for (int q = 0; q < 12; ++q) ob.P[12 * k + q] = p[q];
-      ob.m[k] = 1.0f;
+      ob.m[k] = T(1);
     }
-    const float* f1 = a.F_table + ((int64_t)c[0] * a.V + c[1]) * 9;
-    const float* f2 = a.F_table + ((int64_t)c[0] * a.V + c[2]) * 9;
+    const T* f1 = a.F_table + ((int64_t)c[0] * a.V + c[1]) * 9;
+    const T* f2 = a.F_table + ((int64_t)c[0] * a.V + c[2]) * 9;
 #pragma unroll
     for (int q = 0; q < 9; ++q) {
       F1[q] = f1[q];
       F2[q] = f2[q];
     }
     i = 0;
-    active = a.active0[s] != 0 && a.T > 0;
+    active = a.active0[s] != 0 && a.T_steps > 0;
   }
 
   // One step: walk, then triangulate.  Returns whether the chain goes on.
-  __device__ __forceinline__ bool step(const Args& a) {
+  __device__ __forceinline__ bool step(const Args<T>& a) {
     int ns[3];
-    float nt[3], nx[3], ny[3];
+    T nt[3], nx[3], ny[3];
     bool ok = eg3d::advance(poly[0], seg[0], x[0], y[0], dir[0], a.step,
                             &ns[0], &nt[0], &nx[0], &ny[0]);
 #pragma unroll
     for (int k = 1; k < 3; ++k) {
       if (!ok) break;
-      float l0, l1, l2;
+      T l0, l1, l2;
       eg3d::epipolar(k == 1 ? F1 : F2, nx[0], ny[0], &l0, &l1, &l2);
       ok = intersect(poly[k], seg[k], t[k], x[k], y[k], dir[k], l0, l1, l2,
                      a.min_d, a.max_d, a.qcos, a.qdist, &ns[k], &nt[k],
                      &nx[k], &ny[k]);
     }
     if (!ok) return false;
-    const int64_t o = s * a.T + i;
+    const int64_t o = s * a.T_steps + i;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       a.obs[6 * o + 2 * k] = nx[k];
@@ -200,7 +209,7 @@ struct Lane {
       ob.x[k] = nx[k];
       ob.y[k] = ny[k];
     }
-    float X, Y, Z;
+    T X, Y, Z;
     if (a.X0 != nullptr) {
       X = a.X0[3 * s];
       Y = a.X0[3 * s + 1];
@@ -208,8 +217,8 @@ struct Lane {
     } else {
       eg3d::dlt(ob.P, ob, 3, &X, &Y, &Z);
     }
-    const eg3d::GNResult r =
-        eg3d::gauss_newton(ob.P, ob, 3, 3.0f, X, Y, Z, a.gn_iters,
+    const eg3d::GNResult<T> r =
+        eg3d::gauss_newton(ob.P, ob, 3, T(3), X, Y, Z, a.gn_iters,
                            a.epsilon, a.accept_mse, a.det_min);
     if (!r.valid) return false;
     a.valid[o] = 1;
@@ -224,10 +233,10 @@ struct Lane {
       y[k] = ny[k];
     }
     ++i;
-    return i < a.T;
+    return i < a.T_steps;
   }
 
-  __device__ __forceinline__ void finish(const Args& a) const {
+  __device__ __forceinline__ void finish(const Args<T>& a) const {
     a.n_steps[s] = i;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -237,8 +246,9 @@ struct Lane {
   }
 };
 
-__global__ void follow_walk_kernel(Args a) {
-  Lane lane;
+template <class T>
+__global__ void follow_walk_kernel(Args<T> a) {
+  Lane<T> lane;
   int s = grab(a.counter);
   if (s < a.S) lane.load(a, s);
   while (s < a.S) {
@@ -282,12 +292,36 @@ extern "C" int eg3d_follow_walk(
     int* counter, uint8_t* valid, int* n_steps, float* X, float* obs,
     int* seg, float* t, int* final_seg, float* final_t, void* stream) {
   if (S <= 0) return (int)cudaSuccess;
-  const Args a{coords, lengths, P, L, F_table, V, P_mats, cams, pls, seg0,
-               t0, xy0, dirs, active0, X0, S, T, step, min_d, max_d, qcos,
-               qdist, gn_iters, epsilon, accept_mse, det_min, counter, valid,
-               n_steps, X, obs, seg, t, final_seg, final_t};
+  const Args<float> a{coords, lengths, P, L, F_table, V, P_mats, cams, pls,
+                      seg0, t0, xy0, dirs, active0, X0, S, T, step, min_d,
+                      max_d, qcos, qdist, gn_iters, epsilon, accept_mse,
+                      det_min, counter, valid, n_steps, X, obs, seg, t,
+                      final_seg, final_t};
   const int threads = 128;
-  follow_walk_kernel<<<blocks_for(S, threads), threads, 0,
-                       (cudaStream_t)stream>>>(a);
+  follow_walk_kernel<float><<<blocks_for(S, threads), threads, 0,
+                              (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The f64 body: double polylines, F, P, positions, X0, walk and GN
+// parameters and outputs.
+extern "C" int eg3d_follow_walk_f64(
+    const double* coords, const int* lengths, int V, int P, int L,
+    const double* F_table, const double* P_mats, const int* cams,
+    const int* pls, const int* seg0, const double* t0, const double* xy0,
+    const int* dirs, const uint8_t* active0, const double* X0, int S, int T,
+    double step, double min_d, double max_d, double qcos, double qdist,
+    int gn_iters, double epsilon, double accept_mse, double det_min,
+    int* counter, uint8_t* valid, int* n_steps, double* X, double* obs,
+    int* seg, double* t, int* final_seg, double* final_t, void* stream) {
+  if (S <= 0) return (int)cudaSuccess;
+  const Args<double> a{coords, lengths, P, L, F_table, V, P_mats, cams, pls,
+                       seg0, t0, xy0, dirs, active0, X0, S, T, step, min_d,
+                       max_d, qcos, qdist, gn_iters, epsilon, accept_mse,
+                       det_min, counter, valid, n_steps, X, obs, seg, t,
+                       final_seg, final_t};
+  const int threads = 128;
+  follow_walk_kernel<double><<<blocks_for(S, threads), threads, 0,
+                               (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

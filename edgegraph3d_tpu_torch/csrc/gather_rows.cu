@@ -1,4 +1,5 @@
-// K5 gather_rows — whole rows of a row-major [R, W] f32 table by index.
+// K5 gather_rows — whole rows of a row-major [R, W] f32 (or f64) table by
+// index.
 //
 // Replaces (Pallas): tools/pallas_probe.py `gather_p` (pl.pallas_call at
 //   :145, body `kernel` at :120): S rows of the flat [V*P, 2L] polyline
@@ -24,6 +25,10 @@
 // Bound on the H100: memory.  Each output row is one read and one write
 // of W*4 bytes plus the index; rows are independent, so enough warps are
 // in flight to hide the gather latency.
+//
+// f64 (EdgeGraphConfig(dtype="float64"): the polyline table is f64): the
+// same template on double, 16-byte double2 pieces when W is even and
+// both pointers are 16-byte aligned, else 8-byte doubles.
 
 #undef NDEBUG
 #include <cassert>
@@ -62,12 +67,25 @@ void launch(const float* table, int64_t R, int64_t W, const I* rows,
   }
 }
 
-}  // namespace
+template <typename I>
+void launch(const double* table, int64_t R, int64_t W, const I* rows,
+            int64_t S, double* out, cudaStream_t s) {
+  const int threads = 256;  // 8 rows per block
+  const dim3 blocks((unsigned)((S * 32 + threads - 1) / threads));
+  const bool vec = (W % 2 == 0) && ((uintptr_t)table % 16 == 0) &&
+                   ((uintptr_t)out % 16 == 0);
+  if (vec) {
+    gather_rows_kernel<double2, I><<<blocks, threads, 0, s>>>(
+        (const double2*)table, R, W / 2, rows, S, (double2*)out);
+  } else {
+    gather_rows_kernel<double, I><<<blocks, threads, 0, s>>>(table, R, W,
+                                                             rows, S, out);
+  }
+}
 
-// rows: int64 when idx64 != 0, else int32.
-extern "C" int eg3d_gather_rows(const float* table, int64_t R, int64_t W,
-                                const void* rows, int idx64, int64_t S,
-                                float* out, void* stream) {
+template <typename E>
+int gather_rows(const E* table, int64_t R, int64_t W, const void* rows,
+                int idx64, int64_t S, E* out, void* stream) {
   if (S <= 0 || W <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (idx64) {
@@ -76,4 +94,20 @@ extern "C" int eg3d_gather_rows(const float* table, int64_t R, int64_t W,
     launch(table, R, W, (const int32_t*)rows, S, out, s);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// rows: int64 when idx64 != 0, else int32.
+extern "C" int eg3d_gather_rows(const float* table, int64_t R, int64_t W,
+                                const void* rows, int idx64, int64_t S,
+                                float* out, void* stream) {
+  return gather_rows(table, R, W, rows, idx64, S, out, stream);
+}
+
+// The f64 table: [R, W] doubles.
+extern "C" int eg3d_gather_rows_f64(const double* table, int64_t R,
+                                    int64_t W, const void* rows, int idx64,
+                                    int64_t S, double* out, void* stream) {
+  return gather_rows(table, R, W, rows, idx64, S, out, stream);
 }

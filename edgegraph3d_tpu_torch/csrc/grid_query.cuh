@@ -7,6 +7,13 @@
 // wrappers check that the grid stack is 8-byte aligned): (pl, seg)
 // first, and the segment's endpoints only when pl >= 0 (most slots of a
 // cell are empty).
+//
+// The queries' coordinates, lines and outputs are of the compute scalar T
+// (float, or double in the f64 bodies); an expression between two grid
+// values stays f32, as it does in the JAX package under x64 (e.g. a
+// segment's b - a), and promotes where it meets a T (common.cuh).  K2's
+// observation point may be f32 while its line is f64 (the stage-3
+// seeding's starts): its type Q sets the cell lookup's division.
 #pragma once
 
 #include "common.cuh"
@@ -44,19 +51,18 @@ static __device__ __forceinline__ const float* entry_ptr(
 
 // K1's test of one non-empty entry against the point (px, py): the
 // point-segment distance, offered to the top-M when within `radius`.
-template <int M>
-__device__ __forceinline__ void grid_entry(const Entry& en, float px,
-                                           float py, float radius,
-                                           TopM<M>& top) {
+template <int M, class T>
+__device__ __forceinline__ void grid_entry(const Entry& en, T px, T py,
+                                           T radius, TopM<M, T>& top) {
   const float ux = en.bx - en.ax;
   const float uy = en.by - en.ay;
   const float denom = nmax(ux * ux + uy * uy, 1e-12f);
-  const float t = clip01(((px - en.ax) * ux + (py - en.ay) * uy) / denom);
-  const float qx = en.ax + t * ux;
-  const float qy = en.ay + t * uy;
-  const float dx = px - qx;
-  const float dy = py - qy;
-  const float d = sqrtf(dx * dx + dy * dy);
+  const T t = clip01(((px - en.ax) * ux + (py - en.ay) * uy) / denom);
+  const T qx = en.ax + t * ux;
+  const T qy = en.ay + t * uy;
+  const T dx = px - qx;
+  const T dy = py - qy;
+  const T d = vsqrt(dx * dx + dy * dy);
   if (d <= radius) top.offer(d, en.pl, en.seg, t, qx, qy);
 }
 
@@ -65,12 +71,11 @@ __device__ __forceinline__ void grid_entry(const Entry& en, float px,
 // does), Kc entries (pl, seg, ax, ay, bx, by) per cell, the point-segment
 // distance, entries within `radius` offered to the top-M of distinct
 // polylines.  K1's generic body (any Kc) and K7 run it.
-template <int M>
+template <int M, class T>
 __device__ __forceinline__ void grid_topm_one(const float* __restrict__ grids,
                                               int GH, int GW, int Kc,
-                                              int64_t v, float px, float py,
-                                              float cell, float radius,
-                                              TopM<M>& top) {
+                                              int64_t v, T px, T py, T cell,
+                                              T radius, TopM<M, T>& top) {
   const int cx = cell_of(px, cell, GW);
   const int cy = cell_of(py, cell, GH);
   top.init();
@@ -92,30 +97,29 @@ __device__ __forceinline__ void grid_topm_one(const float* __restrict__ grids,
 // the observation (ox, oy): true when the segment crosses the line
 // within `rad` (optionally not quasi-parallel, |cos| >= excl_cos), with
 // the distance, the crossing parameter and the crossing point.
+template <class T, class Q>
 static __device__ __forceinline__ bool epipolar_entry(
-    const Entry& en, float ox, float oy, float l0, float l1, float l2,
-    float rad, int use_excl, float excl_cos, float* d, float* s_out,
-    float* x_out, float* y_out) {
-  const float sa = en.ax * l0 + en.ay * l1 + l2;
-  const float sb = en.bx * l0 + en.by * l1 + l2;
-  const float diff = sa - sb;
-  const bool parallel = fabsf(diff) < 1e-9f;
-  const float s = parallel ? 0.0f : sa / diff;
-  bool crosses =
-      (sa * sb <= 0.0f) && !parallel && (s >= 0.0f) && (s <= 1.0f);
+    const Entry& en, Q ox, Q oy, T l0, T l1, T l2, T rad, int use_excl,
+    T excl_cos, T* d, T* s_out, T* x_out, T* y_out) {
+  const T sa = en.ax * l0 + en.ay * l1 + l2;
+  const T sb = en.bx * l0 + en.by * l1 + l2;
+  const T diff = sa - sb;
+  const bool parallel = vabs(diff) < T(1e-9);
+  const T s = parallel ? T(0) : sa / diff;
+  bool crosses = (sa * sb <= T(0)) && !parallel && (s >= T(0)) && (s <= T(1));
   const float abx = en.bx - en.ax;
   const float aby = en.by - en.ay;
   if (use_excl) {
     const float len = nmax(sqrtf(abx * abx + aby * aby), 1e-12f);
-    const float c = fabsf(abx * (-l1) + aby * l0) / len;
+    const T c = vabs(abx * (-l1) + aby * l0) / len;
     crosses = crosses && (c < excl_cos);
   }
   if (!crosses) return false;
-  const float x = en.ax + s * abx;
-  const float y = en.ay + s * aby;
-  const float ex = x - ox;
-  const float ey = y - oy;
-  *d = sqrtf(ex * ex + ey * ey);
+  const T x = en.ax + s * abx;
+  const T y = en.ay + s * aby;
+  const T ex = x - ox;
+  const T ey = y - oy;
+  *d = vsqrt(ex * ex + ey * ey);
   *s_out = s;
   *x_out = x;
   *y_out = y;
@@ -126,11 +130,11 @@ static __device__ __forceinline__ bool epipolar_entry(
 // on view v, every entry's segment intersected with the normalized line,
 // crossings within `rad` offered to the top-M of distinct polylines in
 // the reference's gather order.  K7's "epipolar" mode runs it per point.
-template <int M>
+template <int M, class T, class Q>
 __device__ __forceinline__ void epipolar_topm_one(
     const float* __restrict__ grids, int GH, int GW, int Kc, int64_t v,
-    float ox, float oy, float l0, float l1, float l2, float rad, float cell,
-    int use_excl, float excl_cos, TopM<M>& top) {
+    Q ox, Q oy, T l0, T l1, T l2, T rad, Q cell, int use_excl, T excl_cos,
+    TopM<M, T>& top) {
   const int cx = cell_of(ox, cell, GW);
   const int cy = cell_of(oy, cell, GH);
   top.init();
@@ -142,7 +146,7 @@ __device__ __forceinline__ void epipolar_topm_one(
       for (int k = 0; k < Kc; ++k, e += 6) {
         Entry en;
         if (!load_entry(e, &en)) continue;
-        float d, s, x, y;
+        T d, s, x, y;
         if (epipolar_entry(en, ox, oy, l0, l1, l2, rad, use_excl, excl_cos,
                            &d, &s, &x, &y))
           top.offer(d, en.pl, en.seg, s, x, y);
@@ -160,34 +164,33 @@ __device__ __forceinline__ void epipolar_topm_one(
 // earliest of equal distances win.  Empty slots hold (BIG, -1, -1), so a
 // candidate at distance BIG never enters, as in TopM.  The winners'
 // fields (seg, t, x, y) are recomputed from their entries at the end.
-template <int M>
+template <int M, class T = float>
 struct TopKey {
-  float d[M];
+  T d[M];
   int idx[M];
   int pl[M];
 
-  static __device__ __forceinline__ bool less(float d1, int i1, float d2,
-                                              int i2) {
+  static __device__ __forceinline__ bool less(T d1, int i1, T d2, int i2) {
     return d1 < d2 || (d1 == d2 && i1 < i2);
   }
 
   __device__ __forceinline__ void init() {
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      d[i] = BIG;
+      d[i] = big<T>();
       idx[i] = -1;
       pl[i] = -1;
     }
   }
 
   __device__ __forceinline__ void swap_down(int i) {  // swap i-1 <-> i
-    float fd = d[i]; d[i] = d[i - 1]; d[i - 1] = fd;
+    T fd = d[i]; d[i] = d[i - 1]; d[i - 1] = fd;
     int ii = idx[i]; idx[i] = idx[i - 1]; idx[i - 1] = ii;
     int ip = pl[i]; pl[i] = pl[i - 1]; pl[i - 1] = ip;
   }
 
   // p >= 0
-  __device__ __forceinline__ void offer(float dd, int ii, int p) {
+  __device__ __forceinline__ void offer(T dd, int ii, int p) {
     bool same = false;
     bool moved = false;
 #pragma unroll
@@ -219,7 +222,7 @@ struct TopKey {
   // group's top-M.
   template <int G>
   __device__ __forceinline__ void merge_xor(int off) {
-    float od[M];
+    T od[M];
     int oi[M], op[M];
 #pragma unroll
     for (int i = 0; i < M; ++i) {

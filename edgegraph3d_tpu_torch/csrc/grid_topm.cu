@@ -43,17 +43,25 @@
 // without reuse between lanes the kernel streams ~1.7 KB a query from
 // L2, and that traffic, not the ~21 flops per entry, set its time in the
 // caller's order (PERF.md).
+//
+// The query points' type Q is float or double (EdgeGraphConfig(dtype=
+// "float64"): chain extension re-anchors f64 projections).  The grid stays
+// f32; a query's distance, parameter and closest point are Q, as in the
+// JAX package under x64 (grid_query.cuh grid_entry), and so are the
+// outputs t, xy and dist.  The f64 body stores its rows as 16-byte
+// double2 pieces where a row holds an even count, else as scalars.
 
 #include "grid_query.cuh"
 
 namespace {
 
+template <class Q>
 struct Out {
   int* pl;
   int* seg;
-  float* t;
-  float* xy;
-  float* dist;
+  Q* t;
+  Q* xy;
+  Q* dist;
   uint8_t* valid;
 };
 
@@ -71,12 +79,11 @@ __device__ __forceinline__ float comp(const float4 (&r)[N], int i) {
 }
 
 // K1's query over cells of KC entries, each cell loaded at once.
-template <int M, int KC>
+template <int M, int KC, class Q>
 __device__ __forceinline__ void grid_topm_cells(const float* __restrict__ grids,
                                                 int GH, int GW, int64_t v,
-                                                float px, float py,
-                                                float cell, float radius,
-                                                eg3d::TopM<M>& top) {
+                                                Q px, Q py, Q cell, Q radius,
+                                                eg3d::TopM<M, Q>& top) {
   constexpr int N4 = KC * 6 / 4;
   const int cx = eg3d::cell_of(px, cell, GW);
   const int cy = eg3d::cell_of(py, cell, GH);
@@ -124,6 +131,18 @@ __device__ __forceinline__ void store_row(float* dst, const float (&v)[N]) {
 }
 
 template <int N>
+__device__ __forceinline__ void store_row(double* dst, const double (&v)[N]) {
+  if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i)
+      reinterpret_cast<double2*>(dst)[i] = make_double2(v[2 * i], v[2 * i + 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) dst[i] = v[i];
+  }
+}
+
+template <int N>
 __device__ __forceinline__ void store_row(int* dst, const int (&v)[N]) {
   if constexpr (N % 4 == 0) {
 #pragma unroll
@@ -156,21 +175,21 @@ __device__ __forceinline__ void store_row(uint8_t* dst,
 
 // Query q's row of every output: the values TopM::store writes, row by
 // row.
-template <int M>
-__device__ __forceinline__ void store(const eg3d::TopM<M>& top, int64_t q,
-                                      const Out& o) {
+template <int M, class Q>
+__device__ __forceinline__ void store(const eg3d::TopM<M, Q>& top, int64_t q,
+                                      const Out<Q>& o) {
   int pl[M], seg[M];
-  float t[M], xy[2 * M], dist[M];
+  Q t[M], xy[2 * M], dist[M];
   uint8_t valid[M];
 #pragma unroll
   for (int i = 0; i < M; ++i) {
     const bool ok = top.ok(i);
     pl[i] = ok ? top.pl[i] : -1;
     seg[i] = ok ? top.seg[i] : 0;
-    t[i] = ok ? top.t[i] : 0.0f;
-    xy[2 * i] = ok ? top.x[i] : 0.0f;
-    xy[2 * i + 1] = ok ? top.y[i] : 0.0f;
-    dist[i] = ok ? top.d[i] : eg3d::BIG;
+    t[i] = ok ? top.t[i] : Q(0);
+    xy[2 * i] = ok ? top.x[i] : Q(0);
+    xy[2 * i + 1] = ok ? top.y[i] : Q(0);
+    dist[i] = ok ? top.d[i] : eg3d::big<Q>();
     valid[i] = ok ? 1 : 0;
   }
   store_row(o.pl + q * M, pl);
@@ -187,19 +206,26 @@ __device__ __forceinline__ void store(const eg3d::TopM<M>& top, int64_t q,
 // on view q % V), and thread t takes query (t % n_rows) V + t / n_rows,
 // so a warp's lanes take neighbouring rows on one view.  Only the visiting
 // order changes: each query still reads view[q] and writes its own row.
-template <int M, int KC>
+// A query point as one 8-byte (float2) or 16-byte (double2) load.
+__device__ __forceinline__ float2 load_pt(const float* pts, int64_t q) {
+  return __ldg(reinterpret_cast<const float2*>(pts) + q);
+}
+__device__ __forceinline__ double2 load_pt(const double* pts, int64_t q) {
+  return __ldg(reinterpret_cast<const double2*>(pts) + q);
+}
+
+template <int M, int KC, class Q>
 __global__ void grid_topm_kernel(const float* __restrict__ grids, int V,
                                  int GH, int GW, int Kc,
                                  const int* __restrict__ view,
-                                 const float* __restrict__ pts, int Q,
-                                 int n_rows, float cell, float radius,
-                                 Out o) {
+                                 const Q* __restrict__ pts, int n_q,
+                                 int n_rows, Q cell, Q radius, Out<Q> o) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= Q) return;
+  if (t >= n_q) return;
   const int64_t q = n_rows > 0 ? (t % n_rows) * V + t / n_rows : t;
   const int64_t v = __ldg(view + q);
-  const float2 p = __ldg(reinterpret_cast<const float2*>(pts) + q);
-  eg3d::TopM<M> top;
+  const auto p = load_pt(pts, q);
+  eg3d::TopM<M, Q> top;
   if constexpr (KC > 0) {
     grid_topm_cells<M, KC>(grids, GH, GW, v, p.x, p.y, cell, radius, top);
   } else {
@@ -209,19 +235,40 @@ __global__ void grid_topm_kernel(const float* __restrict__ grids, int V,
   store(top, q, o);
 }
 
-template <int M>
+template <int M, class Q>
 void launch(const float* grids, int V, int GH, int GW, int Kc,
-            const int* view, const float* pts, int Q, int n_rows, float cell,
-            float radius, const Out& o, cudaStream_t stream) {
+            const int* view, const Q* pts, int n_q, int n_rows, Q cell,
+            Q radius, const Out<Q>& o, cudaStream_t stream) {
   const int threads = 128;
-  const int blocks = (Q + threads - 1) / threads;
+  const int blocks = (n_q + threads - 1) / threads;
   if (Kc == 8) {
-    grid_topm_kernel<M, 8><<<blocks, threads, 0, stream>>>(
-        grids, V, GH, GW, Kc, view, pts, Q, n_rows, cell, radius, o);
+    grid_topm_kernel<M, 8, Q><<<blocks, threads, 0, stream>>>(
+        grids, V, GH, GW, Kc, view, pts, n_q, n_rows, cell, radius, o);
   } else {
-    grid_topm_kernel<M, 0><<<blocks, threads, 0, stream>>>(
-        grids, V, GH, GW, Kc, view, pts, Q, n_rows, cell, radius, o);
+    grid_topm_kernel<M, 0, Q><<<blocks, threads, 0, stream>>>(
+        grids, V, GH, GW, Kc, view, pts, n_q, n_rows, cell, radius, o);
   }
+}
+
+template <class Q>
+int grid_topm(const float* grids, int V, int GH, int GW, int Kc,
+              const int* view, const Q* pts, int n_q, Q cell, Q radius,
+              int M, int n_rows, const Out<Q>& o, cudaStream_t s) {
+  if (n_rows < 0 || (n_rows > 0 && (int64_t)n_rows * V != n_q))
+    return (int)cudaErrorInvalidValue;
+#define EG3D_LAUNCH(m) \
+  launch<m, Q>(grids, V, GH, GW, Kc, view, pts, n_q, n_rows, cell, radius, \
+               o, s)
+  switch (M) {
+    case 1: EG3D_LAUNCH(1); break;
+    case 2: EG3D_LAUNCH(2); break;
+    case 3: EG3D_LAUNCH(3); break;
+    case 4: EG3D_LAUNCH(4); break;
+    case 8: EG3D_LAUNCH(8); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef EG3D_LAUNCH
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -233,20 +280,20 @@ extern "C" int eg3d_grid_topm(const float* grids, int V, int GH, int GW,
                               int n_rows, int* pl, int* seg, float* t,
                               float* xy, float* dist, uint8_t* valid,
                               void* stream) {
-  if (n_rows < 0 || (n_rows > 0 && (int64_t)n_rows * V != Q))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const Out o{pl, seg, t, xy, dist, valid};
-#define EG3D_LAUNCH(m) \
-  launch<m>(grids, V, GH, GW, Kc, view, pts, Q, n_rows, cell, radius, o, s)
-  switch (M) {
-    case 1: EG3D_LAUNCH(1); break;
-    case 2: EG3D_LAUNCH(2); break;
-    case 3: EG3D_LAUNCH(3); break;
-    case 4: EG3D_LAUNCH(4); break;
-    case 8: EG3D_LAUNCH(8); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef EG3D_LAUNCH
-  return (int)cudaGetLastError();
+  return grid_topm<float>(grids, V, GH, GW, Kc, view, pts, Q, cell, radius,
+                          M, n_rows, Out<float>{pl, seg, t, xy, dist, valid},
+                          (cudaStream_t)stream);
+}
+
+// The f64 body: double query points (16-byte aligned), double outputs.
+extern "C" int eg3d_grid_topm_f64(const float* grids, int V, int GH, int GW,
+                                  int Kc, const int* view, const double* pts,
+                                  int Q, double cell, double radius, int M,
+                                  int n_rows, int* pl, int* seg, double* t,
+                                  double* xy, double* dist, uint8_t* valid,
+                                  void* stream) {
+  return grid_topm<double>(grids, V, GH, GW, Kc, view, pts, Q, cell, radius,
+                           M, n_rows,
+                           Out<double>{pl, seg, t, xy, dist, valid},
+                           (cudaStream_t)stream);
 }

@@ -165,9 +165,9 @@ __device__ __forceinline__ void pairs(
     int q0 = 0, q1 = 0, n_hit = 0;
     float s0 = 0.0f, s1 = 0.0f;
     for (int q = 0; q < len - 1 && n_hit < 2; ++q) {
-      const eg3d::SegLine sl = eg3d::seg_line(pc[2 * q], pc[2 * q + 1],
-                                              pc[2 * q + 2], pc[2 * q + 3],
-                                              l0, l1, l2, qcos, qdist);
+      const auto sl = eg3d::seg_line(pc[2 * q], pc[2 * q + 1],
+                                     pc[2 * q + 2], pc[2 * q + 3], l0, l1,
+                                     l2, qcos, qdist);
       if (sl.has) {
         if (n_hit == 0) { q0 = q; s0 = sl.s; } else { q1 = q; s1 = sl.s; }
         ++n_hit;

@@ -44,6 +44,14 @@
 //
 // Bound on the H100: arithmetic (~85 flops per observation and GN
 // iteration), with a sequential per-point loop.
+//
+// f64 (EdgeGraphConfig(dtype="float64")): the O = 3 body is the same
+// template in double.  The general body's guards above (TAME_P, TAME_XY,
+// the probe row) bound f32 overflow, so its double form takes the padded
+// loop, the JAX package's own form, bit-equal to it by construction: the
+// block stages P [V, 3, 4] in double (96 V bytes, placed like the f32
+// table) and every point runs DLT and GN over all O observations with
+// weight-0 masked ones.
 
 #include "gn.cuh"
 
@@ -55,16 +63,17 @@ constexpr float PROBE_SCALE = 309485009821345068724781056.0f;  // 2^88
 
 // Observation o of one point, padded: [O] camera indices, [O, 2] points
 // and an [O] mask, as K3's callers lay them out.
+template <class T>
 struct MaskedObs {
   const int* cam;
-  const float* xy;
+  const T* xy;
   const uint8_t* mask;
-  __device__ __forceinline__ void operator()(int o, int* c, float* ox,
-                                             float* oy, float* m) const {
+  __device__ __forceinline__ void operator()(int o, int* c, T* ox, T* oy,
+                                             T* m) const {
     *c = cam[o];
     *ox = xy[2 * o];
     *oy = xy[2 * o + 1];
-    *m = mask[o] ? 1.0f : 0.0f;
+    *m = mask[o] ? T(1) : T(0);
   }
 };
 
@@ -105,8 +114,9 @@ struct LiveObs {
   }
 };
 
-__device__ __forceinline__ void store(int64_t n, const eg3d::GNResult& r,
-                                      float* X_out, float* mse_out,
+template <class T>
+__device__ __forceinline__ void store(int64_t n, const eg3d::GNResult<T>& r,
+                                      T* X_out, T* mse_out,
                                       uint8_t* valid_out) {
   X_out[3 * n] = r.x;
   X_out[3 * n + 1] = r.y;
@@ -115,27 +125,27 @@ __device__ __forceinline__ void store(int64_t n, const eg3d::GNResult& r,
   valid_out[n] = r.valid ? 1 : 0;
 }
 
+template <class T>
 __global__ void triangulate_gn3_kernel(
-    const float* __restrict__ P_mats, const int* __restrict__ cams,
-    const float* __restrict__ xy, const uint8_t* __restrict__ mask, int N,
-    const float* __restrict__ X0, int max_iters, float epsilon,
-    float accept_mse, float det_min, float* X_out, float* mse_out,
-    uint8_t* valid_out) {
+    const T* __restrict__ P_mats, const int* __restrict__ cams,
+    const T* __restrict__ xy, const uint8_t* __restrict__ mask, int N,
+    const T* __restrict__ X0, int max_iters, T epsilon, T accept_mse,
+    T det_min, T* X_out, T* mse_out, uint8_t* valid_out) {
   const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  eg3d::LocalObs<3> ob;
-  float mask_sum = 0.0f;
+  eg3d::LocalObs<3, T> ob;
+  T mask_sum = T(0);
 #pragma unroll
   for (int o = 0; o < 3; ++o) {
-    const float* p = P_mats + (int64_t)cams[3 * n + o] * 12;
+    const T* p = P_mats + (int64_t)cams[3 * n + o] * 12;
 #pragma unroll
     for (int k = 0; k < 12; ++k) ob.P[12 * o + k] = p[k];
     ob.x[o] = xy[6 * n + 2 * o];
     ob.y[o] = xy[6 * n + 2 * o + 1];
-    ob.m[o] = mask[3 * n + o] ? 1.0f : 0.0f;
+    ob.m[o] = mask[3 * n + o] ? T(1) : T(0);
     mask_sum = mask_sum + ob.m[o];
   }
-  float x, y, z;
+  T x, y, z;
   if (X0 != nullptr) {
     x = X0[3 * n];
     y = X0[3 * n + 1];
@@ -211,7 +221,7 @@ __device__ __forceinline__ void gn_row(
                !(fabsf(ob[2 * o + 1]) <= TAME_XY);
     }
   }
-  const MaskedObs all{cam, ob, mk};
+  const MaskedObs<float> all{cam, ob, mk};
   const LiveObs live{cam, ob, mk, n_live, V, -2, -1};
   float x, y, z;
   if (X0 != nullptr) {
@@ -223,7 +233,7 @@ __device__ __forceinline__ void gn_row(
   } else {
     eg3d::dlt(P, live, n_live, &x, &y, &z);
   }
-  eg3d::GNResult r;
+  eg3d::GNResult<float> r;
   if (!padded) {
     r = eg3d::gauss_newton(P, live, n_live + 1, mask_sum, x, y, z,
                            max_iters, epsilon, accept_mse, det_min);
@@ -276,11 +286,74 @@ int gn_smem_bytes(int V) {
   return (V + 1) * 12 * (int)sizeof(float) + V;
 }
 
+// The f64 general body: the padded loop over all O observations, P read
+// from the block's staged copy (kGlobal = false) or through the
+// read-only path (true).
+template <bool kGlobal>
+__global__ void triangulate_gn_padded_kernel(
+    const double* __restrict__ P_mats, int V, const int* __restrict__ cams,
+    const double* __restrict__ xy, const uint8_t* __restrict__ mask, int N,
+    int O, const double* __restrict__ X0, int max_iters, double epsilon,
+    double accept_mse, double det_min, double* X_out, double* mse_out,
+    uint8_t* valid_out) {
+  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ double P_dsh[];  // [V, 3, 4]
+  if constexpr (!kGlobal) {
+    for (int i = threadIdx.x; i < V * 12; i += blockDim.x)
+      P_dsh[i] = P_mats[i];
+    __syncthreads();
+  }
+  if (n >= N) return;
+  const MaskedObs<double> all{cams + n * O, xy + n * O * 2, mask + n * O};
+  double mask_sum = 0.0;
+  for (int o = 0; o < O; ++o)
+    mask_sum = mask_sum + (mask[n * O + o] ? 1.0 : 0.0);
+  double x, y, z;
+  const auto run = [&](const auto P) {
+    if (X0 != nullptr) {
+      x = X0[3 * n];
+      y = X0[3 * n + 1];
+      z = X0[3 * n + 2];
+    } else {
+      eg3d::dlt(P, all, O, &x, &y, &z);
+    }
+    return eg3d::gauss_newton(P, all, O, mask_sum, x, y, z, max_iters,
+                              epsilon, accept_mse, det_min);
+  };
+  if constexpr (kGlobal) {
+    store(n, run(eg3d::LdgT<double>{P_mats}), X_out, mse_out, valid_out);
+  } else {
+    store(n, run((const double*)P_dsh), X_out, mse_out, valid_out);
+  }
+}
+
+int gn_smem_bytes_f64(int V) { return V * 12 * (int)sizeof(double); }
+
+// 0 on success; the launch of the O = 3 body, else of the general body
+// at placement `place`, in T.
+template <class T>
+int launch_gn3(const T* P_mats, const int* cams, const T* xy,
+               const uint8_t* mask, int N, const T* X0, int max_iters,
+               T epsilon, T accept_mse, T det_min, T* X, T* mse,
+               uint8_t* valid, cudaStream_t s) {
+  const int threads = 128;
+  const int blocks = (N + threads - 1) / threads;
+  triangulate_gn3_kernel<T><<<blocks, threads, 0, s>>>(
+      P_mats, cams, xy, mask, N, X0, max_iters, epsilon, accept_mse, det_min,
+      X, mse, valid);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Dynamic shared memory of the general body's block (0 for O = 3).
 extern "C" int eg3d_triangulate_gn_smem(int V, int O) {
   return O == 3 ? 0 : gn_smem_bytes(V);
+}
+
+// The same for the f64 general body (P only, in double).
+extern "C" int eg3d_triangulate_gn_smem_f64(int V, int O) {
+  return O == 3 ? 0 : gn_smem_bytes_f64(V);
 }
 
 // place (the general body): 0 the table in at most 48 KiB of shared
@@ -296,9 +369,8 @@ extern "C" int eg3d_triangulate_gn(const float* P_mats, int V, const int* cams,
   const int blocks = (N + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;
   if (O == 3) {
-    triangulate_gn3_kernel<<<blocks, threads, 0, s>>>(
-        P_mats, cams, xy, mask, N, X0, max_iters, epsilon, accept_mse,
-        det_min, X, mse, valid);
+    return launch_gn3<float>(P_mats, cams, xy, mask, N, X0, max_iters,
+                             epsilon, accept_mse, det_min, X, mse, valid, s);
   } else if (place == 2) {
     triangulate_gn_kernel<true><<<blocks, threads, 0, s>>>(
         P_mats, V, cams, xy, mask, N, O, X0, max_iters, epsilon, accept_mse,
@@ -313,6 +385,41 @@ extern "C" int eg3d_triangulate_gn(const float* P_mats, int V, const int* cams,
       if (e != cudaSuccess) return (int)e;
     }
     triangulate_gn_kernel<false><<<blocks, threads, smem, s>>>(
+        P_mats, V, cams, xy, mask, N, O, X0, max_iters, epsilon, accept_mse,
+        det_min, X, mse, valid);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The f64 bodies: double P_mats, points, X0, thresholds and outputs.
+extern "C" int eg3d_triangulate_gn_f64(const double* P_mats, int V,
+                                       const int* cams, const double* xy,
+                                       const uint8_t* mask, int N, int O,
+                                       const double* X0, int max_iters,
+                                       double epsilon, double accept_mse,
+                                       double det_min, int place, double* X,
+                                       double* mse, uint8_t* valid,
+                                       void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (O == 3)
+    return launch_gn3<double>(P_mats, cams, xy, mask, N, X0, max_iters,
+                              epsilon, accept_mse, det_min, X, mse, valid, s);
+  const int threads = 128;
+  const int blocks = (N + threads - 1) / threads;
+  if (place == 2) {
+    triangulate_gn_padded_kernel<true><<<blocks, threads, 0, s>>>(
+        P_mats, V, cams, xy, mask, N, O, X0, max_iters, epsilon, accept_mse,
+        det_min, X, mse, valid);
+  } else {
+    const int smem = gn_smem_bytes_f64(V);
+    if (place == 0 && smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+    if (place == 1) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          triangulate_gn_padded_kernel<false>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    triangulate_gn_padded_kernel<false><<<blocks, threads, smem, s>>>(
         P_mats, V, cams, xy, mask, N, O, X0, max_iters, epsilon, accept_mse,
         det_min, X, mse, valid);
   }

@@ -11,12 +11,21 @@ launches on the caller's stream and returns `cudaGetLastError()`;
 given, not on the thread's current device (a mesh's shards sit on
 `cuda:1` and above while `cuda:0` is current).
 
-`LAUNCHES` holds one plain-integer launch count per kernel.  The
-wrappers (detection.grid_topm_query / epipolar_topm_query,
+`LAUNCHES[name][dtype]` counts the launches of kernel `name`'s
+instantiation for one compute type ("float32", or "float64" for the f64
+bodies of K1-K5 and K7 that EdgeGraphConfig(dtype="float64") runs);
+`launch_totals()` sums them per kernel.  The wrappers
+(detection.grid_topm_query / epipolar_topm_query,
 triangulation.triangulate_gn, following.follow_walk, gather.gather_rows,
 polyline_stages.group_seed_sample, expansion.expand_chains_compact,
-ba.ba_blocks) add one right after each launch of their kernel and
-nowhere else.
+ba.ba_blocks) call `count_launch` right after each launch of their
+kernel and nowhere else.
+
+A wrapper picks its instantiation from the promoted type of its float
+inputs, as jnp.result_type would under x64 (`compute_dtype`); it widens
+an f32 input to f64 only where the JAX package promotes it, never
+narrows f64 to f32, and raises for a type it has no instantiation of
+(`require_float`).
 
 Arithmetic is compiled with `--fmad=false`: the plain-torch twins round
 after every multiply and add, and contracting `a*b+c` into one FMA would
@@ -48,7 +57,11 @@ MAIN_PATH_KERNELS = ("grid_topm_query", "epipolar_topm_query",
                      "group_seed_sample", "expand_chains")
 #: K8 runs only with joint BA (config.ba_steps > 0)
 KERNEL_NAMES = MAIN_PATH_KERNELS + ("ba_blocks",)
-LAUNCHES = {k: 0 for k in KERNEL_NAMES}
+#: the kernels with a float64 instantiation (the stage-3 path's)
+F64_KERNELS = ("grid_topm_query", "epipolar_topm_query", "triangulate_gn",
+               "follow_walk", "gather_rows", "expand_chains")
+DTYPES = ("float32", "float64")
+LAUNCHES = {k: {d: 0 for d in DTYPES} for k in KERNEL_NAMES}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -56,6 +69,7 @@ _LIB = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 _L = ctypes.c_int64
 _SIGNATURES = {
     # device, bytes out
@@ -85,6 +99,7 @@ _SIGNATURES = {
                          _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # table, R, W, rows, idx64 (rows int64, else int32), S, out, stream
     "eg3d_gather_rows": [_P, _L, _L, _P, _I, _L, _P, _P],
+    "eg3d_gather_rows_f64": [_P, _L, _L, _P, _I, _L, _P, _P],
     # K, L, S -> bytes of one block's member table
     "eg3d_group_seed_sample_smem": [_I, _I, _I],
     # coords, lengths, cams, mask, G, K, L, F_table, V, S, spacing, qcos,
@@ -111,9 +126,61 @@ _SIGNATURES = {
 }
 
 
+def _f64(name: str) -> list:
+    """The f32 entry `name`'s argument types with every float made a
+    double: its f64 entry takes its scalars in double."""
+    return [_D if t is _F else t for t in _SIGNATURES[name]]
+
+
+_K2_F64 = _f64("eg3d_epipolar_topm")
+_SIGNATURES.update({
+    "eg3d_grid_topm_f64": _f64("eg3d_grid_topm"),
+    # eg3d_epipolar_topm's, with pts_f64 after pts (double or float points)
+    "eg3d_epipolar_topm_f64": _K2_F64[:7] + [_I] + _K2_F64[7:],
+    "eg3d_triangulate_gn_f64": _f64("eg3d_triangulate_gn"),
+    "eg3d_triangulate_gn_smem_f64": [_I, _I],
+    "eg3d_follow_walk_f64": _f64("eg3d_follow_walk"),
+    "eg3d_expand_chains_f64": _f64("eg3d_expand_chains"),
+})
+
+
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in LAUNCHES.values():
+        for d in counts:
+            counts[d] = 0
+
+
+def count_launch(name: str, dtype) -> None:
+    """One launch of kernel `name`'s instantiation for `dtype` (a torch
+    dtype or its name)."""
+    LAUNCHES[name][str(dtype).replace("torch.", "")] += 1
+
+
+def launch_totals() -> dict:
+    """Launches per kernel, over all its instantiations."""
+    return {k: sum(c.values()) for k, c in LAUNCHES.items()}
+
+
+def compute_dtype(*tensors):
+    """The promoted floating type of the given tensors (None entries
+    skipped), torch.promote_types pairwise, as jnp.result_type promotes
+    arrays under x64."""
+    import torch
+    out = None
+    for t in tensors:
+        if t is not None:
+            out = t.dtype if out is None else torch.promote_types(out, t.dtype)
+    return out
+
+
+def require_float(dtype, name: str):
+    """`dtype` if a kernel has an instantiation for it (float32, float64),
+    else a TypeError naming the kernel: no wrapper falls back to its
+    plain version on a CUDA tensor."""
+    import torch
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: no kernel instantiation for {dtype}")
+    return dtype
 
 
 #: dynamic shared memory a block may take without opting in

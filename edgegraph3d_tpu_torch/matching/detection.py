@@ -18,6 +18,12 @@ index, so one launch serves every view.  The plain-torch twins
 (`_grid_topm_plain`, `_epipolar_topm_plain`) gather the neighbourhood
 and select with `_topm_distinct`, the reference's M masked argmins; the
 wrappers use them for CPU tensors only.
+
+Types.  The grid is f32.  K1's outputs take its query points' type (f32,
+or f64 when chain extension re-anchors f64 projections); K2's take the
+type its lines, points and radii promote to, with f64 lines over f32
+points (the stage-3 seeding in f64) a body of its own.  Each kernel has
+an f32 and an f64 instantiation (kernels.py).
 """
 
 from __future__ import annotations
@@ -135,15 +141,17 @@ def _epipolar_topm_plain(grids, view, pts, lines, radius, cell: float,
     return _blocked(one, pts.shape[0], view, pts, lines, radius)
 
 
-def _empty_outputs(Q: int, M: int, device) -> Candidates:
+def _empty_outputs(Q: int, M: int, device,
+                   dtype=torch.float32) -> Candidates:
     """Uninitialised outputs as views of three allocations: pl_id and seg
-    of one int32 block, xy, t and dist of one float32 block (in that
+    of one int32 block, xy, t and dist of one `dtype` block (in that
     order), valid of one bool block.  Each field starts at a multiple of
-    4 Q M bytes from its block's start, so K1's whole-row stores (16
-    bytes at M = 4 and 8, 8 at M = 2) stay aligned."""
+    4 Q M bytes (8 Q M for f64) from its block's start, so K1's
+    whole-row stores (16 bytes at M = 4 and 8, 8 at M = 2; f64 rows in
+    16-byte pieces) stay aligned."""
     n = Q * M
     ints = torch.empty(2 * n, dtype=torch.int32, device=device)
-    flts = torch.empty(4 * n, dtype=torch.float32, device=device)
+    flts = torch.empty(4 * n, dtype=dtype, device=device)
     return Candidates(
         pl_id=ints[:n].view(Q, M), seg=ints[n:].view(Q, M),
         t=flts[2 * n:3 * n].view(Q, M), xy=flts[:2 * n].view(Q, M, 2),
@@ -162,7 +170,8 @@ def _check_grid_args(grids, view, pts, align: int = 8):
     kernels.require(grids, "grids", torch.float32, (V, GH, GW, K, 6),
                     align=align)
     kernels.require(view, "view", torch.int32, (Q,))
-    kernels.require(pts, "pts", torch.float32, (Q, 2), align=8)
+    kernels.require(pts, "pts", pts.dtype, (Q, 2),
+                    align=2 * pts.element_size())
     return V, GH, GW, K, Q
 
 
@@ -170,29 +179,32 @@ def grid_topm_query(grids: torch.Tensor, view: torch.Tensor,
                     pts: torch.Tensor, cell: float, radius: float,
                     M: int, view_cycle: bool = False) -> Candidates:
     """Kernel K1.  grids [V,GH,GW,K,6] f32, view [Q] i32, pts [Q,2] f32
-    -> top-M distinct polylines whose closest point lies within
-    `radius` of each query point.  On the card, a grid of 8-entry cells
-    (the cell-at-once body) must be 16-byte aligned: a misaligned one
-    raises.  `view_cycle` says that the queries are rows of every view in
-    order (view = arange(V).repeat(N)); the kernel then visits them view
-    by view, which changes only its speed."""
+    or f64 -> top-M distinct polylines whose closest point lies within
+    `radius` of each query point (t, xy, dist in pts' type).  On the
+    card, a grid of 8-entry cells (the cell-at-once body) must be
+    16-byte aligned: a misaligned one raises.  `view_cycle` says that
+    the queries are rows of every view in order (view =
+    arange(V).repeat(N)); the kernel then visits them view by view,
+    which changes only its speed."""
     if pts.device.type == "cpu":
         return _grid_topm_plain(grids, view, pts, cell, radius, M)
     grids, view, pts = grids.contiguous(), view.contiguous(), \
         pts.contiguous()
+    dt = kernels.require_float(pts.dtype, "grid_topm_query")
     V, GH, GW, K, Q = _check_grid_args(grids, view, pts,
                                        align=16 if grids.shape[3] == 8 else 8)
-    out = _empty_outputs(Q, M, pts.device)
+    out = _empty_outputs(Q, M, pts.device, dt)
     if Q == 0:
         return out
     n_rows = Q // V if view_cycle and Q % V == 0 else 0
+    entry = "eg3d_grid_topm" if dt == torch.float32 else "eg3d_grid_topm_f64"
     with kernels.on_device(pts):
-        rc = kernels.lib().eg3d_grid_topm(
+        rc = getattr(kernels.lib(), entry)(
             grids.data_ptr(), V, GH, GW, K, view.data_ptr(), pts.data_ptr(), Q,
             float(cell), float(radius), M, n_rows, *_out_ptrs(out),
             kernels.stream_of(pts))
     kernels.check(rc, "grid_topm_query")
-    kernels.LAUNCHES["grid_topm_query"] += 1
+    kernels.count_launch("grid_topm_query", dt)
     return out
 
 
@@ -213,29 +225,44 @@ def epipolar_topm_query(grids: torch.Tensor, view: torch.Tensor,
                         ) -> Candidates:
     """Kernel K2.  grids [V,GH,GW,K,6] f32, view [Q] i32, pts [Q,2]
     observations, lines [Q,3] normalized epipolar lines, radius [Q] ->
-    top-M distinct polylines crossing the line within the radius."""
+    top-M distinct polylines crossing the line within the radius.  The
+    outputs take the promoted type of lines, pts and radius: f32, or f64
+    with f64 lines (pts f32 or f64; the radius is widened to f64, where
+    the reference's comparison promotes it); f32 lines with f64 points
+    have no instantiation and raise."""
     if pts.device.type == "cpu":
         return _epipolar_topm_plain(grids, view, pts, lines, radius, cell,
                                     M, exclude_parallel_cos)
     grids, view, pts, lines, radius = (
         t.contiguous() for t in (grids, view, pts, lines, radius))
+    dt = kernels.require_float(kernels.compute_dtype(pts, lines, radius),
+                               "epipolar_topm_query")
+    if pts.dtype not in (torch.float32, dt):
+        raise TypeError(f"epipolar_topm_query: no kernel instantiation for "
+                        f"{pts.dtype} points")
     V, GH, GW, K, Q = _check_grid_args(grids, view, pts)
-    kernels.require(lines, "lines", torch.float32, (Q, 3))
-    kernels.require(radius, "radius", torch.float32, (Q,))
-    out = _empty_outputs(Q, M, pts.device)
+    kernels.require(lines, "lines", dt, (Q, 3))
+    radius = radius.to(dt)
+    kernels.require(radius, "radius", dt, (Q,))
+    out = _empty_outputs(Q, M, pts.device, dt)
     if Q == 0:
         return out
     use = exclude_parallel_cos is not None
     order = _view_major_order(view, V)
+    lib = kernels.lib()
+    pts_arg = (pts.data_ptr(),) if dt == torch.float32 else \
+        (pts.data_ptr(), int(pts.dtype == torch.float64))
+    entry = lib.eg3d_epipolar_topm if dt == torch.float32 else \
+        lib.eg3d_epipolar_topm_f64
     with kernels.on_device(pts):
-        rc = kernels.lib().eg3d_epipolar_topm(
-            grids.data_ptr(), V, GH, GW, K, view.data_ptr(), pts.data_ptr(),
+        rc = entry(
+            grids.data_ptr(), V, GH, GW, K, view.data_ptr(), *pts_arg,
             lines.data_ptr(), radius.data_ptr(), order.data_ptr(), Q,
             float(cell), M, 0, int(use),
             float(exclude_parallel_cos) if use else 0.0, *_out_ptrs(out),
             kernels.stream_of(pts))
     kernels.check(rc, "epipolar_topm_query")
-    kernels.LAUNCHES["epipolar_topm_query"] += 1
+    kernels.count_launch("epipolar_topm_query", dt)
     return out
 
 

@@ -19,6 +19,11 @@ version `_expand_chains_compact_plain` is the same loop in torch around
 the K1 / K2 / K3 wrappers; `expand_chains_compact` takes it for CPU
 tensors only.  The dense twin expand_chains_sweep is not ported
 (ROADMAP queue A item 11).
+
+Both run in the promoted type of X, obs3, P and F, as the JAX function's
+result_type: f32, or f64 under EdgeGraphConfig(dtype="float64") (the
+caller's f32 X and obs3 widened to the f64 cameras' type), where K7
+launches its f64 body.
 """
 
 from __future__ import annotations
@@ -117,7 +122,8 @@ def _expand_chains_compact_plain(plg_coords, grids, P_mats, F_table,
     V = P_mats.shape[0]
     K = X.shape[0]
     dev = X.device
-    f = X.dtype
+    f = kernels.compute_dtype(X, obs3, P_mats, F_table)
+    X, obs3, P_mats, F_table = (a.to(f) for a in (X, obs3, P_mats, F_table))
     X = X.clone()
     tol = float(math.sqrt(cfg.expand_max_projection_distsq))
     Omax = min(V, max(cfg.max_obs_per_point, 4))
@@ -221,11 +227,12 @@ def tile_buckets(extent: np.ndarray):
             np.bincount(b, minlength=len(TILE_SLOTS)))
 
 
-def k7_table_bytes(V: int, epipolar: bool) -> int:
-    """Bytes of K7's per-block table: P [V, 3, 4] f32 and, in "epipolar"
-    mode, the F rows [V, 3, 3] of each of a block's 16 tiles (csrc
-    expand_chains.cu eg3d_expand_chains_smem)."""
-    return V * 48 + (16 * V * 36 if epipolar else 0)
+def k7_table_bytes(V: int, epipolar: bool, dtype=torch.float32) -> int:
+    """Bytes of K7's per-block table: P [V, 3, 4] and, in "epipolar"
+    mode, the F rows [V, 3, 3] of each of a block's 16 tiles, 4 bytes an
+    entry in f32 and 8 in f64 (csrc expand_chains.cu smem_bytes)."""
+    size = 8 if dtype == torch.float64 else 4
+    return (V * 12 + (16 * V * 9 if epipolar else 0)) * size
 
 
 def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
@@ -239,7 +246,8 @@ def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
     chain_idx / t_idx [K] (in range), item_ok [K], chain_valid [C,T].
     `extent` [C] (host) is each chain's slot extent (see tile_buckets),
     which the caller knows without reading the device.  Returns (X' [K,3],
-    out_xy [K,V,2], out_ok [K,V]).  CUDA tensors launch kernel K7 once
+    out_xy [K,V,2], out_ok [K,V]), X' and out_xy in the promoted type of
+    X, obs3, P_mats and F_table.  CUDA tensors launch kernel K7 once
     (T <= 64); CPU tensors take the plain version."""
     if X.device.type == "cpu":
         return _expand_chains_compact_plain(
@@ -251,16 +259,18 @@ def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
     V, GH, GW, Kc, _ = grids.shape
     K = X.shape[0]
     Omax = min(V, max(cfg.max_obs_per_point, 4))
-    X = X.clone(memory_format=torch.contiguous_format)
+    dt = kernels.require_float(
+        kernels.compute_dtype(X, obs3, P_mats, F_table), "expand_chains")
+    X = X.to(dt).clone(memory_format=torch.contiguous_format)
     grids, P_mats, F_table, obs3, cams3, chain_valid = (
-        t.contiguous() for t in (grids, P_mats, F_table, obs3, cams3,
-                                 chain_valid))
+        t.contiguous() for t in (grids, P_mats.to(dt), F_table.to(dt),
+                                 obs3.to(dt), cams3, chain_valid))
     kernels.require(grids, "grids", torch.float32, (V, GH, GW, Kc, 6),
                     align=8)
-    kernels.require(P_mats, "P_mats", torch.float32, (V, 3, 4))
-    kernels.require(F_table, "F_table", torch.float32, (V, V, 3, 3))
-    kernels.require(X, "X", torch.float32, (K, 3))
-    kernels.require(obs3, "obs3", torch.float32, (K, 3, 2))
+    kernels.require(P_mats, "P_mats", dt, (V, 3, 4))
+    kernels.require(F_table, "F_table", dt, (V, V, 3, 3))
+    kernels.require(X, "X", dt, (K, 3))
+    kernels.require(obs3, "obs3", dt, (K, 3, 2))
     kernels.require(cams3, "cams3", torch.int32, (C, 3))
     kernels.require(chain_valid, "chain_valid", torch.bool, (C, T))
     dev = X.device
@@ -276,10 +286,12 @@ def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
     order_np, counts = tile_buckets(extent)
     order = torch.as_tensor(order_np, device=dev)
     cam_buf = torch.empty((K, Omax), dtype=torch.int32, device=dev)
-    obs_x = torch.empty((K, Omax), dtype=torch.float32, device=dev)
-    obs_y = torch.empty((K, Omax), dtype=torch.float32, device=dev)
+    obs_x = torch.empty((K, Omax), dtype=dt, device=dev)
+    obs_y = torch.empty((K, Omax), dtype=dt, device=dev)
+    entry = "eg3d_expand_chains" if dt == torch.float32 else \
+        "eg3d_expand_chains_f64"
     with kernels.on_device(X):
-        rc = kernels.lib().eg3d_expand_chains(
+        rc = getattr(kernels.lib(), entry)(
             grids.data_ptr(), V, GH, GW, Kc, float(cell), P_mats.data_ptr(),
             F_table.data_ptr(), obs3.data_ptr(), cams3.data_ptr(),
             slots.data_ptr(), chain_valid.data_ptr(), order.data_ptr(),
@@ -289,12 +301,13 @@ def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
             float(cfg.quasiparallel_cos),
             cfg.follow_gn_iters, float(cfg.gn_epsilon),
             float(cfg.match_gn_max_mse), 1e-5,
-            kernels.place("expand_chains", k7_table_bytes(V, epipolar), dev),
+            kernels.place("expand_chains", k7_table_bytes(V, epipolar, dt),
+                          dev),
             X.data_ptr(),
             cam_buf.data_ptr(), obs_x.data_ptr(), obs_y.data_ptr(),
             out_xy.data_ptr(), out_ok.data_ptr(), kernels.stream_of(X))
     kernels.check(rc, "expand_chains")
-    kernels.LAUNCHES["expand_chains"] += 1
+    kernels.count_launch("expand_chains", dt)
     return X, out_xy, out_ok
 
 

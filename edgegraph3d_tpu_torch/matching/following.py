@@ -14,6 +14,11 @@ that composition.
 Direction resolution tries 3 driving views x 4 direction combos for one
 step each (K4 with max_steps=1, GN warm-started from the seed) and keeps
 the first valid configuration, d-major then combos.
+
+The follow computes in the promoted type of the polylines, F, P and the
+seeds' positions: f32, or f64 under EdgeGraphConfig(dtype="float64"),
+where K4 launches its f64 body and the walk's multiply-adds are the
+correctly rounded f64 ones (ops.geometry._fma).
 """
 
 from __future__ import annotations
@@ -127,7 +132,12 @@ def _follow_plain(coords, lengths, F_table, P_mats, cams, pl, seg0, t0, xy0,
                   epsilon: float, accept_mse: float) -> Follow:
     """Plain twin of K4, the JAX package's composition: the walk, then
     the plain DLT + GN (or GN from X0) over the walk's live steps, then
-    each chain cut at its first GN failure."""
+    each chain cut at its first GN failure.  Runs in the float inputs'
+    promoted type, as the kernel does."""
+    fdt = kernels.compute_dtype(coords, F_table, P_mats, t0, xy0, X0)
+    coords, F_table, P_mats, t0, xy0 = (
+        a.to(fdt) for a in (coords, F_table, P_mats, t0, xy0))
+    X0 = None if X0 is None else X0.to(fdt)
     walk = _walk_plain(coords, lengths, F_table, cams, pl, seg0, t0, xy0,
                        dirs, active0, T, step, min_d, max_d, qcos, qdist)
     S = cams.shape[0]
@@ -177,14 +187,15 @@ def follow_params(cfg, warm: bool):
 
 def follow_walk(coords, lengths, F_table, P_mats, cams, pl, seg0, t0, xy0,
                 dirs, active0, X0, T: int, cfg) -> Follow:
-    """Kernel K4.  coords [V,P,L,2] f32, lengths [V,P] i32, F_table
-    [V,V,3,3] f32, P_mats [V,3,4] f32; per lane (permuted tuple order,
-    driving view first): cams/pl/seg0/dirs [S,3] i32, t0 [S,3], xy0
-    [S,3,2], active0 [S] bool, X0 [S,3] or None.  Follows every lane for
-    at most T steps with the walk distances and GN gates of `cfg`: cold
-    (X0 None) DLT + cfg.gn_max_iters GN iterations per step, warm (GN
-    from X0) cfg.follow_gn_iters.  CUDA tensors launch the kernel; CPU
-    tensors take the plain twin."""
+    """Kernel K4.  coords [V,P,L,2], lengths [V,P] i32, F_table
+    [V,V,3,3], P_mats [V,3,4]; per lane (permuted tuple order, driving
+    view first): cams/pl/seg0/dirs [S,3] i32, t0 [S,3], xy0 [S,3,2],
+    active0 [S] bool, X0 [S,3] or None.  Follows every lane for at most
+    T steps with the walk distances and GN gates of `cfg`: cold (X0
+    None) DLT + cfg.gn_max_iters GN iterations per step, warm (GN from
+    X0) cfg.follow_gn_iters.  The float inputs' promoted type (f32 or
+    f64) is the follow's; CUDA tensors launch the kernel's
+    instantiation for it; CPU tensors take the plain twin."""
     walk, gn = follow_params(cfg, X0 is not None)
     if xy0.device.type == "cpu":
         return _follow_plain(coords, lengths, F_table, P_mats, cams, pl,
@@ -192,40 +203,46 @@ def follow_walk(coords, lengths, F_table, P_mats, cams, pl, seg0, t0, xy0,
                              *gn)
     V, P, L, _ = coords.shape
     S = cams.shape[0]
-    args = [t.contiguous() for t in (coords, lengths, F_table, P_mats, cams,
-                                     pl, seg0, t0, xy0, dirs, active0)]
+    fdt = kernels.require_float(
+        kernels.compute_dtype(coords, F_table, P_mats, t0, xy0, X0),
+        "follow_walk")
+    args = [t.contiguous() for t in (coords.to(fdt), lengths,
+                                     F_table.to(fdt), P_mats.to(fdt), cams,
+                                     pl, seg0, t0.to(fdt), xy0.to(fdt), dirs,
+                                     active0)]
     coords, lengths, F_table, P_mats, cams, pl, seg0, t0, xy0, dirs, \
         active0 = args
-    kernels.require(coords, "coords", torch.float32, (V, P, L, 2))
+    kernels.require(coords, "coords", fdt, (V, P, L, 2))
     kernels.require(lengths, "lengths", torch.int32, (V, P))
-    kernels.require(F_table, "F_table", torch.float32, (V, V, 3, 3))
-    kernels.require(P_mats, "P_mats", torch.float32, (V, 3, 4))
+    kernels.require(F_table, "F_table", fdt, (V, V, 3, 3))
+    kernels.require(P_mats, "P_mats", fdt, (V, 3, 4))
     for name, a, dt in (("cams", cams, torch.int32), ("pl", pl, torch.int32),
-                        ("seg0", seg0, torch.int32),
-                        ("t0", t0, torch.float32),
+                        ("seg0", seg0, torch.int32), ("t0", t0, fdt),
                         ("dirs", dirs, torch.int32)):
         kernels.require(a, name, dt, (S, 3))
-    kernels.require(xy0, "xy0", torch.float32, (S, 3, 2))
+    kernels.require(xy0, "xy0", fdt, (S, 3, 2))
     kernels.require(active0, "active0", torch.bool, (S,))
     if X0 is not None:
-        X0 = X0.contiguous()
-        kernels.require(X0, "X0", torch.float32, (S, 3))
+        X0 = X0.to(fdt).contiguous()
+        kernels.require(X0, "X0", fdt, (S, 3))
     dev = xy0.device
-    f32 = dict(dtype=torch.float32, device=dev)
+    flt = dict(dtype=fdt, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     out = Follow(valid=torch.zeros((S, T), dtype=torch.bool, device=dev),
                  n_steps=torch.empty(S, **i32),
-                 X=torch.zeros((S, T, 3), **f32),
-                 obs=torch.zeros((S, T, 3, 2), **f32),
+                 X=torch.zeros((S, T, 3), **flt),
+                 obs=torch.zeros((S, T, 3, 2), **flt),
                  seg=torch.zeros((S, T, 3), **i32),
-                 t=torch.zeros((S, T, 3), **f32),
+                 t=torch.zeros((S, T, 3), **flt),
                  final_seg=torch.empty((S, 3), **i32),
-                 final_t=torch.empty((S, 3), **f32))
+                 final_t=torch.empty((S, 3), **flt))
     if S == 0:
         return out
     counter = torch.zeros(1, **i32)
+    entry = "eg3d_follow_walk" if fdt == torch.float32 else \
+        "eg3d_follow_walk_f64"
     with kernels.on_device(xy0):
-        rc = kernels.lib().eg3d_follow_walk(
+        rc = getattr(kernels.lib(), entry)(
             coords.data_ptr(), lengths.data_ptr(), V, P, L, F_table.data_ptr(),
             P_mats.data_ptr(), cams.data_ptr(), pl.data_ptr(), seg0.data_ptr(),
             t0.data_ptr(), xy0.data_ptr(), dirs.data_ptr(), active0.data_ptr(),
@@ -233,7 +250,7 @@ def follow_walk(coords, lengths, F_table, P_mats, cams, pl, seg0, t0, xy0,
             float(gn[1]), float(gn[2]), DET_MIN, counter.data_ptr(),
             *(a.data_ptr() for a in out), kernels.stream_of(xy0))
     kernels.check(rc, "follow_walk")
-    kernels.LAUNCHES["follow_walk"] += 1
+    kernels.count_launch("follow_walk", fdt)
     return out
 
 

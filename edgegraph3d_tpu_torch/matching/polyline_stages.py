@@ -422,7 +422,7 @@ def group_seed_sample(coords, lengths, cams, mask, F_table, n_samples: int,
             kernels.place("group_seed_sample", k6_table_bytes(K, L), dev),
             *(o.data_ptr() for o in out), kernels.stream_of(coords))
     kernels.check(rc, "group_seed_sample")
-    kernels.LAUNCHES["group_seed_sample"] += 1
+    kernels.count_launch("group_seed_sample", torch.float32)
     return out
 
 
@@ -538,13 +538,24 @@ def _chunk_seeds(ctx, table, lo: int, hi: int, n_samples: int) -> dict:
     return rp._pack_seed_outputs(out)
 
 
+#: the refusal of stages 1 and 2 under dtype="float64" (pipeline
+#: check_stages): the JAX package's group-seed sweep fails there
+F64_REFUSAL = (
+    "dtype='float64' runs stage 3 only: stages 1 and 2 fail in the JAX "
+    "reference under x64 (edgegraph3d_tpu/ops/polyline_ops.py:294, "
+    "sample_interval_points' f32 scan carry), so pass stages=(3,)")
+
+
 def group_seeds_and_follow(groups: list[np.ndarray],
                            ctx: rp.MatchingContext, n_samples: int = 24,
                            max_members: int = 8, group_chunk: int = 64):
     """Seeding + bidirectional following, chunk by chunk over match sets
     (the following sharded over ctx.mesh when there is one).  Returns
     (round0 list for sweep_seeds(precomputed=...), n_seeds_total) or
-    (None, 0)."""
+    (None, 0).  An f64 context raises F64_REFUSAL, as the JAX sweep
+    fails on one."""
+    if ctx.plg_coords.dtype != torch.float32:
+        raise NotImplementedError(F64_REFUSAL)
     if not groups:
         return None, 0
     cfg = ctx.config

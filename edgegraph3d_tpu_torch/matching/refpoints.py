@@ -36,6 +36,16 @@ cap_rows, gn_cap) and their overflow redo paths do not exist here.
 Chunk sizes only bound memory; outputs do not depend on them (all
 per-item math is independent and claims run sequentially in seed
 order).
+
+Types, as the JAX package's under x64.  With EdgeGraphConfig(dtype=
+"float64") the context's P_mats, F_table and plg_coords are f64 and the
+grids stay f32, as do the refpoint observations; every step then
+promotes as jnp.result_type does.  The starts (K1 on the f32
+observations) stay f32; their epipolar lines (the f64 F) make K2's
+crossings f64; the seeds' t are rounded to f32 as the JAX seed buffer
+rounds them, and X and xy stay f64; following, the extension's
+re-anchoring and K5's rows are f64; expansion takes f32 X and obs3, as
+the JAX host arrays hand them over, and promotes them to f64.
 """
 
 from __future__ import annotations
@@ -69,11 +79,11 @@ class MatchingContext:
     device, every sweep shards its work-item axis over the mesh, and
     `replicas` holds the context tensors on each other device of the
     mesh (one copy per distinct device, built by build_context)."""
-    plg_coords: torch.Tensor    # [V,P,L,2] f32
+    plg_coords: torch.Tensor    # [V,P,L,2] f32 (f64 with dtype="float64")
     plg_length: torch.Tensor    # [V,P] i32
     grids: torch.Tensor         # [V,GH,GW,K,6] f32
-    P_mats: torch.Tensor        # [V,3,4] f32
-    F_table: torch.Tensor       # [V,V,3,3] f32
+    P_mats: torch.Tensor        # [V,3,4] f32 (f64)
+    F_table: torch.Tensor       # [V,V,3,3] f32 (f64)
     cell: float
     config: EdgeGraphConfig
     device: torch.device
@@ -107,18 +117,27 @@ _CONTEXT_TENSORS = ("plg_coords", "plg_length", "grids", "P_mats",
                     "F_table")
 
 
+def context_dtype(config: EdgeGraphConfig) -> torch.dtype:
+    """The geometry's type: float32, else float64 (as the JAX package
+    reads config.dtype)."""
+    return torch.float32 if config.dtype == "float32" else torch.float64
+
+
 def context_from_arrays(plg_coords, plg_length, grids, P_mats, F_table,
                         cell: float, config: EdgeGraphConfig = DEFAULT_CONFIG,
                         device="cuda") -> MatchingContext:
     """Build the port's context from host arrays (e.g. np.asarray of a
     JAX MatchingContext's fields), so both implementations can be fed
-    the same grids and F table."""
+    the same grids and F table.  plg_coords, P_mats and F_table take
+    config.dtype's type; the grids stay f32."""
     dev = resolve_device(device)
+    fdt = np.float32 if context_dtype(config) == torch.float32 \
+        else np.float64
     t = lambda a, dt: torch.tensor(np.asarray(a, dt), device=dev)
     return MatchingContext(
-        plg_coords=t(plg_coords, np.float32),
+        plg_coords=t(plg_coords, fdt),
         plg_length=t(plg_length, np.int32), grids=t(grids, np.float32),
-        P_mats=t(P_mats, np.float32), F_table=t(F_table, np.float32),
+        P_mats=t(P_mats, fdt), F_table=t(F_table, fdt),
         cell=float(cell), config=config, device=dev)
 
 
@@ -128,7 +147,7 @@ LMEDS_PAIR_CHUNK = 256
 
 def lmeds_fundamental_table(sfmd: SfMData, config: EdgeGraphConfig,
                             device="cuda") -> torch.Tensor:
-    """All-pairs F table [V, V, 3, 3] f32 fit from common refpoint
+    """All-pairs F table [V, V, 3, 3] fit from common refpoint
     observations with LMedS (the reference's production path,
     cv::findFundamentalMat(FM_LMEDS) on >= fmat_min_common_points common
     points).  Pairs with too few common points get the line (0,0,1)
@@ -137,7 +156,8 @@ def lmeds_fundamental_table(sfmd: SfMData, config: EdgeGraphConfig,
     ~411 MB at N = 6,268 refpoints); each pair's subsets are drawn once
     for the whole table (ops.geometry.lmeds_subsets), so the draws do not
     depend on the chunk or the device (F does, through f32 rounding
-    only)."""
+    only).  The fit runs in f32, as JAX's does; the table is returned in
+    config.dtype's type (context_dtype), as JAX casts it."""
     from edgegraph3d_tpu_torch.ops.geometry import (fundamental_lmeds,
                                                     lmeds_subsets)
 
@@ -163,7 +183,7 @@ def lmeds_fundamental_table(sfmd: SfMData, config: EdgeGraphConfig,
             mm[:, lo:hi].T, subsets=subsets[lo:hi],
             min_points=config.fmat_min_common_points)
         F_out[i[ok], j[ok]] = F[ok]
-    return F_out
+    return F_out.to(context_dtype(config))
 
 
 def build_context(sfmd: SfMData, stack: PLGStack,
@@ -172,9 +192,8 @@ def build_context(sfmd: SfMData, stack: PLGStack,
                   mesh=None) -> MatchingContext:
     """The context on `device`; with `mesh`, on the mesh's first device
     (which must be of `device`'s type), with a replica of its tensors on
-    each other device of the mesh."""
-    if config.dtype != "float32":
-        raise NotImplementedError("the port computes in float32 only")
+    each other device of the mesh.  The geometry takes config.dtype's
+    type (context_dtype)."""
     if mesh is not None:
         if mesh.device.type != resolve_device(device).type:
             raise ValueError(f"mesh on {mesh.device} but device={device!r}")
@@ -182,7 +201,8 @@ def build_context(sfmd: SfMData, stack: PLGStack,
     if config.fmat_source == "lmeds":
         F = lmeds_fundamental_table(sfmd, config, device).cpu()
     else:
-        F = all_fundamental_matrices(sfmd.P, sfmd.center)
+        F = all_fundamental_matrices(sfmd.P, sfmd.center,
+                                     context_dtype(config))
     grids = build_grids(stack, sfmd.widths, sfmd.heights, cell,
                         config.grid_cell_capacity)
     ctx = context_from_arrays(stack.coords, stack.length, grids, sfmd.P,
@@ -315,7 +335,7 @@ def _seed_from_starts_steps(ctx: MatchingContext, starts: dict, obs_xy,
     rows = torch.nonzero(cand.reshape(-1)).flatten()
     rk, i1, i2 = rows // (M * M), (rows // M) % M, rows % M
     ok = torch.zeros(K * M * M, dtype=torch.bool, device=dev)
-    Xp = torch.zeros((K * M * M, 3), dtype=torch.float32, device=dev)
+    Xp = torch.zeros((K * M * M, 3), dtype=ctx.P_mats.dtype, device=dev)
     if len(rows):
         pair_xy = torch.stack([s_xy[rk], c_xy[rk, v1[rk], i1],
                                c_xy[rk, v2[rk], i2]], 1)       # [R,3,2]
@@ -336,15 +356,19 @@ def _seed_from_starts_steps(ctx: MatchingContext, starts: dict, obs_xy,
     j1, j2 = pk // M, pk % M
     a1, a2 = v1[keep], v2[keep]
     s_pl, s_seg, s_t = starts["pl"], starts["seg"], starts["t"]
+    # the JAX seed buffer rounds t to the starts' f32 and holds it, xy and
+    # X in the promoted (context) type
+    fdt = Xp.dtype
     return dict(
         cams=cams3[keep],
         pl_id=torch.stack([s_pl[keep], c_pl[keep, a1, j1],
                            c_pl[keep, a2, j2]], -1),
         seg=torch.stack([s_seg[keep], c_seg[keep, a1, j1],
                          c_seg[keep, a2, j2]], -1),
-        t=torch.stack([s_t[keep], c_t[keep, a1, j1], c_t[keep, a2, j2]], -1),
+        t=torch.stack([s_t[keep], c_t[keep, a1, j1], c_t[keep, a2, j2]], -1)
+        .to(s_t.dtype).to(fdt),
         xy=torch.stack([s_xy[keep], c_xy[keep, a1, j1],
-                        c_xy[keep, a2, j2]], 1),
+                        c_xy[keep, a2, j2]], 1).to(fdt),
         X=Xp.reshape(K, M * M, 3)[keep, pk],
         ridx=ridx[keep])
 
@@ -552,6 +576,7 @@ def sweep_seeds(seeds_np: dict | None, seed_ref: np.ndarray | None,
     Returns (X, obs3, cams3, refs, seed_ids, orders) or None."""
     cfg = ctx.config
     dev = ctx.device
+    fdt = ctx.plg_coords.dtype
     S = (len(seed_ref) if precomputed is None
          else sum(len(c["_ref"]) for _, c, _, _ in precomputed))
     if seed_chunk is None:
@@ -567,9 +592,8 @@ def sweep_seeds(seeds_np: dict | None, seed_ref: np.ndarray | None,
         tens = {k: torch.as_tensor(np.ascontiguousarray(chunk[k]),
                                    device=dev)
                 for k in ("cams", "pl_id", "seg", "t", "xy", "X")}
-        tens["t"] = tens["t"].to(torch.float32)
-        tens["xy"] = tens["xy"].to(torch.float32)
-        tens["X"] = tens["X"].to(torch.float32)
+        for k in ("t", "xy", "X"):
+            tens[k] = tens[k].to(fdt)
         seeds = _seed_tuple(tens)
         if fixed_perm is None:
             fwd, bwd = follow_bidirectional(ctx, seeds)
@@ -734,6 +758,8 @@ def chain_chunks(ctx: MatchingContext, X, obs3, cams3, seed_ids, orders,
     extent = vld.sum(1)
     by_len = np.argsort(extent, kind="stable")
     gather, vld, extent = gather[by_len], vld[by_len], extent[by_len]
+    # f32, as the JAX package hands them to expansion in either dtype
+    # (expansion promotes them to the cameras' type)
     X32 = np.asarray(X, np.float32)
     obs3_32 = np.asarray(obs3, np.float32)
     if chain_chunk is None:
@@ -934,13 +960,13 @@ def _extend_once(ctx: MatchingContext, pts: EdgePoints, manager,
 
     if end_chunk is None:
         end_chunk = 16384 if ctx.on_cuda else 4096
+    fdt = ctx.plg_coords.dtype
     rows_l, meta_l, tv_l, loc_l = [], [], [], []
     for lo in range(0, E, end_chunk):
         hi = min(lo + end_chunk, E)
-        f32 = lambda a: torch.as_tensor(a[lo:hi].astype(np.float32),
-                                        device=dev)
+        geo = lambda a: torch.as_tensor(a[lo:hi], device=dev).to(fdt)
         rows_d, meta_d, tv_d, loc_d = _extension_locate_follow(
-            ctx, f32(X_end), f32(X_prev), f32(end_xy),
+            ctx, geo(X_end), geo(X_prev), geo(end_xy),
             torch.as_tensor(m[lo:hi], device=dev), cfg)
         rows_c = rows_d.cpu().numpy()
         if len(rows_c):

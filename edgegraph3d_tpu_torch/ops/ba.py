@@ -324,7 +324,7 @@ def ba_blocks(state: BAState, obs_cam, obs_xy, obs_mask,
         n_obs=torch.empty((), dtype=torch.int64, device=dev))
     _ba_blocks_launch(state, obs_cam, obs_xy, obs_mask, damping, index, out,
                       _view_partials(index, V, dev))
-    kernels.LAUNCHES["ba_blocks"] += 1
+    kernels.count_launch("ba_blocks", torch.float32)
     return out
 
 

@@ -33,8 +33,9 @@ def _apply34(P: torch.Tensor, X: torch.Tensor):
 
 
 def _guard_z(z: torch.Tensor) -> torch.Tensor:
-    tiny = torch.where(z < 0, -1e-12, 1e-12).to(z.dtype)
-    return torch.where(z.abs() < 1e-12, tiny, z)
+    """z, with |z| < 1e-12 replaced by +-1e-12 in z's own type."""
+    t = torch.full((), 1e-12, dtype=z.dtype, device=z.device)
+    return torch.where(z.abs() < 1e-12, torch.where(z < 0, -t, t), z)
 
 
 def project(P: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -71,11 +72,13 @@ def fundamental_from_cameras(P1: torch.Tensor, P2: torch.Tensor,
     return F / torch.where(scale < 1e-20, 1.0, scale)
 
 
-def all_fundamental_matrices(P, centers) -> torch.Tensor:
+def all_fundamental_matrices(P, centers,
+                             dtype=torch.float32) -> torch.Tensor:
     """All-pairs F table [V, V, 3, 3]; F[i, j] maps view-i points to
     view-j lines: F = [e_j]_x P_j P_i^+ with e_j = P_j [C_i; 1],
     Frobenius-normalized.  Computed in float64 on the host (a 49-view
-    table is 2401 tiny products) and returned as float32."""
+    table is 2401 tiny products) and returned in `dtype` (float32, or
+    float64 for EdgeGraphConfig(dtype="float64"))."""
     P = np.asarray(P, np.float64)
     C = np.asarray(centers, np.float64)
     Pp = np.linalg.pinv(P)                                   # [V,4,3]
@@ -89,7 +92,7 @@ def all_fundamental_matrices(P, centers) -> torch.Tensor:
     F = ex @ P[None, :] @ Pp[:, None]
     scale = np.linalg.norm(F, axis=(-2, -1), keepdims=True)
     F = F / np.where(scale < 1e-20, 1.0, scale)
-    return torch.as_tensor(F, dtype=torch.float32)
+    return torch.as_tensor(F, dtype=dtype)
 
 
 def epipolar_line(F: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -107,9 +110,50 @@ def point_line_distance(line: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return line[..., 0] * x[..., 0] + line[..., 1] * x[..., 1] + line[..., 2]
 
 
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """(s, e): s = a + b rounded and its exact error, a + b = s + e."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a: torch.Tensor, b: torch.Tensor):
+    """(p, e): p = a * b rounded and its exact error (Dekker's product
+    with Veltkamp's split; f64 values far from overflow)."""
+    p = a * b
+    ca, cb = 134217729.0 * a, 134217729.0 * b           # 2^27 + 1
+    ah, bh = ca - (ca - a), cb - (cb - b)
+    al, bl = a - ah, b - bh
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _round_odd_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b rounded to odd: exact sums as they are, an inexact one to
+    the neighbour of the two around it whose last bit is odd."""
+    s, e = _two_sum(a, b)
+    even = (s.view(torch.int64) & 1) == 0
+    inf = torch.full_like(s, float("inf"))
+    return torch.where((e != 0) & even,
+                       torch.nextafter(s, torch.where(e > 0, inf, -inf)), s)
+
+
+def _fma64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f64 a * b + c, as the hardware's fma gives
+    it (XLA's CPU code and common.cuh fmaT on the card): the exact
+    product as two doubles, then Boldo and Melquiond's sum of three
+    numbers with its inner sum rounded to odd."""
+    ph, pl = _two_prod(a, b)
+    th, tl = _two_sum(c, ph)
+    return th + _round_odd_sum(tl, pl)
+
+
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """a * b + c with one rounding of the sum: the f64 product of two f32
-    values is exact, so only the f64 sum rounds before the cast back."""
+    """a * b + c with one rounding of the sum, in the promoted type.  For
+    f32 values the f64 product is exact, so only the f64 sum rounds
+    before the cast back; for f64 values, _fma64."""
+    if torch.float64 in (a.dtype, b.dtype, c.dtype):
+        a, b, c = torch.broadcast_tensors(a.double(), b.double(), c.double())
+        return _fma64(a.contiguous(), b.contiguous(), c.contiguous())
     return (a.double() * b.double() + c.double()).to(a.dtype)
 
 

@@ -16,6 +16,12 @@ refused (and the point turns singular) when |det H| < det_min or
 |det H| < 1e-5 * scale(H)^3; valid = !singular && last_mse < accept_mse
 && n_obs >= 2.  Unlike the JAX code, O == 0 is accepted (every point
 comes back invalid).
+
+Types.  The computation runs in the promoted type of P_mats, xy and X0
+(jnp.result_type under x64, as the JAX GN promotes them): f32, or f64
+for EdgeGraphConfig(dtype="float64"), where K3 launches its f64 bodies
+(the O = 3 register body in double, and the padded loop as its general
+body).
 """
 
 from __future__ import annotations
@@ -37,8 +43,9 @@ def p_soa(P_obs: torch.Tensor) -> list:
 
 
 def _guard(v: torch.Tensor, tiny: float) -> torch.Tensor:
-    sgn = torch.where(v < 0, -tiny, tiny).to(v.dtype)
-    return torch.where(v.abs() < tiny, sgn, v)
+    """v, with |v| < tiny replaced by +-tiny in v's own type."""
+    t = torch.full((), tiny, dtype=v.dtype, device=v.device)
+    return torch.where(v.abs() < tiny, torch.where(v < 0, -t, t), v)
 
 
 def triangulate_dlt_soa(P: list, ox: list, oy: list, mf: list, N: int,
@@ -86,9 +93,12 @@ def gauss_newton_soa(P: list, ox: list, oy: list, mf: list,
                      det_min: float = 1e-5):
     """Refine all points at once, SoA interface -> (X, mse, valid).
     Points freeze individually; the loop stops when every point is
-    frozen or singular (exact: both states are fixed points)."""
+    frozen or singular (exact: both states are fixed points).  Runs in
+    the promoted type of X0, P and the points (the JAX GN's common
+    promotion)."""
     N = X0.shape[0]
-    dtype = X0.dtype
+    dtype = kernels.compute_dtype(X0, *[p[0][0] for p in P[:1]], *ox[:1])
+    X0 = X0.to(dtype)
     zero = torch.zeros(N, dtype=dtype, device=X0.device)
     mask_sum = zero
     for m in mf:
@@ -170,6 +180,9 @@ def gauss_newton_batched(P_obs: torch.Tensor, xy: torch.Tensor,
 def _triangulate_gn_plain(P_mats, cams, xy, mask, X0, max_iters, epsilon,
                           accept_mse, det_min):
     N, O = mask.shape
+    dt = kernels.compute_dtype(P_mats, xy, X0)
+    P_mats, xy = P_mats.to(dt), xy.to(dt)
+    X0 = None if X0 is None else X0.to(dt)
     P = p_soa(P_mats[cams.long()])
     ox = [xy[:, o, 0] for o in range(O)]
     oy = [xy[:, o, 1] for o in range(O)]
@@ -181,10 +194,13 @@ def _triangulate_gn_plain(P_mats, cams, xy, mask, X0, max_iters, epsilon,
                             det_min=det_min)
 
 
-def gn_table_bytes(V: int) -> int:
-    """Bytes of K3's general-body table: P_mats and the probe row
-    [(V + 1), 3, 4] f32 and a tame flag per camera (csrc
-    triangulate_gn.cu gn_smem_bytes)."""
+def gn_table_bytes(V: int, dtype=torch.float32) -> int:
+    """Bytes of K3's general-body table: in f32, P_mats and the probe
+    row [(V + 1), 3, 4] and a tame flag per camera (csrc
+    triangulate_gn.cu gn_smem_bytes); in f64, P_mats [V, 3, 4] in double
+    (the padded body's gn_smem_bytes_f64)."""
+    if dtype == torch.float64:
+        return V * 96
     return (V + 1) * 48 + V
 
 
@@ -195,42 +211,47 @@ def triangulate_gn(P_mats: torch.Tensor, cams: torch.Tensor,
                    det_min: float = 1e-5):
     """Kernel K3: DLT init (when X0 is None) + GN for every point.
 
-    P_mats [V, 3, 4] f32, cams [N, O] i32 camera index per observation,
-    xy [N, O, 2] f32, mask [N, O] bool, X0 [N, 3] f32 or None ->
-    (X [N, 3], mse [N], valid [N] bool).  CUDA tensors launch the kernel
-    (for O != 3 with its camera table placed by
-    kernels.table_placement, so any V runs); CPU tensors take the
-    plain-torch twin."""
+    P_mats [V, 3, 4], cams [N, O] i32 camera index per observation,
+    xy [N, O, 2], mask [N, O] bool, X0 [N, 3] or None -> (X [N, 3],
+    mse [N], valid [N] bool) in the promoted type of P_mats, xy and X0
+    (f32 or f64; an f32 input beside an f64 one is widened, as the JAX
+    GN promotes it).  CUDA tensors launch the kernel (for O != 3 with
+    its camera table placed by kernels.table_placement, so any V runs);
+    CPU tensors take the plain-torch twin."""
     if xy.device.type == "cpu":
         return _triangulate_gn_plain(P_mats, cams, xy, mask, X0, max_iters,
                                      epsilon, accept_mse, det_min)
     N, O = mask.shape
     V = P_mats.shape[0]
-    P_mats, cams, xy, mask = (t.contiguous() for t in (P_mats, cams, xy,
-                                                        mask))
-    kernels.require(P_mats, "P_mats", torch.float32, (V, 3, 4))
+    dt = kernels.require_float(kernels.compute_dtype(P_mats, xy, X0),
+                               "triangulate_gn")
+    P_mats, cams, xy, mask = (t.contiguous() for t in (P_mats.to(dt), cams,
+                                                        xy.to(dt), mask))
+    kernels.require(P_mats, "P_mats", dt, (V, 3, 4))
     kernels.require(cams, "cams", torch.int32, (N, O))
-    kernels.require(xy, "xy", torch.float32, (N, O, 2))
+    kernels.require(xy, "xy", dt, (N, O, 2))
     kernels.require(mask, "mask", torch.bool, (N, O))
     if X0 is not None:
-        X0 = X0.contiguous()
-        kernels.require(X0, "X0", torch.float32, (N, 3))
+        X0 = X0.to(dt).contiguous()
+        kernels.require(X0, "X0", dt, (N, 3))
     dev = xy.device
-    X = torch.empty((N, 3), dtype=torch.float32, device=dev)
-    mse = torch.empty(N, dtype=torch.float32, device=dev)
+    X = torch.empty((N, 3), dtype=dt, device=dev)
+    mse = torch.empty(N, dtype=dt, device=dev)
     valid = torch.empty(N, dtype=torch.bool, device=dev)
     if N == 0:
         return X, mse, valid
     place = 0 if O == 3 else kernels.place(
-        "triangulate_gn", gn_table_bytes(V), dev)
+        "triangulate_gn", gn_table_bytes(V, dt), dev)
+    entry = "eg3d_triangulate_gn" if dt == torch.float32 else \
+        "eg3d_triangulate_gn_f64"
     with kernels.on_device(xy):
-        rc = kernels.lib().eg3d_triangulate_gn(
+        rc = getattr(kernels.lib(), entry)(
             P_mats.data_ptr(), V, cams.data_ptr(), xy.data_ptr(),
             mask.data_ptr(), N, O, kernels.ptr(X0), max_iters, epsilon,
             accept_mse, det_min, place, X.data_ptr(), mse.data_ptr(),
             valid.data_ptr(), kernels.stream_of(xy))
     kernels.check(rc, "triangulate_gn")
-    kernels.LAUNCHES["triangulate_gn"] += 1
+    kernels.count_launch("triangulate_gn", dt)
     return X, mse, valid
 
 

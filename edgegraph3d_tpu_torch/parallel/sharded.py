@@ -40,8 +40,8 @@ single-device one.  The distributed BA's sums run in shard order, so it
 differs from the single-device BA by rounding only.
 
 `SHARD_LAUNCHES[g]` counts the kernel launches made for global shard g
-(the deltas of kernels.LAUNCHES around its calls and steps; reset with
-`reset_shard_launches`).
+(the deltas of kernels.launch_totals() around its calls and steps;
+reset with `reset_shard_launches`).
 """
 
 from __future__ import annotations
@@ -68,10 +68,10 @@ def reset_shard_launches() -> None:
 
 def _on_shard(g: int, fn, *args, **kw):
     """fn(*args, **kw) for global shard g, its launches counted there."""
-    before = dict(kernels.LAUNCHES)
+    before = kernels.launch_totals()
     out = fn(*args, **kw)
-    mine = SHARD_LAUNCHES.setdefault(g, {k: 0 for k in kernels.LAUNCHES})
-    for k, n in kernels.LAUNCHES.items():
+    mine = SHARD_LAUNCHES.setdefault(g, {k: 0 for k in before})
+    for k, n in kernels.launch_totals().items():
         mine[k] += n - before[k]
     return out
 
@@ -163,11 +163,13 @@ def _ba_step(mesh: Mesh, cams: tuple, shards: list, damping: float):
             S, blocks = _on_shard(g, ba_ops.ba_schur_local, st, cam, xy, mask,
                                   damping, index)
         else:
-            S, blocks = torch.zeros((6 * V, 6 * V), device=d), None
+            S = torch.zeros((6 * V, 6 * V), dtype=K.dtype, device=d)
+            blocks = None
         parts.append((S, blocks))
-    zero = lambda shape, dt=torch.float32: torch.zeros(shape, dtype=dt,
-                                                       device=mesh.device)
-    pick = lambda b, f, shape, dt=torch.float32: (
+    # a shard with no points adds zeros of the state's type
+    zero = lambda shape, dt=K.dtype: torch.zeros(shape, dtype=dt,
+                                                 device=mesh.device)
+    pick = lambda b, f, shape, dt=K.dtype: (
         getattr(b, f) if b is not None else zero(shape, dt))
     # the only cross-shard traffic: S, rhs, the residual sum and count
     S = psum(mesh, [p[0] for p in parts])

@@ -120,6 +120,18 @@ def edge_points_to_obs_lists(pts: refpoints_mod.EdgePoints):
     return obs_cam, obs_xy
 
 
+def check_stages(config: EdgeGraphConfig, stages) -> None:
+    """Refuse, before any work, what the JAX package cannot run: stages
+    1 and 2 with dtype="float64".  There the JAX package's group-seed
+    sweep fails (a lax.scan carry of f32 t = jnp.float32(0.0) against an
+    f64 step, edgegraph3d_tpu/ops/polyline_ops.py:294, reached from
+    polyline_stages._group_seed_sweep); the port raises the same refusal
+    early."""
+    from edgegraph3d_tpu_torch.matching.polyline_stages import F64_REFUSAL
+    if config.dtype != "float32" and (1 in stages or 2 in stages):
+        raise NotImplementedError(F64_REFUSAL)
+
+
 def reconstruct_all_stages(sfmd, ctx, stats: PipelineStats,
                            stages=(1, 2, 3),
                            max_starting_views: int | None = None,
@@ -130,13 +142,11 @@ def reconstruct_all_stages(sfmd, ctx, stats: PipelineStats,
     and chain extension.  A `debug` dict receives what the debug images
     draw: groups1, groups2, manager and edge_points.  On a mesh
     (ctx.mesh) the same stages shard their seeding, following and
-    expansion over it."""
+    expansion over it.  Values of `stages` other than 1, 2 and 3 are
+    ignored, as the JAX package ignores them."""
     from edgegraph3d_tpu_torch.matching import matches as matches_mod
     from edgegraph3d_tpu_torch.matching import polyline_stages
 
-    for s in stages:
-        if s not in (1, 2, 3):
-            raise ValueError(f"unknown stage {s}")
     V = ctx.P_mats.shape[0]
     manager = matches_mod.MatchesManager(ctx.plg_length.cpu().numpy())
     pieces = []
@@ -266,7 +276,9 @@ def run_pipeline(
     is written into the folder (utils/drawing.save_debug_images).  With
     `mesh` (parallel/mesh.Mesh; its devices of `device`'s type), the
     sweeps and joint BA are sharded over it and the unsharded device
-    work runs on its first device."""
+    work runs on its first device.  config.dtype="float64" runs stage 3
+    only (check_stages)."""
+    check_stages(config, stages)
     dev = resolve_device(device)
     if mesh is not None:
         if mesh.device.type != dev.type:

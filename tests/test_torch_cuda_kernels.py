@@ -84,9 +84,9 @@ def test_grid_topm_kernel_matches_plain(scene, M, Kc):
     _, ctx = scene
     grids = ctx.grids if Kc == 8 else ctx.grids[:, :, :, :Kc].contiguous()
     view, pts = _queries(ctx, 20001, M)
-    n0 = kernels.LAUNCHES["grid_topm_query"]
+    n0 = kernels.launch_totals()["grid_topm_query"]
     got = detection.grid_topm_query(grids, view, pts, ctx.cell, 10.0, M)
-    assert kernels.LAUNCHES["grid_topm_query"] == n0 + 1
+    assert kernels.launch_totals()["grid_topm_query"] == n0 + 1
     ref = detection._grid_topm_plain(grids, view, pts, ctx.cell, 10.0, M)
     torch.cuda.synchronize()
     assert ref.valid.any()
@@ -200,9 +200,9 @@ def test_triangulate_gn_kernel_matches_plain(scene, O, warm, case):
     X0 = (torch.as_tensor((X + rng.normal(0, 0.02, X.shape))
                           .astype(np.float32), device=dev) if warm else None)
     kw = dict(X0=X0, max_iters=8 if warm else 30, accept_mse=9.0)
-    n0 = kernels.LAUNCHES["triangulate_gn"]
+    n0 = kernels.launch_totals()["triangulate_gn"]
     Xk, msek, okk = triangulation.triangulate_gn(*args, **kw)
-    assert kernels.LAUNCHES["triangulate_gn"] == n0 + 1
+    assert kernels.launch_totals()["triangulate_gn"] == n0 + 1
     Xp, msep, okp = triangulation._triangulate_gn_plain(
         *args, X0, kw["max_iters"], 5e-7, 9.0, 1e-5)
     torch.cuda.synchronize()
@@ -309,9 +309,9 @@ def test_follow_walk_kernel_matches_plain(scene, warm, T, accept):
                            device=dev)
     args = _follow_args(ctx, seeds, torch.arange(S, device=dev), dirs,
                         torch.ones(S, dtype=torch.bool, device=dev), warm)
-    n0 = kernels.LAUNCHES["follow_walk"]
+    n0 = kernels.launch_totals()["follow_walk"]
     got = following.follow_walk(*args, T, cfg)
-    assert kernels.LAUNCHES["follow_walk"] == n0 + 1
+    assert kernels.launch_totals()["follow_walk"] == n0 + 1
     ref = _plain_follow(args, T, cfg)
     torch.cuda.synchronize()
     assert ref.valid[:, 0].any()
@@ -423,7 +423,8 @@ def test_stage3_on_gpu_matches_cpu(scene):
                                                max_starting_views=2)
     stage3 = ("grid_topm_query", "epipolar_topm_query", "triangulate_gn",
               "follow_walk", "gather_rows")
-    assert all(kernels.LAUNCHES[k] > 0 for k in stage3), kernels.LAUNCHES
+    totals = kernels.launch_totals()
+    assert all(totals[k] > 0 for k in stage3), totals
     cpu = refpoints.reconstruct_from_refpoints(sfmd, cpu_ctx,
                                                max_starting_views=2)
     assert len(gpu.X) == len(cpu.X) > 0
@@ -450,9 +451,9 @@ def test_gather_rows_kernel_matches_plain(cuda, R, W, S, offset, dtype):
     base = torch.randn(R * W + offset, generator=g, device=cuda)
     table = base[offset:].view(R, W)
     rows = torch.randint(0, R, (S,), generator=g, device=cuda).to(dtype)
-    n0 = kernels.LAUNCHES["gather_rows"]
+    n0 = kernels.launch_totals()["gather_rows"]
     got = gather_rows(table, rows)
-    assert kernels.LAUNCHES["gather_rows"] == n0 + 1
+    assert kernels.launch_totals()["gather_rows"] == n0 + 1
     torch.cuda.synchronize()
     assert torch.equal(got, table[rows.long()])
 
@@ -511,9 +512,9 @@ def test_group_seed_sample_kernel_matches_plain(scene, groups):
                          (cs * P + ps).reshape(-1)).reshape(*cam.shape, L, 2)
     lengths = torch.where(msk, ctx.plg_length[cs, ps], 0).to(torch.int32)
     args = (coords, lengths, cam, msk, ctx.F_table, 24, 20.0, 0.965, 5.0)
-    n0 = kernels.LAUNCHES["group_seed_sample"]
+    n0 = kernels.launch_totals()["group_seed_sample"]
     got = polyline_stages.group_seed_sample(*args)
-    assert kernels.LAUNCHES["group_seed_sample"] == n0 + 1
+    assert kernels.launch_totals()["group_seed_sample"] == n0 + 1
     ref = polyline_stages._group_seed_sample_plain(*args)
     torch.cuda.synchronize()
     assert ref[3].any() and ref[7].any()
@@ -599,9 +600,9 @@ def test_expand_chains_kernel_matches_plain(scene, chains, mode):
     cfg = ctx.config.replace(expand_correspondence_mode=mode)
     args = (ctx.plg_coords, ctx.grids, ctx.P_mats, ctx.F_table, ctx.cell,
             *tensors, cfg, C, T)
-    n0 = kernels.LAUNCHES["expand_chains"]
+    n0 = kernels.launch_totals()["expand_chains"]
     Xk, xyk, okk = expansion.expand_chains_compact(*args, extent)
-    assert kernels.LAUNCHES["expand_chains"] == n0 + 1
+    assert kernels.launch_totals()["expand_chains"] == n0 + 1
     Xp, xyp, okp = expansion._expand_chains_compact_plain(*args)
     torch.cuda.synchronize()
     assert okp.sum(1).max() > 3                 # views were added
@@ -680,9 +681,9 @@ def test_expand_chains_every_tile_width(scene, chains, mode):
     args = (ctx.plg_coords, ctx.grids, ctx.P_mats, ctx.F_table, ctx.cell,
             *tensors, cfg, C, T)
     ref = expansion._expand_chains_compact_plain(*args)
-    n0 = kernels.LAUNCHES["expand_chains"]
+    n0 = kernels.launch_totals()["expand_chains"]
     got = expansion.expand_chains_compact(*args, lens)
-    assert kernels.LAUNCHES["expand_chains"] == n0 + 1
+    assert kernels.launch_totals()["expand_chains"] == n0 + 1
     torch.cuda.synchronize()
     assert ref[2].sum(1).max() > 3                 # views were added
     for a, b in zip(got, ref):
@@ -894,8 +895,8 @@ def test_default_stages_on_gpu(cuda):
     stats = PipelineStats()
     kernels.reset_launch_counts()
     pts = reconstruct_all_stages(sfmd, ctx, stats, max_starting_views=2)
-    assert all(kernels.LAUNCHES[k] > 0 for k in kernels.MAIN_PATH_KERNELS), \
-        kernels.LAUNCHES
+    totals = kernels.launch_totals()
+    assert all(totals[k] > 0 for k in kernels.MAIN_PATH_KERNELS), totals
     assert stats.counts["stage1_sweep"] > 0
     assert stats.counts["stage2_sweep"] > 0
     cpu_stats = PipelineStats()
@@ -1041,10 +1042,10 @@ def test_ba_blocks_kernel_matches_plain(cuda, layout, V, N):
     else:
         state, obs = _on(cuda, *random_ba_problem(V, N, layout))
     damping = 1.0 if V == 1 else 1e-4
-    n0 = kernels.LAUNCHES["ba_blocks"]
+    n0 = kernels.launch_totals()["ba_blocks"]
     got = ba.ba_blocks(state, *obs, damping=damping)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["ba_blocks"] == n0 + 1
+    assert kernels.launch_totals()["ba_blocks"] == n0 + 1
     ref = ba._ba_blocks_plain(state, *obs, damping=damping)
     for name in ba.BABlocks._fields:
         g, r = getattr(got, name), getattr(ref, name)
@@ -1185,7 +1186,7 @@ def test_optional_paths_on_gpu(cuda):
     stats = PipelineStats()
     gpu = run_pipeline(sfmd, imgs, cfg, max_starting_views=2, stats=stats,
                        device=cuda)
-    assert kernels.LAUNCHES["ba_blocks"] == 2
+    assert kernels.launch_totals()["ba_blocks"] == 2
     assert "device_claiming_fallback" not in stats.counters
     assert stats.metrics["ba_mse_after"] < stats.metrics["ba_mse_before"]
     cpu = run_pipeline(sfmd, imgs, cfg, max_starting_views=2, device="cpu")
@@ -1262,3 +1263,201 @@ def test_stage3_on_a_mesh_of_cards_matches_one_card(scene, second_card):
     assert len(pts.X) == len(one.X) > 0
     np.testing.assert_array_equal(pts.X, one.X)
     np.testing.assert_array_equal(pts.obs_mask, one.obs_mask)
+
+
+# ----------------------------------------------------------------------
+# the f64 instantiations (EdgeGraphConfig(dtype="float64")): K1-K5, K7
+# ----------------------------------------------------------------------
+#
+# Each double body against its plain twin in f64 on the same card
+# tensors.  Both sides round each operation once in f64 (the walk's fused
+# multiply-adds: the hardware fma and ops.geometry._fma, both correctly
+# rounded), so decisions must be equal and coordinates agree to 1e-9.
+
+F64_TOL = 1e-9
+
+
+@pytest.fixture(scope="module")
+def scene64(scene):
+    sfmd, ctx = scene
+    cfg = CFG.replace(dtype="float64")
+    stack = extract_plgs(synthetic.make_scene(
+        n_cams=8, n_refpoints_per_curve=16, width=320, height_px=240,
+        focal=400.0, seed=3)[1], cfg)
+    ctx64 = refpoints.build_context(sfmd, stack, cfg, device=ctx.device)
+    assert ctx64.P_mats.dtype == ctx64.F_table.dtype == torch.float64
+    assert ctx64.plg_coords.dtype == torch.float64
+    assert ctx64.grids.dtype == torch.float32
+    return sfmd, ctx64
+
+
+def _assert_same_candidates64(a, b):
+    for f in ("pl_id", "seg", "valid"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    for f in ("t", "xy", "dist"):
+        assert getattr(a, f).dtype == torch.float64, f
+        torch.testing.assert_close(getattr(a, f), getattr(b, f), rtol=0,
+                                   atol=F64_TOL)
+
+
+@pytest.mark.parametrize("M", [1, 2, 4])
+def test_f64_grid_topm_kernel_matches_plain(scene64, M):
+    _, ctx = scene64
+    view, pts = _queries(ctx, 20001, 30 + M)
+    pts = pts.double() + 1e-4 * torch.rand_like(pts, dtype=torch.float64)
+    n0 = kernels.LAUNCHES["grid_topm_query"]["float64"]
+    got = detection.grid_topm_query(ctx.grids, view, pts, ctx.cell, 10.0, M)
+    assert kernels.LAUNCHES["grid_topm_query"]["float64"] == n0 + 1
+    ref = detection._grid_topm_plain(ctx.grids, view, pts, ctx.cell, 10.0,
+                                     M)
+    torch.cuda.synchronize()
+    assert ref.valid.any()
+    _assert_same_candidates64(got, ref)
+
+
+@pytest.mark.parametrize("pts64", [False, True])
+@pytest.mark.parametrize("exclude", [None, 0.965])
+def test_f64_epipolar_topm_kernel_matches_plain(scene64, exclude, pts64):
+    """f64 lines over f32 points (the seeding) and over f64 points (the
+    expansion's plain version)."""
+    _, ctx = scene64
+    view, pts = _queries(ctx, 20000, 17)
+    rng = np.random.default_rng(18)
+    p = pts.cpu().numpy().astype(np.float64)
+    ang = rng.uniform(0, np.pi, len(p))
+    ab = np.stack([np.cos(ang), np.sin(ang)], 1)
+    c = -(ab * p).sum(1) + rng.normal(0, 5.0, len(p))
+    lines = torch.as_tensor(np.concatenate([ab, c[:, None]], 1),
+                            device=ctx.device)
+    radius = torch.as_tensor(rng.uniform(3.0, 30.0, len(p))
+                             .astype(np.float32), device=ctx.device)
+    if pts64:
+        pts = pts.double()
+    n0 = kernels.LAUNCHES["epipolar_topm_query"]["float64"]
+    got = detection.epipolar_topm_query(ctx.grids, view, pts, lines, radius,
+                                        ctx.cell, 4, exclude)
+    assert kernels.LAUNCHES["epipolar_topm_query"]["float64"] == n0 + 1
+    ref = detection._epipolar_topm_plain(ctx.grids, view, pts, lines,
+                                         radius, ctx.cell, 4, exclude)
+    torch.cuda.synchronize()
+    assert ref.valid.any()
+    _assert_same_candidates64(got, ref)
+
+
+@pytest.mark.parametrize("O,warm,V_big", [(3, False, 0), (3, True, 0),
+                                          (8, False, 0), (8, True, 0),
+                                          (4, False, 1100),
+                                          (4, False, 5000)])
+def test_f64_triangulate_gn_kernel_matches_plain(scene64, O, warm, V_big):
+    """The O = 3 register body in double and the general body's padded
+    loop, its double table in shared memory, opted in (1,100 cameras) or
+    in device memory (5,000)."""
+    sfmd, ctx = scene64
+    rng = np.random.default_rng(O + 10 * warm + V_big)
+    P = ctx.P_mats
+    if V_big:
+        P = P[torch.arange(V_big, device=ctx.device) % P.shape[0]]
+        n_bytes = triangulation.gn_table_bytes(V_big, torch.float64)
+        assert kernels.lib().eg3d_triangulate_gn_smem_f64(V_big, 4) \
+            == n_bytes
+        where = kernels.table_placement(n_bytes,
+                                        kernels.smem_optin_bytes(ctx.device))
+        assert where == ("optin" if V_big == 1100 else "global")
+    X, cams, xy, mask = _gn_problem(sfmd, P.cpu().numpy(), 8192, O, rng)
+    dev = ctx.device
+    args = (P, torch.as_tensor(cams, device=dev),
+            torch.as_tensor(xy.astype(np.float64), device=dev),
+            torch.as_tensor(mask, device=dev))
+    X0 = torch.as_tensor(X + rng.normal(0, 0.02, X.shape), device=dev) \
+        if warm else None
+    iters = 8 if warm else 30
+    Xk, msek, okk = triangulation.triangulate_gn(*args, X0=X0,
+                                                 max_iters=iters)
+    if O != 3:
+        assert kernels.LAST_PLACEMENT["triangulate_gn"] == (
+            where if V_big else "static")
+    Xp, msep, okp = triangulation._triangulate_gn_plain(
+        *args, X0, iters, 5e-7, 9.0, 1e-5)
+    torch.cuda.synchronize()
+    assert Xk.dtype == torch.float64
+    assert okp.any() and torch.equal(okk, okp)
+    torch.testing.assert_close(Xk[okp], Xp[okp], rtol=F64_TOL, atol=F64_TOL)
+    torch.testing.assert_close(msek[okp], msep[okp], rtol=F64_TOL,
+                               atol=F64_TOL)
+
+
+@pytest.mark.parametrize("warm,T", [(False, 32), (True, 1)])
+def test_f64_follow_walk_kernel_matches_plain(scene64, warm, T):
+    sfmd, ctx = scene64
+    seeds = _scene_seeds(sfmd, ctx)
+    S = len(seeds["cams"])
+    dev = ctx.device
+    rng = np.random.default_rng(40 + T)
+    dirs = torch.as_tensor(rng.choice([-1, 1], (S, 3)).astype(np.int32),
+                           device=dev)
+    args = _follow_args(ctx, seeds, torch.arange(S, device=dev), dirs,
+                        torch.ones(S, dtype=torch.bool, device=dev), warm)
+    args = args[:7] + (args[7].double(),) + args[8:]  # t, as seeding gives
+    n0 = kernels.LAUNCHES["follow_walk"]["float64"]
+    got = following.follow_walk(*args, T, ctx.config)
+    assert kernels.LAUNCHES["follow_walk"]["float64"] == n0 + 1
+    ref = _plain_follow(args, T, ctx.config)
+    torch.cuda.synchronize()
+    assert got.X.dtype == torch.float64 and ref.valid[:, 0].any()
+    for f in ("valid", "n_steps", "seg", "final_seg"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    for f in ("obs", "t", "final_t", "X"):
+        torch.testing.assert_close(getattr(got, f), getattr(ref, f),
+                                   rtol=0, atol=F64_TOL, msg=f)
+
+
+@pytest.mark.parametrize("W,offset", [(128, 0), (7, 1)])
+def test_f64_gather_rows_kernel_matches_plain(cuda, W, offset):
+    """The double2 path (even W, aligned) and the scalar one."""
+    g = torch.Generator(device=cuda).manual_seed(W)
+    base = torch.randn(4096 * W + offset, generator=g, device=cuda,
+                       dtype=torch.float64)
+    table = base[offset:].view(4096, W)
+    rows = torch.randint(0, 4096, (9999,), generator=g, device=cuda)
+    n0 = kernels.LAUNCHES["gather_rows"]["float64"]
+    got = gather_rows(table, rows)
+    assert kernels.LAUNCHES["gather_rows"]["float64"] == n0 + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64 and torch.equal(got, table[rows])
+
+
+@pytest.mark.parametrize("mode", ["closest", "epipolar"])
+def test_f64_expand_chains_kernel_matches_plain(scene64, chains, mode):
+    """K7's double body (X and obs3 handed over in f32 and promoted, as
+    the caller hands them) against its plain version on the card."""
+    _, ctx = scene64
+    C, T, extent, tensors = chains
+    cfg = ctx.config.replace(expand_correspondence_mode=mode)
+    args = (ctx.plg_coords, ctx.grids, ctx.P_mats, ctx.F_table, ctx.cell,
+            *tensors, cfg, C, T)
+    n0 = kernels.LAUNCHES["expand_chains"]["float64"]
+    Xk, xyk, okk = expansion.expand_chains_compact(*args, extent)
+    assert kernels.LAUNCHES["expand_chains"]["float64"] == n0 + 1
+    Xp, xyp, okp = expansion._expand_chains_compact_plain(*args)
+    torch.cuda.synchronize()
+    assert Xk.dtype == xyk.dtype == torch.float64
+    assert okp.sum(1).max() > 3
+    assert torch.equal(okk, okp)
+    torch.testing.assert_close(xyk, xyp, rtol=0, atol=F64_TOL)
+    torch.testing.assert_close(Xk, Xp, rtol=0, atol=F64_TOL)
+
+
+def test_f64_stage3_on_gpu_matches_cpu(scene64):
+    """The stage-3 slice in f64 on the card (the f64 kernels) against the
+    same code on the CPU (the plain twins in f64)."""
+    sfmd, ctx = scene64
+    kernels.reset_launch_counts()
+    gpu = refpoints.reconstruct_from_refpoints(sfmd, ctx,
+                                               max_starting_views=2)
+    for k in kernels.F64_KERNELS:
+        assert kernels.LAUNCHES[k]["float64"] > 0, k
+    cpu = refpoints.reconstruct_from_refpoints(sfmd, _cpu_ctx(ctx),
+                                               max_starting_views=2)
+    assert len(gpu.X) == len(cpu.X) > 0
+    np.testing.assert_array_equal(gpu.obs_mask, cpu.obs_mask)
+    np.testing.assert_allclose(gpu.X, cpu.X, rtol=0, atol=F64_TOL)

@@ -4,7 +4,8 @@ twins and the JAX package:
   * kernels.table_placement, which places K3's, K6's, K7's and K8's
     per-block tables in shared memory (up to 48 KiB, then opted in up to the card's
     limit) or in device memory, at the byte counts of each kernel's
-    boundaries on an H100 (232,448 B opt-in limit);
+    boundaries on an H100 (232,448 B opt-in limit), in f32 and, for the
+    f64 bodies of K3 and K7, in f64;
   * K6's selection, as one thread runs it per (sample, member) pair: a
     scan of the segments below len - 1 that stops at the second crossing,
     then the lowest segments without a crossing as fill slots.  It must
@@ -54,6 +55,30 @@ def test_table_placement_at_kernel_boundaries(kernel, size, where):
                "K7 closest": lambda n: expansion.k7_table_bytes(n, False),
                "K6": lambda n: tps.k6_table_bytes(n, 64)}[kernel](size)
     assert kernels.table_placement(n_bytes, OPTIN) == where
+
+
+@pytest.mark.parametrize("kernel,size,where", [
+    ("K3", 512, "static"), ("K3", 513, "optin"), ("K3", 2421, "optin"),
+    ("K3", 2422, "global"),
+    ("K7 epipolar", 39, "static"), ("K7 epipolar", 40, "optin"),
+    ("K7 epipolar", 49, "optin"), ("K7 epipolar", 186, "optin"),
+    ("K7 epipolar", 187, "global"),
+    ("K7 closest", 512, "static"), ("K7 closest", 513, "optin"),
+    ("K7 closest", 2421, "optin"), ("K7 closest", 2422, "global")])
+def test_table_placement_at_f64_boundaries(kernel, size, where):
+    """The f64 bodies' tables take 8 bytes an entry: K3's general body
+    (the padded loop) stages P alone, 96 V bytes; K7 96 V, or 1,248 V in
+    "epipolar" mode, so the full scene's 49 views (61,152 B) opt in."""
+    f64 = torch.float64
+    n_bytes = {"K3": lambda n: triangulation.gn_table_bytes(n, f64),
+               "K7 epipolar": lambda n: expansion.k7_table_bytes(n, True,
+                                                                 f64),
+               "K7 closest": lambda n: expansion.k7_table_bytes(n, False,
+                                                                f64)
+               }[kernel](size)
+    assert kernels.table_placement(n_bytes, OPTIN) == where
+    if kernel == "K7 epipolar" and size == 49:
+        assert n_bytes == 61_152
 
 
 def test_table_placement_rule():

@@ -207,6 +207,40 @@ def test_distributed_ba_step_matches_jax_and_single(ba_problem, shards):
     assert st_d.X.shape == ts.X.shape
 
 
+def test_distributed_ba_step_keeps_f64_with_empty_shards(ba_problem,
+                                                        monkeypatch):
+    """An f64 state over more shards than points: every buffer summed
+    across the shards, the empty shards' zeros included, is f64, and the
+    step equals the single-device one to rounding."""
+    sfmd, _, _, _, _ = ba_problem
+    n = 3
+    packed = j_sfm.pack_observations(sfmd.obs_cam[:n], sfmd.obs_xy[:n],
+                                     max_obs=8, dtype=np.float64)
+    X = sfmd.points[:n] + np.random.default_rng(0).normal(0, 0.01, (n, 3))
+    st = tba.BAState(*(torch.as_tensor(np.asarray(a, np.float64))
+                       for a in (sfmd.K, sfmd.R, sfmd.t, X)))
+    obs = [torch.as_tensor(a) for a in (packed.cam_idx.astype(np.int32),
+                                        packed.xy, packed.mask)]
+    psum = t_sharded.psum
+    summed = []
+
+    def same_dtype_psum(mesh, parts):
+        summed.append({p.dtype for p in parts})
+        return psum(mesh, parts)
+
+    monkeypatch.setattr(t_sharded, "psum", same_dtype_psum)
+    st_d, mse_d = t_sharded.distributed_ba_step(cpu_mesh(8), st, *obs,
+                                                damping=1e-4)
+    st_s, mse_s = tba.ba_step_single(st, *obs, damping=1e-4)
+    assert summed and all(len(d) == 1 for d in summed), summed
+    assert {torch.float64, torch.int64} >= set().union(*summed)
+    for got, ref in ((st_d.R, st_s.R), (st_d.t, st_s.t), (st_d.X, st_s.X)):
+        assert got.dtype == torch.float64
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                                   atol=1e-12)
+    assert abs(mse_d.item() - mse_s.item()) < 1e-12
+
+
 def test_distributed_ba_mse_falls_100x(ba_problem):
     sfmd, cams, X, obs, N = ba_problem
     js, ts = _states(cams, X)
