@@ -28,10 +28,14 @@ its final `ok` line:
      from the seed, T = 1; the walk, DLT + GN, max_follow_steps), each
      against its plain twin (the walk, the GN over the live steps, the
      cut at the first GN failure) with 0 decision mismatches allowed and
-     X within 1e-4 relative.  K5 gather_rows must be bit-equal to
-     `table[rows]` at the Pallas probe's shape (int32 indices) and at
-     the chain-extension shape (int64), both timed over 200 calls per
-     event pair, with K5's launch alone and both device times; K6
+     X within 1e-4 relative.  K5 gather_rows, in a fresh process
+     (--time-k5), must be bit-equal to `table[rows]` at the Pallas
+     probe's shape (int32 indices), at the chain-extension shape (int64)
+     and at phase 9(a)'s f64 extension shape, and again with the indices
+     in the other type, each timed over 200 calls per event pair as its
+     wrapper and its launch alone, and by device time (the kernels
+     line's `ms` for K5 and K5 f64 is the device time; `table[rows]`'s
+     device time is its `library_ms`); K6
      group_seed_sample runs on the full scene's stage-1 match sets, with
      0 decision mismatches allowed.
      K7 expand_chains runs the whole expansion of the full scene's
@@ -142,8 +146,9 @@ its final `ok` line:
      2's shapes, 0 decision mismatches and coordinates within
      F64_COORD_TOL: K1 with f64 points, K2 with f64 lines over the f32
      starts, K3's O = 3 body (cold) and its general body (the padded
-     loop, O = 49, warm), K4's two launches of one follow_seeds call, K5
-     on the f64 polyline table (bit-equal to table[rows]) and K7 over
+     loop, O = 49, warm), K4's two launches of one follow_seeds call
+     (K5's f64 body is checked and timed at this shape in phase 2), and
+     K7 over
      the full scene's f64 stage-3 expansion (bit-equal); each logged
      with its kernel / plain ms and its f64 bound.  (b) The full scene
      through run_pipeline(stages=(3,)) in f64 and in f32, each under the
@@ -183,6 +188,13 @@ follow_seeds call on phase 2's seeds, and each of its K4 launches).
 does the same for K1 (its wrapper, its launch alone into preallocated
 outputs and its device time, at phase 2's M = 4 shape) and K6 (its
 wrapper and device time on the first 64 stage-1 match sets).
+
+    python3 chip_smoke.py --time-k5 ROOT
+
+does the same for K5 at the probe's shape, phase 2's extension shape
+and phase 9(a)'s f64 extension shape: its wrapper, its launch alone
+into a preallocated output, its device time, and table[rows] by events
+and by device time, with the bound and a digest of each output.
 
     python3 chip_smoke.py --time-k8 ROOT
 
@@ -828,75 +840,37 @@ def follow_work(ctx, args, T, walk, gn, ref, fs=4):
 
 
 def compare_stage12_kernels(ctx, sfmd, results):
-    """K5 at the probe's and the extension's shapes, K6 at the group
-    sweep's shape, and label propagation's ordered bucket sums, on the
-    full-scale scene."""
+    """K5 at the probe's, the extension's and the f64 extension's shapes
+    (in a fresh process), K6 at the group sweep's shape, and label
+    propagation's ordered bucket sums, on the full-scale scene."""
     import numpy as np
     import torch
 
     from edgegraph3d_tpu_torch import kernels
     from edgegraph3d_tpu_torch.matching import communities, polyline_stages
-    from edgegraph3d_tpu_torch.matching import refpoints as rp
-    from edgegraph3d_tpu_torch.matching.detection import grid_topm_query
     from edgegraph3d_tpu_torch.ops import gather
 
     cfg = ctx.config
     dev = ctx.device
     V, P, L, _ = ctx.plg_coords.shape
 
-    def check_gather(label, table, rows, reps):
-        """K5 against table[rows] (its plain version, and the one PyTorch
-        call that computes the same function), each over `reps` calls per
-        event pair, and K5's launch alone into a preallocated output."""
-        from edgegraph3d_tpu_torch import kernels
-        got, ms = cuda_time(lambda: gather.gather_rows(table, rows), reps)
-        ref, pms = cuda_time(lambda: table[rows], reps)
-        bad = int((got != ref).any(1).sum())
-        err = float((got - ref).abs().max())
-        out = torch.empty_like(got)
-        lib, stream = kernels.lib(), kernels.stream_of(table)
-        launch = lambda: kernels.check(lib.eg3d_gather_rows(
-            table.data_ptr(), table.shape[0], table.shape[1],
-            rows.data_ptr(), int(rows.dtype == torch.int64), len(rows),
-            out.data_ptr(), stream), "gather_rows")
-        _, launch_ms = cuda_time(launch, reps)
-        if not torch.equal(out, got):
-            fail(f"gather_rows {label}: the launch alone differs")
-        dev_ms = device_ms(launch, 20, "gather_rows")
-        lib_dev_ms = device_ms(lambda: table[rows], 20, "")
-        n_bytes = gather_bytes(table, rows)
-        log(f"  gather_rows {label}: table={tuple(table.shape)} "
-            f"rows={len(rows)} ({rows.dtype}) mismatched_rows={bad} "
-            f"max_abs_err={err:.3g} calls_per_event_pair={reps} "
-            f"kernel_ms={ms:.4f} launch_alone_ms={launch_ms:.4f} "
-            f"device_ms={dev_ms:.4f} table[rows]_ms={pms:.4f} "
-            f"table[rows]_device_ms={lib_dev_ms:.4f} bytes={n_bytes} "
-            f"bound_ms={bound(n_bytes, 0)[0]:.6f}")
-        if bad:
-            fail(f"gather_rows {label}: {bad} rows differ from table[rows]")
-        return err, ms, pms, n_bytes
-
-    # K5 at the Pallas probe's shape (R = V*P = 8 x 8192, W = 2L = 128)
-    g = torch.Generator(device=dev).manual_seed(1)
-    table = torch.randn((65536, 128), generator=g, device=dev)
-    rows = torch.randint(0, 65536, (16384,), generator=g, device=dev,
-                         dtype=torch.int32)
-    err, _, _, _ = check_gather("probe shape", table, rows, 200)
-    del table
-    # K5 at the chain-extension shape: E x V rows of [L, 2] located by K1
-    # (M=1) at every (refpoint, view) of the scene, E = the refpoints
-    obs_xy, _ = rp.dense_observations(sfmd)
-    N = len(obs_xy)
-    view = torch.arange(V, dtype=torch.int32, device=dev).repeat(N)
-    loc = grid_topm_query(ctx.grids, view,
-                          torch.as_tensor(obs_xy, device=dev)
-                          .reshape(N * V, 2), ctx.cell,
-                          cfg.extension_reanchor_px, 1)
-    rows = view.long() * P + loc.pl_id[:, 0].clamp_min(0).long()
-    err2, ms, pms, n_bytes = check_gather(
-        "extension shape", ctx.plg_coords.reshape(V * P, 2 * L), rows, 200)
-    record_into(results, "gather_rows", 0, len(rows), max(err, err2), ms,
-                pms, 0.0, exact=True, work=(n_bytes, 0.0), library_ms=pms)
+    # K5 at the probe's, the extension's and phase 9(a)'s f64 extension
+    # shape, checked and timed in a fresh process (--time-k5): the
+    # profiler's trace has come back empty in this process after phase 4
+    # (PERF.md section 7), and phase 9 comes after it
+    k5 = subprocess.run([sys.executable, os.path.abspath(__file__),
+                         "--time-k5", HERE], capture_output=True,
+                        text=True, timeout=600)
+    if k5.returncode != 0:
+        fail(f"--time-k5 failed ({k5.returncode}): {k5.stdout[-3000:]} "
+             f"{k5.stderr[-2000:]}")
+    k5 = json.loads(k5.stdout.strip().splitlines()[-1])
+    for label in ("probe", "extension", "extension_f64"):
+        log(f"  gather_rows {label}: {json.dumps(k5[label])}")
+    record_k5(results, "gather_rows", k5["extension"],
+              max(k5["probe"]["max_abs_err"], k5["extension"]["max_abs_err"]))
+    record_k5(results, f64_name("gather_rows"), k5["extension_f64"],
+              k5["extension_f64"]["max_abs_err"], peak=PEAK_F64_FLOPS)
 
     # the full scene's stage-1 graph: the card's f64 matmul build against
     # the host build from the same close sets, then the communities of
@@ -1006,6 +980,76 @@ def gather_bytes(table, rows) -> int:
     row = table.shape[1] * table.element_size()
     return (torch.unique(rows).numel() * row
             + rows.numel() * (rows.element_size() + row))
+
+
+def k5_launch(table, rows, out):
+    """K5's C entry alone, into the preallocated `out`, with the launch
+    plan computed once (a checkout without `gather.launch_plan` has the
+    one-warp-a-row entry, which takes no plan)."""
+    import torch
+
+    from edgegraph3d_tpu_torch import kernels
+    from edgegraph3d_tpu_torch.ops import gather
+    (R, W), S = table.shape, len(rows)
+    entry = getattr(kernels.lib(), "eg3d_gather_rows_f64"
+                    if table.dtype == torch.float64 else "eg3d_gather_rows")
+    args = [table.data_ptr(), R, W, rows.data_ptr(),
+            int(rows.dtype == torch.int64), S, out.data_ptr()]
+    if hasattr(gather, "launch_plan"):
+        plan = gather.launch_plan(W, table.element_size(), table.data_ptr(),
+                                  out.data_ptr(), S,
+                                  gather._sm_count(table.device))
+        args += [int(plan.vec), plan.blocks]
+    args.append(kernels.stream_of(table))
+    return lambda: kernels.check(entry(*args), "gather_rows")
+
+
+def k5_times(table, rows, reps: int) -> dict:
+    """K5 at one shape for the port checkout on sys.path: its wrapper,
+    its launch alone into a preallocated output (CUDA events over `reps`
+    calls a pair) and that launch's device time (a torch.profiler
+    trace), beside `table[rows]` (K5's plain version and the one PyTorch
+    call for the same function) by events and by device time; the rows
+    that differ from it, whether the launch alone and the other index
+    type give the same rows, the bytes K5 must move (gather_bytes) and
+    a digest of the output."""
+    import torch
+
+    from edgegraph3d_tpu_torch.ops import gather
+    got, ms = cuda_time(lambda: gather.gather_rows(table, rows), reps)
+    ref, pms = cuda_time(lambda: table[rows], reps)
+    other = rows.to(torch.int32 if rows.dtype == torch.int64
+                    else torch.int64)
+    out = torch.empty_like(got)
+    launch = k5_launch(table, rows, out)
+    _, launch_ms = cuda_time(launch, reps)
+    n_bytes = gather_bytes(table, rows)
+    return dict(
+        table=list(table.shape), dtype=str(table.dtype), rows=len(rows),
+        index=str(rows.dtype),
+        mismatched_rows=int((got != ref).any(1).sum()),
+        max_abs_err=float((got - ref).abs().max()),
+        other_index_type_equal=torch.equal(
+            gather.gather_rows(table, other), ref),
+        launch_alone_equal=torch.equal(out, got),
+        device_ms=device_ms(launch, 20, "gather_rows"),
+        wrapper_ms=ms, launch_alone_ms=launch_ms,
+        table_rows_ms=pms,
+        table_rows_device_ms=device_ms(lambda: table[rows], 20, ""),
+        bytes=n_bytes, bound_ms=bound(n_bytes, 0)[0],
+        digest=float(got.double().sum()))
+
+
+def record_k5(results, name, t, err, peak=PEAK_F32_FLOPS):
+    """K5's row of the kernels line from k5_times: `ms` is its device
+    time, with the wrapper and the launch alone beside it; plain_ms is
+    table[rows] by events, library_ms the same call's device time."""
+    record_into(results, name, t["mismatched_rows"], t["rows"], err,
+                t["device_ms"], t["table_rows_ms"], 0.0, exact=True,
+                work=(t["bytes"], 0.0), library_ms=t["table_rows_device_ms"],
+                peak=peak)
+    results[name].update(wrapper_ms=t["wrapper_ms"],
+                         launch_alone_ms=t["launch_alone_ms"])
 
 
 def tile_histogram(extent):
@@ -2792,17 +2836,17 @@ def f64_name(k: str) -> str:
 
 def compare_kernels_f64(full, cfg, results):
     """Phase 9(a): each f64 instantiation (K1, K2, K3 at O = 3 and in its
-    general body, K4, K5, K7) against its plain twin in f64, at phase 2's
-    full-scale shapes with the full scene's f64 context, 0 decision
-    mismatches allowed, timed with CUDA events and bounded at the f64
-    peak."""
+    general body, K4, K7; K5's runs in phase 2) against its plain twin in
+    f64, at phase 2's full-scale shapes with the full scene's f64
+    context, 0 decision mismatches allowed, timed with CUDA events and
+    bounded at the f64 peak."""
     import torch
 
     from edgegraph3d_tpu_torch import kernels
     from edgegraph3d_tpu_torch.matching import detection, following
     from edgegraph3d_tpu_torch.matching import matches
     from edgegraph3d_tpu_torch.matching import refpoints as rp
-    from edgegraph3d_tpu_torch.ops import gather, triangulation
+    from edgegraph3d_tpu_torch.ops import triangulation
     from edgegraph3d_tpu_torch.ops.geometry import epipolar_line
     from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
 
@@ -2847,9 +2891,9 @@ def compare_kernels_f64(full, cfg, results):
             f"decision_mismatches={mism} max_abs_err={err:.3g} "
             f"kernel_ms={ms:.4f} plain_ms={pms:.4f}")
         if m == 1:
-            # the row of the main path's shape; its hits feed K5 below
+            # the row of the main path's shape; its hits are K5's f64 rows
+            # (extension_rows, timed by --time-k5 in phase 2)
             k1.update(mism=mism, rows=rows, err=err, ms=ms, pms=pms)
-            loc = got
         elif mism or not err <= F64_COORD_TOL:
             fail(f"grid_topm_query (float64) M={m}: {mism} decision "
                  f"mismatches, max_abs_err {err} (tolerance "
@@ -2949,22 +2993,6 @@ def compare_kernels_f64(full, cfg, results):
         k4["err"] = max(k4["err"], err, xerr)
     record("follow_walk", k4["mism"], k4["lanes"], k4["err"], k4["ms"],
            k4["pms"], F64_COORD_TOL, work=(k4["bytes"], k4["flops"]))
-
-    # K5: rows of the f64 polyline table at the chain-extension shape
-    P_ = ctx.plg_coords.shape[1]
-    L = ctx.plg_coords.shape[2]
-    rows_i = view.long() * P_ + loc.pl_id[:, 0].clamp_min(0).long()
-    table = ctx.plg_coords.reshape(V * P_, 2 * L)
-    got, ms = cuda_time(lambda: gather.gather_rows(table, rows_i), 200)
-    ref, pms = cuda_time(lambda: table[rows_i], 200)
-    bad = int((got != ref).any(1).sum())
-    n_bytes = gather_bytes(table, rows_i)
-    log(f"  gather_rows (float64): table={tuple(table.shape)} rows="
-        f"{len(rows_i)} mismatched_rows={bad} kernel_ms={ms:.4f} "
-        f"table[rows]_ms={pms:.4f}")
-    record("gather_rows", bad, len(rows_i), 0.0, ms, pms, 0.0,
-           work=(n_bytes, 0.0), library_ms=pms)
-    del table, loc, rows_i, got, ref
 
     # K7: the whole expansion of the full scene's f64 stage-3 chains
     t0 = time.time()
@@ -3376,6 +3404,62 @@ def time_k1_k6(root: str) -> int:
     return 0
 
 
+def time_k5(root: str) -> int:
+    """K5 for the port checkout at `root` at its three shapes (k5_times):
+    the Pallas probe's (a seeded f32 table [65536, 128], 16,384 int32
+    rows), chain extension's on the full scene (int64 rows: the polyline
+    K1 finds at M = 1 at every (refpoint, view), phase 2's) and chain
+    extension's in f64 (phase 9(a)'s: the f64 context's K1 at the f64
+    projections of the scene points).  Prints one JSON line with the
+    times and digests of the outputs; it fails if a row differs from
+    table[rows]."""
+    import torch
+    sys.path.insert(0, os.path.abspath(root))
+    from edgegraph3d_tpu_torch import kernels
+    from edgegraph3d_tpu_torch.matching import detection
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    from edgegraph3d_tpu_torch.ops import gather
+    from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
+    if not torch.cuda.is_available():
+        fail("no CUDA GPU")
+    kernels.build()
+    kernels.lib()
+    sfmd, edges, _ = full_scene()
+    cfg = bench_config()
+    out = {"root": root, "source": gather.__file__, "card": card_name()}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    shapes = [("probe", torch.randn((65536, 128), generator=g, device="cuda"),
+               torch.randint(0, 65536, (16384,), generator=g, device="cuda",
+                             dtype=torch.int32))]
+    obs_xy, _ = rp.dense_observations(sfmd)
+    for label, c in (("extension", cfg),
+                     ("extension_f64", cfg.replace(dtype="float64"))):
+        ctx = rp.build_context(sfmd, extract_plgs(edges, c), c,
+                               device="cuda")
+        V, P, L, _ = ctx.plg_coords.shape
+        view = torch.arange(V, dtype=torch.int32,
+                            device=ctx.device).repeat(len(obs_xy))
+        if c.dtype == "float64":
+            X = torch.as_tensor(sfmd.points, dtype=torch.float64,
+                                device=ctx.device)
+            pts = rp._project_pos(ctx.P_mats, X).reshape(-1, 2).contiguous()
+            kw = {"view_cycle": True}
+        else:
+            pts = torch.as_tensor(obs_xy, device=ctx.device).reshape(-1, 2)
+            kw = {}
+        loc = detection.grid_topm_query(ctx.grids, view, pts, ctx.cell,
+                                        c.extension_reanchor_px, 1, **kw)
+        rows = view.long() * P + loc.pl_id[:, 0].clamp_min(0).long()
+        shapes.append((label, ctx.plg_coords.reshape(V * P, 2 * L), rows))
+    for label, table, rows in shapes:
+        t = out[label] = k5_times(table, rows, 200)
+        if t["mismatched_rows"] or not (t["other_index_type_equal"]
+                                        and t["launch_alone_equal"]):
+            fail(f"gather_rows {label}: {json.dumps(t)}")
+    log(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--mesh-cards"]:
         sys.exit(mesh_cards())
@@ -3387,6 +3471,8 @@ if __name__ == "__main__":
         sys.exit(time_k8(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k1-k6":
         sys.exit(time_k1_k6(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-k5":
+        sys.exit(time_k5(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k7-chunk":
         sys.exit(time_k7_chunk(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-follow":

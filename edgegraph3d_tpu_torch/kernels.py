@@ -97,9 +97,10 @@ _SIGNATURES = {
                          _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
                          _I, _F, _F, _F, _P,
                          _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    # table, R, W, rows, idx64 (rows int64, else int32), S, out, stream
-    "eg3d_gather_rows": [_P, _L, _L, _P, _I, _L, _P, _P],
-    "eg3d_gather_rows_f64": [_P, _L, _L, _P, _I, _L, _P, _P],
+    # table, R, W, rows, idx64 (rows int64, else int32), S, out, vec
+    # (16-byte pieces), blocks, stream
+    "eg3d_gather_rows": [_P, _L, _L, _P, _I, _L, _P, _I, _I, _P],
+    "eg3d_gather_rows_f64": [_P, _L, _L, _P, _I, _L, _P, _I, _I, _P],
     # K, L, S -> bytes of one block's member table
     "eg3d_group_seed_sample_smem": [_I, _I, _I],
     # coords, lengths, cams, mask, G, K, L, F_table, V, S, spacing, qcos,

@@ -439,18 +439,38 @@ def _cpu_ctx(ctx):
         cell=ctx.cell, config=ctx.config, device=torch.device("cpu"))
 
 
-@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
-@pytest.mark.parametrize("R,W,S,offset", [(65536, 128, 16384, 0),
-                                          (4096, 128, 9999, 1),
-                                          (1000, 7, 3000, 0)])
-def test_gather_rows_kernel_matches_plain(cuda, R, W, S, offset, dtype):
-    """Bit-equal to table[rows]: the 16-byte path (W % 4 == 0, aligned)
-    and the scalar path (a table view 4 bytes off alignment, odd W),
-    with int32 and int64 indices."""
-    g = torch.Generator(device=cuda).manual_seed(R + offset)
-    base = torch.randn(R * W + offset, generator=g, device=cuda)
+#: K5 cases (R, W, S, offset in elements, every index the same): the
+#: 16-byte bodies of 8, 16 (two rows a warp) and 32 pieces and the
+#: general one, the scalar body (odd W, or a view 4, 8 or 12 bytes off
+#: 16-byte alignment), S not a multiple of a tile, S past the grid (the
+#: grid-stride loop) and one row copied S times
+K5_CASES = [(65536, 128, 16384, 0, False), (4096, 128, 9999, 1, False),
+            (1000, 7, 3000, 0, False), (4096, 64, 9999, 0, False),
+            (4096, 32, 9999, 0, False), (4096, 4, 9999, 0, False),
+            (4096, 1, 9999, 0, False), (4096, 66, 9999, 0, False),
+            (4096, 130, 9999, 0, False), (4096, 64, 2**20 + 3, 0, False),
+            (4096, 64, 9999, 0, True), (4096, 64, 9999, 1, False),
+            (4096, 64, 9999, 2, False), (4096, 64, 9999, 3, False)]
+
+
+def _k5_inputs(cuda, R, W, S, offset, same, dtype, index_dtype):
+    g = torch.Generator(device=cuda).manual_seed(R + W + S + offset)
+    base = torch.randn(R * W + offset, generator=g, device=cuda,
+                       dtype=dtype)
     table = base[offset:].view(R, W)
-    rows = torch.randint(0, R, (S,), generator=g, device=cuda).to(dtype)
+    rows = torch.full((S,), R // 2, device=cuda) if same else \
+        torch.randint(0, R, (S,), generator=g, device=cuda)
+    return table, rows.to(index_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("R,W,S,offset,same", K5_CASES)
+def test_gather_rows_kernel_matches_plain(cuda, R, W, S, offset, same,
+                                          dtype):
+    """Bit-equal to table[rows] in every body of K5 (K5_CASES), with
+    int32 and int64 indices."""
+    table, rows = _k5_inputs(cuda, R, W, S, offset, same, torch.float32,
+                             dtype)
     n0 = kernels.launch_totals()["gather_rows"]
     got = gather_rows(table, rows)
     assert kernels.launch_totals()["gather_rows"] == n0 + 1
@@ -462,7 +482,7 @@ _OUT_OF_RANGE = textwrap.dedent("""
     import sys
     import torch
     from edgegraph3d_tpu_torch.ops.gather import gather_rows
-    table = torch.zeros((10, 8), device="cuda")
+    table = torch.zeros({shape}, device="cuda", dtype=torch.{table})
     gather_rows(table, torch.tensor({bad}, device="cuda",
                                     dtype=torch.{dtype}))
     try:
@@ -474,16 +494,22 @@ _OUT_OF_RANGE = textwrap.dedent("""
 """)
 
 
-@pytest.mark.parametrize("bad,dtype", [([0, 10], "int64"), ([-1, 3], "int32")])
-def test_gather_rows_out_of_range_raises(cuda, bad, dtype):
+@pytest.mark.parametrize("bad,dtype,table,shape", [
+    ([0, 10], "int64", "float32", (10, 8)),
+    ([-1, 3], "int32", "float32", (10, 8)),
+    ("[0] * 3000 + [10]", "int64", "float32", (10, 64)),
+    ("[3] * 40 + [-2]", "int32", "float64", (10, 7))])
+def test_gather_rows_out_of_range_raises(cuda, bad, dtype, table, shape):
     """An index outside [0, R) fails the kernel's device-side assert, as
-    table[rows] does on the card, reported at the next synchronise.  It
-    runs in a child process: the assert poisons the CUDA context of the
-    process it fires in."""
+    table[rows] does on the card, reported at the next synchronise: in
+    the first tile and in a later one, in the 16-byte and the scalar
+    bodies, f32 and f64.  It runs in a child process: the assert
+    poisons the CUDA context of the process it fires in."""
     kernels.lib()                           # build before the child runs
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run(
-        [sys.executable, "-c", _OUT_OF_RANGE.format(bad=bad, dtype=dtype)],
+        [sys.executable, "-c", _OUT_OF_RANGE.format(
+            bad=bad, dtype=dtype, table=table, shape=shape)],
         capture_output=True, text=True, timeout=300, cwd=root)
     assert res.returncode == 3, (res.stdout, res.stderr[-2000:])
     assert "device-side assert" in res.stdout
@@ -1411,19 +1437,26 @@ def test_f64_follow_walk_kernel_matches_plain(scene64, warm, T):
                                    rtol=0, atol=F64_TOL, msg=f)
 
 
-@pytest.mark.parametrize("W,offset", [(128, 0), (7, 1)])
-def test_f64_gather_rows_kernel_matches_plain(cuda, W, offset):
-    """The double2 path (even W, aligned) and the scalar one."""
-    g = torch.Generator(device=cuda).manual_seed(W)
-    base = torch.randn(4096 * W + offset, generator=g, device=cuda,
-                       dtype=torch.float64)
-    table = base[offset:].view(4096, W)
-    rows = torch.randint(0, 4096, (9999,), generator=g, device=cuda)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("W,S,offset,same", [
+    (128, 9999, 0, False), (7, 9999, 1, False), (64, 9999, 0, False),
+    (32, 9999, 0, False), (16, 9999, 0, False), (4, 9999, 0, False),
+    (1, 9999, 0, False), (66, 9999, 0, False), (130, 9999, 0, False),
+    (64, 2**20 + 3, 0, False), (64, 9999, 0, True), (64, 9999, 1, False)])
+def test_f64_gather_rows_kernel_matches_plain(cuda, W, S, offset, same,
+                                              dtype):
+    """The double2 bodies (even W, aligned: 32, 16, 8 pieces, the general
+    one at 2, 33 and 65) and the scalar one (odd W, a view 8 bytes off
+    16-byte alignment), S past the grid and one row copied S times, with
+    int32 and int64 indices."""
+    table, rows = _k5_inputs(cuda, 4096, W, S, offset, same, torch.float64,
+                             dtype)
     n0 = kernels.LAUNCHES["gather_rows"]["float64"]
     got = gather_rows(table, rows)
     assert kernels.LAUNCHES["gather_rows"]["float64"] == n0 + 1
     torch.cuda.synchronize()
-    assert got.dtype == torch.float64 and torch.equal(got, table[rows])
+    assert got.dtype == torch.float64 and torch.equal(got,
+                                                      table[rows.long()])
 
 
 @pytest.mark.parametrize("mode", ["closest", "epipolar"])

@@ -13,7 +13,12 @@ twins and the JAX package:
     (polyline_line_intersections, port and JAX) and what
     _group_seed_sample_plain returns, bit for bit where both sides are
     torch / numpy f32 and within 1e-4 px / 1e-4 against XLA, which
-    contracts the crossing arithmetic differently.
+    contracts the crossing arithmetic differently;
+  * K5's launch plan (ops/gather.launch_plan) and the kernel's mapping
+    of threads to (row, piece) pairs, as csrc/gather_rows.cu runs it
+    block by block and tile by tile: every output element is written
+    exactly once, from table[rows[s]], for any row width, element size,
+    base offset, row count and grid (the grid-stride loop included).
 """
 
 import jax
@@ -26,7 +31,7 @@ from edgegraph3d_tpu.ops import polyline_ops as jpo
 from edgegraph3d_tpu_torch import kernels
 from edgegraph3d_tpu_torch.matching import expansion
 from edgegraph3d_tpu_torch.matching import polyline_stages as tps
-from edgegraph3d_tpu_torch.ops import ba
+from edgegraph3d_tpu_torch.ops import ba, gather
 from edgegraph3d_tpu_torch.ops import polyline_ops as tpo
 from edgegraph3d_tpu_torch.ops import triangulation
 from edgegraph3d_tpu_torch.ops.geometry import epipolar_line_fma
@@ -242,3 +247,79 @@ def test_k6_selection_matches_plain_twin():
     np.testing.assert_array_equal(t, out[6].numpy().reshape(-1, 2))
     np.testing.assert_array_equal(ok, out[7].numpy().reshape(-1, 2))
     assert ok[:, 0].any() and ok[:, 1].any() and not ok[:, 0].all()
+
+
+def _k5_model(table, rows, plan, blocks):
+    """K5 as csrc/gather_rows.cu runs it with `plan` on a grid of
+    `blocks`: each block strides over the tiles, stages a tile's row
+    indices, and each of its THREADS threads copies UNROLL pieces a pass
+    (16 bytes, or one element without `plan.vec`).  Returns the output
+    and how often each of its pieces was written."""
+    R, W = table.shape
+    P, TH, U, TILE = plan.pieces, gather.THREADS, gather.UNROLL, gather.TILE
+    src = table.reshape(R, P, -1)
+    fixed = P in gather.FIXED_PIECES
+    tile_rows = max(1, TILE // P)
+    assert tile_rows == plan.tile_rows
+    S = len(rows)
+    out = np.full((S * P, src.shape[2]), np.nan, table.dtype)
+    writes = np.zeros(S * P, np.int64)
+    tid = np.arange(TH)
+    tiles = -(-S // tile_rows)
+    for b in range(blocks):
+        for tile in range(b, tiles, blocks):
+            first = tile * tile_rows
+            s_src = rows[first:first + min(S - first, tile_rows)]
+            assert ((s_src >= 0) & (s_src < R)).all()      # the assert
+            assert len(s_src) <= (TILE // P if fixed else TILE)  # smem
+            n = len(s_src) * P
+            assert not fixed or n <= TILE       # one pass in a fixed body
+            row, col = (0, 0) if fixed else (tid // P, tid % P)
+            for base in range(0, n, TILE):
+                for u in range(U):
+                    p = base + u * TH + tid
+                    if fixed:
+                        row, col = p // P, p % P
+                    live = p < n
+                    out[first * P + p[live]] = src[s_src[row[live]],
+                                                   col[live]]
+                    writes[first * P + p[live]] += 1
+                    if not fixed:
+                        row, col = row + TH // P, col + TH % P
+                        carry = col >= P
+                        row, col = row + carry, col - P * carry
+    return out.reshape(S, W), writes
+
+
+@pytest.mark.parametrize("S", ["0", "1", "31", "33", "tile+1"])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("elem", [4, 8])
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 7, 31, 32, 62, 64, 66, 128, 130,
+                               2051])
+def test_k5_model_writes_every_element_once(W, elem, offset, S):
+    """Every output element written once, from table[rows[s]]: with the
+    plan's grid on an H100 (132 SMs) and on one block (every tile by
+    the grid-stride loop).  `offset` elements off a 16-byte aligned
+    base: a misaligned table takes single elements; W = 2051 (a row
+    longer than a tile) takes several passes a tile."""
+    rng = np.random.default_rng(W * 100 + elem * 10 + offset)
+    dt = np.float32 if elem == 4 else np.float64
+    R = 37
+    table = rng.normal(0, 100.0, (R, W)).astype(dt)
+    table_ptr, out_ptr = (1 << 20) + offset * elem, 1 << 21
+    probe = gather.launch_plan(W, elem, table_ptr, out_ptr, 1, 132)
+    n = probe.tile_rows + 1 if S == "tile+1" else int(S)
+    rows = rng.integers(0, R, n)
+    plan = gather.launch_plan(W, elem, table_ptr, out_ptr, n, 132)
+    assert plan.vec == ((W * elem) % 16 == 0 and offset * elem % 16 == 0)
+    assert plan.pieces * (16 // elem if plan.vec else 1) == W
+    assert plan.blocks == min(-(-n // plan.tile_rows),
+                              gather.BLOCKS_PER_SM * 132)
+    for blocks in sorted({plan.blocks, 1}):
+        if n == 0:                   # the wrapper launches nothing
+            assert plan.blocks == 0
+            break
+        out, writes = _k5_model(table, rows, plan, blocks)
+        assert (writes == 1).all()
+        np.testing.assert_array_equal(out, table[rows])
+
