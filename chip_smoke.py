@@ -39,13 +39,11 @@ its final `ok` line:
      group_seed_sample runs on the full scene's stage-1 match sets, with
      0 decision mismatches allowed.
      K7 expand_chains runs the whole expansion of the full scene's
-     stage-3 chains and of the first chain-extension round's chains, in
-     the chunks refpoints.chain_chunks makes, in one launch per chunk
-     (the wrapper's way) and, for comparison, in one launch per tile
-     bucket (each chunk cut at its bucket edges), each bit-equal to its
-     plain version (the old per-view loop around K1 and K3, so its time
-     is the old path's), and alone on the chunk the one-warp-per-chain
-     design was timed on (the first 4,096 stage-3 chains).  The
+     stage-3 chains and of the first chain-extension round's chains, as
+     refpoints.chain_chunks hands them over (one chunk on the card) and
+     the wrapper launches them (one launch per tile bucket, each on a
+     stream of its own), each bit-equal to its plain version (the old
+     per-view loop around K1 and K3, so its time is the old path's).  The
      full-scale similarity graph built on the card (f64 products) must
      have the host build's edges, with weights within 1e-5 relative (the
      count of unequal weights is printed), and its stage-1 match sets
@@ -88,7 +86,10 @@ its final `ok` line:
      alone, each of its kernels' device time and its bound, the margins
      of its two decisions, the S matmul's and the solve's times,
      max_memory_allocated, and the --time-k8 line below for this
-     checkout, run in a fresh process.  Device claiming: stage 3 of the full
+     checkout, run in a fresh process (each of K8's kernels' device time:
+     this process's profiler traces have come back empty after phase 4,
+     and no device time is ever read from an empty trace; a trace without
+     the kernel fails the run).  Device claiming: stage 3 of the full
      scene (with expansion and chain extension) with claiming_backend
      "device" and "host", bit-equal points, equal counts and counters
      (but the device backend's own), and no fallback to the host pass;
@@ -171,12 +172,17 @@ counted from this run's inputs with the per-item costs in FLOPS below
 Prints one JSON line of per-kernel results and, as its last line,
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
-    python3 chip_smoke.py --time-k7-chunk ROOT
+    python3 chip_smoke.py --time-k7 ROOT
 
-times K7 alone on that 4,096-chain chunk with this script's `cuda_time`
-for the port checkout at ROOT (e.g. an unpacked `git archive` of an
-earlier commit), so that two versions of K7 are timed with one yardstick
-in one call; it prints one JSON line and skips every check.
+times K7 for the port checkout at ROOT (e.g. an unpacked `git archive`
+of an earlier commit), so that two versions of K7 are timed with one
+yardstick in one call: in f32 and f64 on the full scene, the K7
+launches of one stage-3 expand_and_assemble call and of the first
+chain-extension call, and each tile bucket of the stage-3 chains alone,
+by device time from profiler traces (per launch, their sum, and the
+time in which some K7 kernel ran), with the host wall of each call, the
+bound of its work, its chains and warps per launch and digests of its
+outputs (`time_k7`); it prints one JSON line and skips every check.
 
     python3 chip_smoke.py --time-follow ROOT
 
@@ -456,7 +462,8 @@ def device_ms_by_kernel(fn, reps: int, pattern: str) -> dict:
     """{kernel: mean device ms per call of fn()} for every CUDA entry of
     one torch.profiler trace of `reps` calls (kernels, memsets, copies),
     each named by its match of the regular expression `pattern`, or by
-    its first 48 characters."""
+    its first 48 characters.  A trace without any CUDA entry fails the
+    run: no device time is recorded from it."""
     import re
 
     import torch
@@ -476,21 +483,21 @@ def device_ms_by_kernel(fn, reps: int, pattern: str) -> dict:
             t = float(t if t is not None else e.self_cuda_time_total)
             out[name] = out.get(name, 0.0) + t / 1e3 / reps
     if not out:
-        log("  device_ms_by_kernel: the trace holds no CUDA entry")
+        fail("device_ms_by_kernel: the profiler trace holds no CUDA entry")
     return out
 
 
 def device_ms(fn, reps: int, name) -> float:
     """Mean device time per call of fn() of the CUDA kernels whose name
     holds `name` (or one of a tuple of names), from one trace of
-    device_ms_by_kernel."""
+    device_ms_by_kernel; fails when the trace has none of them."""
     import re
     names = (name,) if isinstance(name, str) else tuple(name)
     times = device_ms_by_kernel(fn, reps, "|".join(map(re.escape, names)))
     ms = sum(v for k, v in times.items() if k in names)
     if ms == 0.0:
-        log(f"  device_ms: no CUDA kernel named {names} in the trace; "
-            f"its CUDA entries: {list(times)[:12]}")
+        fail(f"device_ms: no CUDA kernel named {names} in the trace; its "
+             f"CUDA entries: {list(times)[:12]}")
     return ms
 
 
@@ -1061,30 +1068,6 @@ def tile_histogram(extent):
                        minlength=4).tolist()
 
 
-def _first_chains(ctx, X, obs3, cams3, seed_ids, orders, C=4096, T=64):
-    """expand_chains_compact's arguments and extents for the first C
-    chains in group_chains order, unsorted (the chunk the one-warp-per-
-    chain design of K7 was timed on)."""
-    import numpy as np
-    import torch
-
-    from edgegraph3d_tpu_torch.matching import expansion
-    dev = ctx.device
-    gather, vld = expansion.group_chains(seed_ids, orders, max_t=T)
-    gi, vl = gather[:C], vld[:C]
-    kidx = np.flatnonzero(vl.reshape(-1))
-    rows = gi.reshape(-1)[kidx]
-    as_t = lambda a: torch.as_tensor(a, device=dev)
-    return (ctx.plg_coords, ctx.grids, ctx.P_mats, ctx.F_table, ctx.cell,
-            as_t(np.asarray(X, np.float32)[rows]),
-            as_t(np.asarray(obs3, np.float32)[rows]),
-            as_t(cams3[gi[:, 0]].astype(np.int32)),
-            as_t((kidx // T).astype(np.int64)),
-            as_t((kidx % T).astype(np.int64)),
-            torch.ones(len(kidx), dtype=torch.bool, device=dev), as_t(vl),
-            ctx.config, len(gi), T), vl.sum(1)
-
-
 def bucket_pieces(args, extent):
     """One refpoints.chain_chunks chunk cut at its tile-bucket edges: a
     list of (args, extent), one per run of chains in one bucket.  The
@@ -1108,25 +1091,18 @@ def bucket_pieces(args, extent):
     return pieces
 
 
-def check_expansion(ctx, label, chunks, peak=PEAK_F32_FLOPS):
-    """K7 against its plain version over every chunk of one expansion,
-    laid out as refpoints.expand_and_assemble lays them out
-    (refpoints.chain_chunks): decisions, out_xy and X bit-equal.  The
-    plain run is counted (K1 grid entries, GN observations and
-    iterations) for the bound, then timed once more without the
-    counting; K7 is timed in one launch per chunk (the wrapper's way)
-    and, for comparison, in one launch per tile bucket (bucket_pieces).
-    Returns (mismatched rows, rows, max |out_xy - plain| over the
-    observations both accept, kernel ms, plain ms, (bytes, flops)) over
-    all chunks."""
-    import numpy as np
+def expansion_work(ctx, chunks):
+    """K7's plain version over every (args, extent) chunk, counted (K1
+    grid entries, GN observations and iterations): (its outputs per
+    chunk, (bytes, flops) that K7 must move and compute for the bound,
+    the counts for the log).  `ctx` is the checkout's context whose
+    expansion module the chunks go through."""
     import torch
 
     from edgegraph3d_tpu_torch.matching import expansion
 
     cfg = ctx.config
     V, GH, GW, Kc, _ = ctx.grids.shape
-    chunks = [(a, e) for _, a, e in chunks]
     count = dict(entries=0, cells=[], gn_rows=0, gn_mask=[], gn_sample=[])
     query, gn = expansion.grid_topm_query, expansion.triangulate_gn
 
@@ -1144,35 +1120,15 @@ def check_expansion(ctx, label, chunks, peak=PEAK_F32_FLOPS):
             t[::step][:128] for t in (cams, xy, mask, X0)))
         return gn(P_mats, cams, xy, mask, X0=X0, **kw)
 
-    plain = lambda: [expansion._expand_chains_compact_plain(*a)
-                     for a, _ in chunks]
     expansion.grid_topm_query, expansion.triangulate_gn = (counted_query,
                                                             counted_gn)
     try:
-        ref = plain()
+        ref = [expansion._expand_chains_compact_plain(*a) for a, _ in chunks]
     finally:
         expansion.grid_topm_query, expansion.triangulate_gn = query, gn
-    _, pms = cuda_time(plain, 1, warmup=False)
-    got, ms = cuda_time(lambda: [expansion.expand_chains_compact(
-        *a, extent=e) for a, e in chunks], 5)
-    pieces = [bucket_pieces(a, e) for a, e in chunks]
-    split, split_ms = cuda_time(lambda: [
-        [expansion.expand_chains_compact(*a, extent=e) for a, e in ps]
-        for ps in pieces], 5)
-    split = [tuple(torch.cat(t) for t in zip(*runs)) for runs in split]
-
-    exact = all(torch.equal(x, y) for run in (got, split)
-                for out, r in zip(run, ref) for x, y in zip(out, r))
-    bad = sum(int((g[2] != r[2]).any(1).sum()) for g, r in zip(got, ref))
-    err = 0.0
-    for g, r in zip(got, ref):
-        both = g[2] & r[2]
-        if both.any():
-            err = max(err, float((g[1] - r[1]).abs()[both].max()))
     K = sum(a[5].shape[0] for a, _ in chunks)
     C = sum(a[-2] for a, _ in chunks)
     T = chunks[0][0][-1]
-    added = sum(int(r[2].sum()) for r in ref) - 3 * K
     samp = [torch.cat(t) for t in zip(*count["gn_sample"])]
     its, _ = gn_iterations(ctx.P_mats, *samp, cfg.follow_gn_iters,
                            cfg.gn_epsilon, cfg.match_gn_max_mse)
@@ -1180,33 +1136,68 @@ def check_expansion(ctx, label, chunks, peak=PEAK_F32_FLOPS):
     gn_f = its * (FLOPS["gn_obs"] * live + FLOPS["gn_iter"] * count["gn_rows"])
     cells = torch.unique(torch.cat(count["cells"])).numel()
     fs = ctx.P_mats.element_size()
-    n_bytes = (K * 9 * fs + C * (12 + 5 * T) + len(chunks) * V * 12 * fs
+    n_bytes = (K * 9 * fs + C * (12 + 5 * T) + V * 12 * fs
                + cells * Kc * 24 + K * 3 * fs + K * V * (2 * fs + 1))
     flops = FLOPS["grid_entry"] * count["entries"] + gn_f
+    stats = dict(chains=C, points=K,
+                 views_added=sum(int(r[2].sum()) for r in ref) - 3 * K,
+                 gn_tries=count["gn_rows"], gn_live_obs=live,
+                 mean_gn_iterations=its, grid_entries=count["entries"])
+    return ref, (n_bytes, flops), stats
+
+
+def check_expansion(ctx, label, chunks, peak=PEAK_F32_FLOPS):
+    """K7 against its plain version over every chunk of one expansion,
+    laid out as refpoints.expand_and_assemble lays them out
+    (refpoints.chain_chunks: one chunk on the card): decisions, out_xy
+    and X bit-equal.  The plain run is counted for the bound
+    (expansion_work), then timed once more without the counting; K7 is
+    timed as the wrapper runs it (its launch plan: one launch per bucket,
+    each on a stream of its own).  Returns (mismatched rows, rows, max
+    |out_xy - plain| over the observations both accept, kernel ms, plain
+    ms, (bytes, flops)) over all chunks."""
+    import numpy as np
+    import torch
+
+    from edgegraph3d_tpu_torch.matching import expansion
+
+    chunks = [(a, e) for _, a, e in chunks]
+    ref, work, stats = expansion_work(ctx, chunks)
+    _, pms = cuda_time(lambda: [expansion._expand_chains_compact_plain(*a)
+                                for a, _ in chunks], 1, warmup=False)
+    got, ms = cuda_time(lambda: [expansion.expand_chains_compact(
+        *a, extent=e) for a, e in chunks], 5)
+    exact = all(torch.equal(x, y) for out, r in zip(got, ref)
+                for x, y in zip(out, r))
+    bad = sum(int((g[2] != r[2]).any(1).sum()) for g, r in zip(got, ref))
+    err = 0.0
+    for g, r in zip(got, ref):
+        both = g[2] & r[2]
+        if both.any():
+            err = max(err, float((g[1] - r[1]).abs()[both].max()))
     hist = np.sum([tile_histogram(e) for _, e in chunks], 0).tolist()
-    log(f"  expand_chains {label}: {C} chains in {len(chunks)} chunks, {K} "
-        f"points, chains by tile bucket (<=8, <=16, <=32, <=64 slots) "
-        f"{hist}; views added={added} gn_tries={count['gn_rows']} "
-        f"gn_live_obs={live} mean_gn_iterations={its:.4f} "
-        f"grid_entries={count['entries']} bit_equal={exact} "
-        f"max_abs_err={err:.3g} kernel_ms one launch per chunk={ms:.4f} "
-        f"one per bucket ({sum(map(len, pieces))} launches)="
-        f"{split_ms:.4f} plain_ms={pms:.4f} bytes={n_bytes:.6g} "
-        f"flops={flops:.6g} bound_ms={bound(n_bytes, flops, peak)[0]:.6f}")
+    launches = sum(len(expansion.launch_plan(e).launches) for _, e in chunks)
+    log(f"  expand_chains {label}: {stats['chains']} chains in {len(chunks)} "
+        f"chunk(s), {stats['points']} points, chains by tile bucket (<=8, "
+        f"<=16, <=32, <=64 slots) {hist}; views added="
+        f"{stats['views_added']} gn_tries={stats['gn_tries']} "
+        f"gn_live_obs={stats['gn_live_obs']} mean_gn_iterations="
+        f"{stats['mean_gn_iterations']:.4f} grid_entries="
+        f"{stats['grid_entries']} bit_equal={exact} max_abs_err={err:.3g} "
+        f"kernel_ms ({launches} launches)={ms:.4f} plain_ms={pms:.4f} "
+        f"bytes={work[0]:.6g} flops={work[1]:.6g} "
+        f"bound_ms={bound(*work, peak)[0]:.6f}")
     if not exact:
         fail(f"expand_chains {label}: not bit-equal to its plain version")
-    return bad, K, err, ms, pms, (n_bytes, flops)
+    return bad, stats["points"], err, ms, pms, work
 
 
 def compare_expansion(ctx, sfmd, results):
     """K7 against its plain version over the whole expansion of the full
     scene's stage-3 chains (recorded) and of the first chain-extension
     round's chains (logged; they are longer), each in the chunks
-    refpoints.expand_and_assemble makes.  Also K7 alone on the chunk the
-    one-warp-per-chain design was timed on (the first 4,096 stage-3
-    chains, unsorted) and on the stage-3 chains in chunks of 4,096 and
-    16,384."""
-    from edgegraph3d_tpu_torch.matching import expansion, matches
+    refpoints.expand_and_assemble makes."""
+    from edgegraph3d_tpu_torch.matching import matches
     from edgegraph3d_tpu_torch.matching import refpoints as rp
 
     t0 = time.time()
@@ -1216,37 +1207,34 @@ def compare_expansion(ctx, sfmd, results):
     X, obs3, cams3, refs, seed_ids, orders = res
     log(f"  expand_chains: the full scene's {len(X)} stage-3 points "
         f"({time.time() - t0:.1f}s)")
-    args, extent = _first_chains(ctx, X, obs3, cams3, seed_ids, orders)
-    _, ms = cuda_time(lambda: expansion.expand_chains_compact(
-        *args, extent=extent), 5)
-    log(f"  expand_chains first 4096 chains, unsorted: "
-        f"chains by tile bucket {tile_histogram(extent)} kernel_ms={ms:.4f}")
-    del args
-    for size in (4096, 16384):           # the main path's chunk is 8,192
-        chunks = [(a, e) for _, a, e in rp.chain_chunks(
-            ctx, X, obs3, cams3, seed_ids, orders, chain_chunk=size)]
-        _, ms = cuda_time(lambda: [expansion.expand_chains_compact(
-            *a, extent=e) for a, e in chunks], 5)
-        log(f"  expand_chains stage 3 in chunks of {size} chains: "
-            f"{len(chunks)} launches, kernel_ms={ms:.4f}")
-    del chunks
     mism, K, err, ms, pms, work = check_expansion(
         ctx, "stage 3", rp.chain_chunks(ctx, X, obs3, cams3, seed_ids,
                                         orders))
     record_into(results, "expand_chains", mism, K, err, ms, pms,
                 COORD_TOL_PX, exact=True, work=work)
+    args = first_extension_call(ctx, res, mgr)
+    mism, K, _, _, _, _ = check_expansion(
+        ctx, "extension", rp.chain_chunks(ctx, *args[1:4], *args[5:7]))
+    if mism:
+        fail(f"expand_chains extension: {mism} of {K} rows differ")
 
-    # the chain extension's chains: expand stage 3 in full, then capture
-    # the points the first extension round hands to expand_and_assemble
+
+def first_extension_call(ctx, res, mgr):
+    """The arguments of the first chain-extension round's
+    expand_and_assemble call (ctx, X, obs3, cams3, refs, seed_ids,
+    orders), after expanding the stage-3 sweep `res` in full; copied as
+    they come in (the caller reuses its seed-id array afterwards)."""
+    import numpy as np
+
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
     pts = rp.expand_and_assemble(ctx, *res)
     seen = []
     real = rp.expand_and_assemble
 
-    def capture(ctx_, X_, obs3_, cams3_, refs_, seed_ids_, orders_, *a,
-                **kw):
-        seen.append((X_, obs3_, cams3_, seed_ids_, orders_))
-        return real(ctx_, X_, obs3_, cams3_, refs_, seed_ids_, orders_, *a,
-                    **kw)
+    def capture(*a, **kw):
+        seen.append(tuple(np.array(x) if isinstance(x, np.ndarray) else x
+                          for x in a[:7]))
+        return real(*a, **kw)
 
     rp.expand_and_assemble = capture
     try:
@@ -1255,10 +1243,7 @@ def compare_expansion(ctx, sfmd, results):
         rp.expand_and_assemble = real
     if not seen:
         fail("the chain extension expanded no points")
-    mism, K, _, _, _, _ = check_expansion(ctx, "extension",
-                                          rp.chain_chunks(ctx, *seen[0]))
-    if mism:
-        fail(f"expand_chains extension: {mism} of {K} rows differ")
+    return seen[0]
 
 
 # ----------------------------------------------------------------------
@@ -1680,9 +1665,6 @@ def check_joint_ba(aug, results, device="cuda"):
     got, ms = cuda_time(lambda: ba.ba_blocks(state0, *obs, index=index), 5)
     _, own_index_ms = cuda_time(lambda: ba.ba_blocks(state0, *obs), 5)
     ref, pms = cuda_time(lambda: ba._ba_blocks_plain(state0, *obs), 1)
-    k8_ms = device_ms_by_kernel(
-        lambda: ba.ba_blocks(state0, *obs, index=index), 5, r"ba_\w+")
-    kms = sum(v for k, v in k8_ms.items() if k.startswith("ba_"))
     rel, err = ba_step1_errors(got, ref)
     gated = max(rel.values())
     log(f"  ba_blocks step 1, error / largest magnitude: {json.dumps(rel)}")
@@ -1727,8 +1709,8 @@ def check_joint_ba(aug, results, device="cuda"):
     record_into(results, "ba_blocks", None, N, err, ms, pms, BA_BLOCK_TOL,
                 gated=gated, work=ba_work(N, V, V, n_obs))
     bound_ms = results["ba_blocks"]["bound_ms"]
-    log(f"  ba_blocks: device_ms={kms:.4f} (profiler: {json.dumps(k8_ms)}) "
-        f"launch_alone_ms={launch_ms:.4f} bound_ms={bound_ms:.6f} "
+    log(f"  ba_blocks: launch_alone_ms={launch_ms:.4f} "
+        f"bound_ms={bound_ms:.6f} "
         f"wrapper_ms={ms:.4f} (building its own index "
         f"{own_index_ms:.4f}) plain_ms={pms:.4f}; "
         f"S matmul [{6 * V}, {3 * N}] x [{3 * N}, {6 * V}] "
@@ -3189,8 +3171,8 @@ def main() -> int:
     launches["ba_blocks"] = check_joint_ba(aug, results)
     torch.cuda.empty_cache()
     # torch.profiler's CUDA trace has come back empty in this process
-    # after phase 4 (PERF.md section 7), so K8's kernels are also timed
-    # alone in a fresh process
+    # after phase 4 (PERF.md section 7), so K8's device times come from a
+    # fresh process
     k8 = subprocess.run([sys.executable, os.path.abspath(__file__),
                          "--time-k8", HERE], capture_output=True,
                         text=True, timeout=600)
@@ -3247,14 +3229,102 @@ def main() -> int:
     return 0
 
 
-def time_k7_chunk(root: str) -> int:
-    """K7 alone on the first 4,096 stage-3 chains of the full scene
-    (unsorted, the chunk both K7 designs run), for the port checkout at
-    `root`: first after one warm-up call (the yardstick of earlier
-    versions of this script), then with `cuda_time`'s 0.25 s warm-up.
-    Prints one JSON line with both times and a digest of the outputs."""
-    import inspect
+def k7_device_runs(fn, reps: int = 3, tries: int = 3):
+    """fn() (one K7 call: its launches and whatever host work surrounds
+    them) once to warm up, `reps` times on the host clock after a
+    synchronize, then `reps` times in one profiler trace, each run inside
+    a record_function range: per run, each K7 launch's device ms and
+    stream, their sum, the device time in which some K7 kernel ran (the
+    union of their intervals: launches on several streams overlap) and
+    the span from the first start to the last end.  A trace in which a
+    run holds no K7 kernel, or fewer than another run, is taken again,
+    up to `tries` traces, and then fails the run: no time is read from
+    an incomplete trace (the profiler's trace has come back empty on
+    this machine, in a fresh process too).  Returns (fn()'s first
+    result, the times)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    out = fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.time() - t0) * 1e3)
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                with record_function(f"k7_run_{i}"):
+                    fn()
+                    torch.cuda.synchronize()
+        events = prof.events()
+        cuda = torch.autograd.DeviceType.CUDA
+        # the host ranges (the trace also shows each range on the device,
+        # once for every stream it touched)
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in events if e.name.startswith("k7_run_")
+                       and e.device_type != cuda)
+        kern = sorted((e.time_range.start, e.time_range.end,
+                       getattr(e, "device_resource_id", -1))
+                      for e in events
+                      if e.device_type == cuda and "expand_chains" in e.name)
+        per_run = [[k for k in kern if a <= k[0] <= b] for a, b in spans]
+        counts = {len(ev) for ev in per_run}
+        if len(spans) == reps and len(counts) == 1 and 0 not in counts:
+            break
+        log(f"  k7_device_runs: trace {attempt} incomplete (K7 kernels per "
+            f"run {[len(ev) for ev in per_run]}, {len(spans)} runs)")
+    else:
+        fail(f"k7_device_runs: {tries} profiler traces without every K7 "
+             f"launch")
+    runs = []
+    for ev in per_run:
+        busy, end = 0.0, ev[0][0]
+        for a, b, _ in ev:
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        runs.append(dict(launch_ms=[(b - a) / 1e3 for a, b, _ in ev],
+                         streams=[r for _, _, r in ev],
+                         sum_ms=sum(b - a for a, b, _ in ev) / 1e3,
+                         busy_ms=busy / 1e3, span_ms=(end - ev[0][0]) / 1e3))
+    return out, dict(wall_ms=walls, runs=runs, traces=attempt,
+                     busy_ms=sum(r["busy_ms"] for r in runs) / reps)
 
+
+def k7_chunk_plans(chunks) -> list:
+    """Each chunk's chains by tile bucket and its K7 launches: the
+    buckets, chains and warps of each (a checkout without
+    expansion.launch_plan makes one launch a chunk, 4, 2, 1 and 1 chains
+    a warp)."""
+    from edgegraph3d_tpu_torch.matching import expansion
+    out = []
+    for _, e in chunks:
+        hist = tile_histogram(e)
+        if hasattr(expansion, "launch_plan"):
+            launches = [dict(buckets=[L.bucket], chains=L.n,
+                             warps=2 * L.tasks)
+                        for L in expansion.launch_plan(e).launches]
+        else:
+            launches = [dict(buckets=[b for b in range(4) if hist[b]],
+                             chains=hist, warps=sum(
+                                 -(-n // w) for n, w in zip(hist,
+                                                            (4, 2, 1, 1))))]
+        out.append(dict(chains_by_bucket=hist, launches=launches))
+    return out
+
+
+def time_k7(root: str) -> int:
+    """K7 for the port checkout at `root`, in f32 and f64 on the full
+    scene: the launches of one stage-3 expand_and_assemble call and of
+    the first chain-extension call, and each tile bucket of the stage-3
+    chains alone (bucket_pieces of one chunk of every chain; the 64-slot
+    bucket is the one the two-warp tile runs), each by k7_device_runs
+    (device ms from profiler traces, in this fresh process) beside the
+    bound of its work (expansion_work) and digests of its outputs.
+    Prints one JSON line."""
+    import numpy as np
     import torch
     sys.path.insert(0, os.path.abspath(root))
     from edgegraph3d_tpu_torch import kernels
@@ -3266,26 +3336,48 @@ def time_k7_chunk(root: str) -> int:
     kernels.build()
     kernels.lib()
     sfmd, edges, _ = full_scene()
-    cfg = bench_config()
-    ctx = rp.build_context(sfmd, extract_plgs(edges, cfg), cfg,
-                           device="cuda")
-    mgr = matches.MatchesManager(ctx.plg_length.cpu().numpy())
-    round0, _ = rp.compute_and_follow_seeds(sfmd, ctx)
-    X, obs3, cams3, _, seed_ids, orders = rp.sweep_seeds(
-        None, None, ctx, mgr, precomputed=round0)
-    args, extent = _first_chains(ctx, X, obs3, cams3, seed_ids, orders)
-    params = inspect.signature(expansion.expand_chains_compact).parameters
-    kw = {"extent": extent} if "extent" in params else {}
-    run = lambda: expansion.expand_chains_compact(*args, **kw)
-    _, ms_one = cuda_time(run, 5, warm_s=0.0)
-    (Xk, xyk, okk), ms = cuda_time(run, 5)
-    log(json.dumps({
-        "root": root, "source": expansion.__file__, "card": card_name(),
-        "chains": args[-2], "points": int(Xk.shape[0]),
-        "ms_after_one_warmup_call": ms_one, "ms": ms,
-        "out_ok_sum": int(okk.sum()),
-        "out_xy_sum": float(xyk.double().sum()),
-        "X_sum": float(Xk.double().sum())}))
+    out = {"root": root, "source": expansion.__file__, "card": card_name()}
+
+    def timed(entry, fn, digest):
+        got, t = k7_device_runs(fn)
+        entry.update(t, digest=digest(got))
+        return entry
+
+    for dtype, peak in (("float32", PEAK_F32_FLOPS),
+                        ("float64", PEAK_F64_FLOPS)):
+        cfg = bench_config().replace(dtype=dtype)
+        ctx = rp.build_context(sfmd, extract_plgs(edges, cfg), cfg,
+                               device="cuda")
+        mgr = matches.MatchesManager(ctx.plg_length.cpu().numpy())
+        round0, _ = rp.compute_and_follow_seeds(sfmd, ctx)
+        res = rp.sweep_seeds(None, None, ctx, mgr, precomputed=round0)
+        calls = {"stage3": (ctx, *res),
+                 "extension": first_extension_call(ctx, res, mgr)}
+        r = out[dtype] = {}
+        for label, args in calls.items():
+            chunks = [(a, e) for _, a, e in rp.chain_chunks(
+                *args[:4], *args[5:7])]
+            _, work, stats = expansion_work(ctx, chunks)
+            r[label] = timed(
+                dict(stats, bound_ms=bound(*work, peak)[0],
+                     launch_plan=k7_chunk_plans(chunks)),
+                lambda: rp.expand_and_assemble(*args),
+                lambda p: [float(p.X.sum()), float(p.obs_xy.sum(dtype=float)),
+                           int(p.obs_mask.sum())])
+        (a_all, e_all), = [(a, e) for _, a, e in rp.chain_chunks(
+            ctx, *res[:3], *res[4:6], chain_chunk=1 << 30)]
+        for piece, e in bucket_pieces(a_all, e_all):
+            b = int(np.searchsorted(expansion.TILE_SLOTS, e.max()))
+            _, work, stats = expansion_work(ctx, [(piece, e)])
+            r[f"bucket{b}"] = timed(
+                dict(stats, bound_ms=bound(*work, peak)[0],
+                     launch_plan=k7_chunk_plans([(piece, e)])),
+                lambda: expansion.expand_chains_compact(*piece, extent=e),
+                lambda g: [float(g[0].double().sum()),
+                           float(g[1].double().sum()), int(g[2].sum())])
+        del ctx, calls, res, a_all
+        torch.cuda.empty_cache()
+    log(json.dumps(out))
     return 0
 
 
@@ -3473,8 +3565,8 @@ if __name__ == "__main__":
         sys.exit(time_k1_k6(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k5":
         sys.exit(time_k5(sys.argv[2]))
-    if len(sys.argv) == 3 and sys.argv[1] == "--time-k7-chunk":
-        sys.exit(time_k7_chunk(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-k7":
+        sys.exit(time_k7(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-follow":
         sys.exit(time_follow(sys.argv[2]))
     sys.exit(main())

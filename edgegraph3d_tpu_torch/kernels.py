@@ -110,12 +110,14 @@ _SIGNATURES = {
                                _F, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                _P],
     # grids, V, GH, GW, Kc, cell, P_mats, F_table, obs3, cams3, slot_k,
-    # chain_valid, order, n8, n16, n32, n64, T, Omax, tol, epipolar,
-    # qp_cos, gn_iters, gn_eps, accept_mse, det_min, place, X, cam_buf,
-    # obs_x, obs_y, out_xy, out_ok, stream
+    # chain_valid, order, bucket, n, T, Omax, tol, epipolar, qp_cos,
+    # gn_iters, gn_eps, accept_mse, det_min, place, X, cam_buf, obs_x,
+    # obs_y, out_xy, out_ok, stream
     "eg3d_expand_chains": [_P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P,
-                           _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _F,
-                           _F, _F, _I, _P, _P, _P, _P, _P, _P, _P],
+                           _P, _I, _I, _I, _I, _F, _I, _F, _I, _F, _F, _F,
+                           _I, _P, _P, _P, _P, _P, _P, _P],
+    # V, epipolar, pairs -> shared-memory bytes of a K7 block
+    "eg3d_expand_chains_smem": [_I, _I, _I],
     # V -> shared-memory bytes of a K8 point block with its tables
     "eg3d_ba_blocks_smem": [_I],
     # K, R, t, V, X, cam, xy, mask, N, O, damping, slot, start, first,
@@ -142,6 +144,7 @@ _SIGNATURES.update({
     "eg3d_triangulate_gn_smem_f64": [_I, _I],
     "eg3d_follow_walk_f64": _f64("eg3d_follow_walk"),
     "eg3d_expand_chains_f64": _f64("eg3d_expand_chains"),
+    "eg3d_expand_chains_smem_f64": [_I, _I, _I],
 })
 
 

@@ -10,15 +10,17 @@ is re-validated by a warm-started GN over all the point's observations
 (K3's GN).  An accepted observation updates the point before the next
 view.
 
-On the card the whole view loop of a chunk is kernel K7
-`expand_chains` (csrc/expand_chains.cu), one launch per call: each chain
-gets a tile of 8, 16 or 32 lanes (or 32 lanes with two slots each) by
-its slot extent, and the wrapper hands the chains over bucketed by that
-extent (`tile_buckets`), which callers know on the host.  The plain
-version `_expand_chains_compact_plain` is the same loop in torch around
-the K1 / K2 / K3 wrappers; `expand_chains_compact` takes it for CPU
-tensors only.  The dense twin expand_chains_sweep is not ported
-(ROADMAP queue A item 11).
+On the card the whole view loop is kernel K7 `expand_chains`
+(csrc/expand_chains.cu): each chain gets a tile of 8, 16 or 32 lanes, or
+64 over two warps, by its slot extent, and the wrapper hands the chains
+over longest first, bucketed by that extent, which callers know on the
+host (`launch_plan`): one launch per bucket, the longest bucket first,
+each after the first on a stream of its own, so that the long chains
+run beside the short ones.  The plain version
+`_expand_chains_compact_plain` is the same loop in torch around the K1 /
+K2 / K3 wrappers; `expand_chains_compact` takes it for CPU tensors
+only.  The dense twin expand_chains_sweep is not ported (ROADMAP queue
+A item 11).
 
 Both run in the promoted type of X, obs3, P and F, as the JAX function's
 result_type: f32, or f64 under EdgeGraphConfig(dtype="float64") (the
@@ -29,6 +31,7 @@ launches its f64 body.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -212,27 +215,74 @@ def _chain_slots(chain_idx, t_idx, item_ok, C: int, T: int):
 
 
 #: K7's tile buckets: a chain of at most TILE_SLOTS[b] slots takes a tile
-#: of 8, 16 or 32 lanes (one slot each), or 32 lanes with two slots each
+#: of 8, 16 or 32 lanes, or 64 over a pair of warps, one slot a lane
 TILE_SLOTS = (8, 16, 32, 64)
+#: chains of one pair task (the work a pair of warps takes) by bucket
+TASK_CHAINS = (8, 4, 2, 1)
+#: bytes of a block's pair exchange (csrc/expand_chains.cu pair_bytes),
+#: by element size, in the 64-slot body's launches
+PAIR_BYTES = {4: 176, 8: 272}
 
 
-def tile_buckets(extent: np.ndarray):
-    """(order [C] int32, counts [4]): the chains in stable bucket order
-    and the number in each bucket, from each chain's slot extent (1 +
-    its last slot holding a point or marked valid; 0 for none)."""
-    b = np.searchsorted(TILE_SLOTS, np.asarray(extent))
+class K7Launch(NamedTuple):
+    """One K7 launch: its tile bucket, the offset of its first chain in
+    the plan's order, its chain count and its pair tasks (its grid is
+    half as many blocks)."""
+    bucket: int
+    first: int
+    n: int
+    tasks: int
+
+
+class K7Plan(NamedTuple):
+    order: np.ndarray      # [C] int32: the chains, longest first
+    launches: list         # [K7Launch], in launch order
+
+
+def launch_plan(extent: np.ndarray) -> K7Plan:
+    """K7's launches for chains of the given slot extents (1 + a chain's
+    last slot holding a point or marked valid; 0 for none): the chains
+    longest first (stable), so bucket by bucket from the 64-slot one
+    down, and one launch per non-empty tile bucket in that order (the
+    wrapper runs each after the first on a stream of its own)."""
+    extent = np.asarray(extent)
+    b = np.searchsorted(TILE_SLOTS, extent)
     if len(b) and b.max() >= len(TILE_SLOTS):
         raise ValueError("expand_chains: a chain extent above 64 slots")
-    return (np.argsort(b, kind="stable").astype(np.int32),
-            np.bincount(b, minlength=len(TILE_SLOTS)))
+    counts = np.bincount(b, minlength=len(TILE_SLOTS))
+    launches, first = [], 0
+    for bucket in (3, 2, 1, 0):
+        n = int(counts[bucket])
+        if n:
+            launches.append(K7Launch(bucket, first, n,
+                                     -(-n // TASK_CHAINS[bucket])))
+        first += n
+    return K7Plan(np.argsort(-extent, kind="stable").astype(np.int32),
+                  launches)
 
 
-def k7_table_bytes(V: int, epipolar: bool, dtype=torch.float32) -> int:
+def k7_table_bytes(V: int, epipolar: bool, dtype=torch.float32,
+                   pairs: bool = False) -> int:
     """Bytes of K7's per-block table: P [V, 3, 4] and, in "epipolar"
     mode, the F rows [V, 3, 3] of each of a block's 16 tiles, 4 bytes an
-    entry in f32 and 8 in f64 (csrc expand_chains.cu smem_bytes)."""
+    entry in f32 and 8 in f64, plus with `pairs` (a launch that runs
+    64-slot tiles) the pairs' exchange (csrc expand_chains.cu
+    eg3d_expand_chains_smem)."""
     size = 8 if dtype == torch.float64 else 4
-    return (V * 12 + (16 * V * 9 if epipolar else 0)) * size
+    return (V * 12 + (16 * V * 9 if epipolar else 0)) * size \
+        + (PAIR_BYTES[size] if pairs else 0)
+
+
+_STREAMS: dict = {}
+
+
+def _side_streams(device) -> list:
+    """Three streams of `device` for a call's second to fourth launch
+    (cached: K7 runs a few times a scene)."""
+    index = device.index if device.index is not None else 0
+    if index not in _STREAMS:
+        _STREAMS[index] = [torch.cuda.Stream(device) for _ in range(3)]
+    return _STREAMS[index]
 
 
 def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
@@ -244,11 +294,13 @@ def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
 
     X [K,3], obs3 [K,3,2] tuple-view observations, cams3 [C,3] i32,
     chain_idx / t_idx [K] (in range), item_ok [K], chain_valid [C,T].
-    `extent` [C] (host) is each chain's slot extent (see tile_buckets),
+    `extent` [C] (host) is each chain's slot extent (see launch_plan),
     which the caller knows without reading the device.  Returns (X' [K,3],
     out_xy [K,V,2], out_ok [K,V]), X' and out_xy in the promoted type of
-    X, obs3, P_mats and F_table.  CUDA tensors launch kernel K7 once
-    (T <= 64); CPU tensors take the plain version."""
+    X, obs3, P_mats and F_table.  CUDA tensors launch kernel K7 (T <= 64)
+    as launch_plan lays it out, the launches after the first on streams of
+    their own that the current stream then waits for; CPU tensors take the
+    plain version."""
     if X.device.type == "cpu":
         return _expand_chains_compact_plain(
             plg_coords, grids, P_mats, F_table, cell, X, obs3, cams3,
@@ -283,31 +335,38 @@ def expand_chains_compact(plg_coords, grids, P_mats, F_table, cell: float,
                          f"expected {C}")
     slots = _chain_slots(chain_idx, t_idx, item_ok, C, T)
     epipolar = cfg.expand_correspondence_mode == "epipolar"
-    order_np, counts = tile_buckets(extent)
-    order = torch.as_tensor(order_np, device=dev)
+    plan = launch_plan(extent)
+    order = torch.as_tensor(plan.order, device=dev)
     cam_buf = torch.empty((K, Omax), dtype=torch.int32, device=dev)
     obs_x = torch.empty((K, Omax), dtype=dt, device=dev)
     obs_y = torch.empty((K, Omax), dtype=dt, device=dev)
     entry = "eg3d_expand_chains" if dt == torch.float32 else \
         "eg3d_expand_chains_f64"
     with kernels.on_device(X):
-        rc = getattr(kernels.lib(), entry)(
-            grids.data_ptr(), V, GH, GW, Kc, float(cell), P_mats.data_ptr(),
-            F_table.data_ptr(), obs3.data_ptr(), cams3.data_ptr(),
-            slots.data_ptr(), chain_valid.data_ptr(), order.data_ptr(),
-            *(int(n) for n in counts), T, Omax,
-            float(math.sqrt(cfg.expand_max_projection_distsq)),
-            int(epipolar),
-            float(cfg.quasiparallel_cos),
-            cfg.follow_gn_iters, float(cfg.gn_epsilon),
-            float(cfg.match_gn_max_mse), 1e-5,
-            kernels.place("expand_chains", k7_table_bytes(V, epipolar, dt),
-                          dev),
-            X.data_ptr(),
-            cam_buf.data_ptr(), obs_x.data_ptr(), obs_y.data_ptr(),
-            out_xy.data_ptr(), out_ok.data_ptr(), kernels.stream_of(X))
-    kernels.check(rc, "expand_chains")
-    kernels.count_launch("expand_chains", dt)
+        main = torch.cuda.current_stream(dev)
+        streams = [main] + _side_streams(dev)[:len(plan.launches) - 1]
+        for s in streams[1:]:       # the inputs, before any launch
+            s.wait_stream(main)
+        for launch, s in zip(plan.launches, streams):
+            rc = getattr(kernels.lib(), entry)(
+                grids.data_ptr(), V, GH, GW, Kc, float(cell),
+                P_mats.data_ptr(), F_table.data_ptr(), obs3.data_ptr(),
+                cams3.data_ptr(), slots.data_ptr(), chain_valid.data_ptr(),
+                order.data_ptr() + order.element_size() * launch.first,
+                launch.bucket, launch.n, T, Omax,
+                float(math.sqrt(cfg.expand_max_projection_distsq)),
+                int(epipolar), float(cfg.quasiparallel_cos),
+                cfg.follow_gn_iters, float(cfg.gn_epsilon),
+                float(cfg.match_gn_max_mse), 1e-5,
+                kernels.place("expand_chains", k7_table_bytes(
+                    V, epipolar, dt, pairs=launch.bucket == 3), dev),
+                X.data_ptr(), cam_buf.data_ptr(),
+                obs_x.data_ptr(), obs_y.data_ptr(), out_xy.data_ptr(),
+                out_ok.data_ptr(), s.cuda_stream)
+            kernels.check(rc, "expand_chains")
+            kernels.count_launch("expand_chains", dt)
+        for s in streams[1:]:
+            main.wait_stream(s)
     return X, out_xy, out_ok
 
 

@@ -749,8 +749,9 @@ def chain_chunks(ctx: MatchingContext, X, obs3, cams3, seed_ids, orders,
     """The swept chains as expand_chains_compact takes them, chunk by
     chunk: yields (rows, args, extent), `rows` the flat points of the
     chunk in slot order.  Chains are sorted by length (results are per
-    chain, so the order changes no output): each chunk then holds mostly
-    one of K7's tile buckets."""
+    chain, so the order changes no output).  On the card one chunk holds
+    every chain by default, so that K7's launch plan runs the long chains
+    beside the short ones; on the CPU chunks of 256 chains."""
     from edgegraph3d_tpu_torch.matching import expansion
 
     dev = ctx.device
@@ -763,7 +764,7 @@ def chain_chunks(ctx: MatchingContext, X, obs3, cams3, seed_ids, orders,
     X32 = np.asarray(X, np.float32)
     obs3_32 = np.asarray(obs3, np.float32)
     if chain_chunk is None:
-        chain_chunk = 8192 if ctx.on_cuda else 256
+        chain_chunk = max(len(gather), 1) if ctx.on_cuda else 256
     for lo in range(0, len(gather), chain_chunk):
         hi = min(lo + chain_chunk, len(gather))
         gi = gather[lo:hi]

@@ -305,7 +305,9 @@ def sharded_expand_compact(ctx, X, obs3, cams3, chain_idx, t_idx, item_ok,
     """expansion.expand_chains_compact (K7) with the CHAINS sharded: shard
     g takes the contiguous block shard_bounds(C, size)[g] of the C chains
     and their points (all points of a chain on one shard; the points
-    must come in chain order, chain_idx ascending).  Arguments as
+    must come in chain order, chain_idx ascending).  Each shard's call
+    launches its own chains as the single-device call does (one launch
+    per tile bucket, longest first, expansion.launch_plan).  Arguments as
     expand_chains_compact's after its context tensors.  Returns (X',
     out_xy, out_ok) over all points, in their order."""
     from edgegraph3d_tpu_torch.matching import expansion

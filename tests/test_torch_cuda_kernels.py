@@ -616,10 +616,25 @@ def chains(scene):
         torch.ones(len(kidx), dtype=torch.bool, device=dev), as_t(vld))
 
 
+def _k7_launches(extent):
+    return len(expansion.launch_plan(extent).launches)
+
+
+def _assert_same_expansion(got, ref, dtype):
+    """0 decision mismatches; f32 bit-equal, f64 within F64_TOL."""
+    assert torch.equal(got[2], ref[2])
+    if dtype == torch.float32:
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    else:
+        assert got[0].dtype == got[1].dtype == torch.float64
+        for a, b in zip(got[:2], ref[:2]):
+            torch.testing.assert_close(a, b, rtol=0, atol=F64_TOL)
+
+
 @pytest.mark.parametrize("mode", ["closest", "epipolar"])
 def test_expand_chains_kernel_matches_plain(scene, chains, mode):
-    """K7 (one launch over every tile bucket) against its plain version
-    (the view loop around K1 / K2 / K3) on the card: the same
+    """K7 (one launch per tile bucket) against its plain version (the
+    view loop around K1 / K2 / K3) on the card: the same
     acceptances, out_xy and X bit-equal or within 1e-6 relative."""
     _, ctx = scene
     C, T, extent, tensors = chains
@@ -628,7 +643,8 @@ def test_expand_chains_kernel_matches_plain(scene, chains, mode):
             *tensors, cfg, C, T)
     n0 = kernels.launch_totals()["expand_chains"]
     Xk, xyk, okk = expansion.expand_chains_compact(*args, extent)
-    assert kernels.launch_totals()["expand_chains"] == n0 + 1
+    assert kernels.launch_totals()["expand_chains"] == \
+        n0 + _k7_launches(extent)
     Xp, xyp, okp = expansion._expand_chains_compact_plain(*args)
     torch.cuda.synchronize()
     assert okp.sum(1).max() > 3                 # views were added
@@ -669,14 +685,14 @@ def test_expand_chains_large_camera_table(scene, chains, mode, V_big):
         assert torch.equal(a, b)
 
 
-LENGTHS = (1, 2, 3, 8, 9, 16, 17, 32, 33, 64)
+LENGTHS = (1, 2, 3, 8, 9, 16, 17, 32, 33, 40, 48, 63, 64)
 
 
 def _regrouped(chains):
     """The fixture's chain points, in chain order and cycled as often as
-    needed, cut into new chains of every tile bucket's edge lengths
-    (LENGTHS); each new chain takes the tuple views of its first point's
-    chain."""
+    needed, cut into new chains of every tile bucket's edge lengths and
+    some 33-64-slot ones (LENGTHS); each new chain takes the tuple views
+    of its first point's chain."""
     C, T, _, (X, obs3, cams3, ci, ti, ok, vld) = chains
     order = torch.argsort(ci * T + ti)
     lens = list(LENGTHS)
@@ -696,24 +712,52 @@ def _regrouped(chains):
         ok[rows], valid)
 
 
+@pytest.mark.parametrize("place", ["shared", "global"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("mode", ["closest", "epipolar"])
-def test_expand_chains_every_tile_width(scene, chains, mode):
-    """Chains of 1, 2, 3, 8, 9, 16, 17, 32, 33 and 64 points in one call
-    (all four tile buckets, each at its edges): K7, in one launch,
-    bit-equal to its plain version."""
-    _, ctx = scene
+def test_expand_chains_every_tile_width(scene, scene64, chains, mode, dtype,
+                                        place):
+    """Chains of 1, 2, 3, 8, 9, 16, 17, 32, 33, 40, 48, 63 and 64 points
+    in one call (every tile bucket, each at its edges; 33-64 slots on the
+    two-warp tile): K7 (one launch a bucket), in f32 and f64, with its tables
+    in shared memory and (cameras tiled past the opt-in limit) in device
+    memory, against its plain version: f32 bit-equal, f64 within 1e-9."""
+    _, ctx = scene64 if dtype == torch.float64 else scene
     C, T, lens, tensors = _regrouped(chains)
     cfg = ctx.config.replace(expand_correspondence_mode=mode)
-    args = (ctx.plg_coords, ctx.grids, ctx.P_mats, ctx.F_table, ctx.cell,
-            *tensors, cfg, C, T)
+    P, F, grids = ctx.P_mats, ctx.F_table, ctx.grids
+    if place == "global":       # just past the opt-in limit
+        V_big = {"epipolar": 400, "closest": 2500 if dtype == torch.float64
+                 else 5000}[mode]
+        P, F, grids = (_tiled(P, V_big, [0]), _tiled(F, V_big, [0, 1]),
+                       _tiled(grids, V_big, [0]))
+    args = (ctx.plg_coords, grids, P, F, ctx.cell, *tensors, cfg, C, T)
     ref = expansion._expand_chains_compact_plain(*args)
-    n0 = kernels.launch_totals()["expand_chains"]
+    n0 = kernels.LAUNCHES["expand_chains"][str(dtype)[6:]]
     got = expansion.expand_chains_compact(*args, lens)
-    assert kernels.launch_totals()["expand_chains"] == n0 + 1
+    assert kernels.LAUNCHES["expand_chains"][str(dtype)[6:]] == \
+        n0 + _k7_launches(lens)
+    assert kernels.LAST_PLACEMENT["expand_chains"] == (
+        "global" if place == "global" else "static")
     torch.cuda.synchronize()
     assert ref[2].sum(1).max() > 3                 # views were added
-    for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+    long_rows = np.flatnonzero(np.repeat(lens > 32, lens))
+    assert int(ref[2][long_rows].sum()) > 3 * len(long_rows)
+    _assert_same_expansion(got, ref, dtype)
+
+
+@pytest.mark.parametrize("pairs", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_expand_chains_smem_bytes(cuda, dtype, pairs):
+    """k7_table_bytes, by which the wrapper places K7's tables, is the
+    shared memory the kernel's launch asks for (with the pairs' exchange
+    in the bodies that run 64-slot tiles)."""
+    entry = kernels.lib().eg3d_expand_chains_smem if dtype == torch.float32 \
+        else kernels.lib().eg3d_expand_chains_smem_f64
+    for V in (1, 49, 372, 4842):
+        for epi in (False, True):
+            assert entry(V, int(epi), int(pairs)) == \
+                expansion.k7_table_bytes(V, epi, dtype, pairs)
 
 
 def _k2_one_thread(grids, view, pts, lines, radius, cell, M,
@@ -1470,7 +1514,8 @@ def test_f64_expand_chains_kernel_matches_plain(scene64, chains, mode):
             *tensors, cfg, C, T)
     n0 = kernels.LAUNCHES["expand_chains"]["float64"]
     Xk, xyk, okk = expansion.expand_chains_compact(*args, extent)
-    assert kernels.LAUNCHES["expand_chains"]["float64"] == n0 + 1
+    assert kernels.LAUNCHES["expand_chains"]["float64"] == \
+        n0 + _k7_launches(extent)
     Xp, xyp, okp = expansion._expand_chains_compact_plain(*args)
     torch.cuda.synchronize()
     assert Xk.dtype == xyk.dtype == torch.float64

@@ -18,7 +18,15 @@ twins and the JAX package:
     of threads to (row, piece) pairs, as csrc/gather_rows.cu runs it
     block by block and tile by tile: every output element is written
     exactly once, from table[rows[s]], for any row width, element size,
-    base offset, row count and grid (the grid-stride loop included).
+    base offset, row count and grid (the grid-stride loop included);
+  * K7's launch plan (matching/expansion.launch_plan) and the kernel's
+    mapping of pair tasks, warps and lanes to chains and slots, as
+    csrc/expand_chains.cu runs it: every chain served once, longest
+    first, each slot by one lane; and its run scans
+    on the lanes that plan gives them: the one-warp tiles, the 64-slot
+    chain over two warps with its exchange at the warp boundary, and the
+    single-warp two-slot tile it replaces, against each other and the
+    plain version's run test (expansion._monotone_runs).
 """
 
 import jax
@@ -323,3 +331,272 @@ def test_k5_model_writes_every_element_once(W, elem, offset, S):
         assert (writes == 1).all()
         np.testing.assert_array_equal(out, table[rows])
 
+
+
+# ----------------------------------------------------------------------
+# K7: the launch plan and the run scans
+# ----------------------------------------------------------------------
+
+def _k7_tiles(plan):
+    """Every tile K7 runs for `plan`, in launch order and, inside a
+    launch, in task order (pair task p is block p // 2's pair p % 2):
+    (launch, task, bucket, chain or -1, [(warp of the pair, lane,
+    slot)]), as csrc expand_chains_kernel maps them."""
+    tiles = []
+    for li, launch in enumerate(plan.launches):
+        order = plan.order[launch.first:]
+        b, n = launch.bucket, launch.n
+        W, per_task = expansion.TILE_SLOTS[b], expansion.TASK_CHAINS[b]
+        assert launch.tasks == -(-n // per_task)
+        for p in range(launch.tasks):
+            if b == 3:
+                units = [(p, [(h, l, 32 * h + l) for h in (0, 1)
+                              for l in range(32)])]
+            else:
+                units = [(p * per_task + h * (32 // W) + tile,
+                          [(h, tile * W + tl, tl) for tl in range(W)])
+                         for h in (0, 1) for tile in range(32 // W)]
+            for i, lanes in units:
+                tiles.append((li, p, b, int(order[i]) if i < n else -1,
+                              lanes))
+    return tiles
+
+
+def _k7_extents(case, rng):
+    edges = [1, 2, 3, 8, 9, 16, 17, 32, 33, 63, 64]
+    return {"edges": np.array(edges * 3),
+            "random": rng.integers(0, 65, 500),
+            "short": rng.integers(1, 9, 300),
+            "long only": rng.integers(33, 65, 37),
+            "stage-3 like": np.concatenate([
+                rng.integers(1, 9, 400), rng.integers(9, 17, 70),
+                rng.integers(17, 33, 20), rng.integers(33, 65, 7)]),
+            "none": np.zeros(0, np.int64)}[case]
+
+
+@pytest.mark.parametrize("case", ["edges", "random", "short", "long only",
+                                  "stage-3 like", "none"])
+def test_k7_plan_serves_every_chain_once(case):
+    """Every chain in exactly one tile as wide as its extent, the tiles
+    longest bucket first (launches, then tasks), each of the chain's slots
+    on one lane, no lane with two slots; one launch per non-empty bucket,
+    the 64-slot one first."""
+    rng = np.random.default_rng(len(case))
+    extent = _k7_extents(case, rng)
+    plan = expansion.launch_plan(extent)
+    bucket = np.searchsorted(expansion.TILE_SLOTS, extent)
+    counts = np.bincount(bucket, minlength=4)
+    assert sorted(plan.order) == list(range(len(extent)))
+    assert np.all(np.diff(extent[plan.order]) <= 0)           # longest first
+    assert [(L.bucket, L.n) for L in plan.launches] == \
+        [(b, counts[b]) for b in (3, 2, 1, 0) if counts[b]]
+    tiles = _k7_tiles(plan)
+    served = [c for *_, c, _ in tiles if c >= 0]
+    assert sorted(served) == list(range(len(extent)))
+    assert np.all(np.diff([b for _, _, b, _, _ in tiles]) <= 0)
+    lanes, slots = set(), set()
+    for li, p, b, c, own in tiles:
+        for h, l, t in own:
+            assert (li, p, h, l) not in lanes
+            lanes.add((li, p, h, l))
+            if c >= 0 and t < extent[c]:
+                slots.add((c, t))
+        if c >= 0:
+            assert bucket[c] == b and extent[c] <= expansion.TILE_SLOTS[b]
+    assert len(slots) == int(extent.sum())
+
+
+def _up(x, d, W):
+    """__shfl_up_sync(x, d, W) over lanes in segments of W."""
+    tl = np.arange(len(x)) % W
+    return np.where(tl >= d, np.roll(x, d), x)
+
+
+def _down(x, d, W):
+    tl = np.arange(len(x)) % W
+    return np.where(tl + d < W, np.roll(x, -d), x)
+
+
+def _prefix_max(a, W):
+    tl = np.arange(len(a)) % W
+    off = 1
+    while off < W:
+        a = np.where(tl >= off, np.maximum(a, _up(a, off, W)), a)
+        off *= 2
+    return a
+
+
+def _suffix_min(b, W):
+    tl = np.arange(len(b)) % W
+    off = 1
+    while off < W:
+        b = np.where(tl + off < W, np.minimum(b, _down(b, off, W)), b)
+        off *= 2
+    return b
+
+
+def _link_terms(pl, pos, ok, pl_up, pos_up, ok_up, first):
+    d = pos - pos_up
+    base = ~first & (pl == pl_up) & ok & ok_up & (np.abs(d) > 0)
+    return base, np.sign(d)
+
+
+def _run_bounds(pl, pos, ok, T, W):
+    """run_bounds<W> over one warp's lanes (tiles of W lanes, slot tl)."""
+    tl = np.arange(len(pl)) % W
+    base, sg = _link_terms(pl, pos, ok, _up(pl, 1, W), _up(pos, 1, W),
+                           _up(ok, 1, W), tl == 0)
+    pb = (tl != 0) & _up(base, 1, W)
+    link = base & (~pb | (sg == _up(sg, 1, W)))
+    st = np.maximum(_prefix_max(np.where(link, -1, tl), W), 0)
+    lnext = (tl != W - 1) & _down(link, 1, W)
+    return st, _suffix_min(np.where(lnext, T, tl), W)
+
+
+def _run_bounds_two_slots(pl, pos, ok, T):
+    """run_bounds<32, 2>, the one-warp tile of a 33-64-slot chain that
+    the pair body replaced: lane l owns slots l and l + 32 ([2, 32]
+    arrays)."""
+    lane = np.arange(32)
+    first = lane == 0
+    ppl1 = np.where(first, pl[0, 31], _up(pl[1], 1, 32))
+    ppos1 = np.where(first, pos[0, 31], _up(pos[1], 1, 32))
+    pok1 = np.where(first, ok[0, 31], _up(ok[1], 1, 32))
+    base0, sg0 = _link_terms(pl[0], pos[0], ok[0], _up(pl[0], 1, 32),
+                             _up(pos[0], 1, 32), _up(ok[0], 1, 32), first)
+    base1, sg1 = _link_terms(pl[1], pos[1], ok[1], ppl1, ppos1, pok1,
+                             np.zeros(32, bool))
+    pb0 = ~first & _up(base0, 1, 32)
+    pb1 = np.where(first, base0[31], _up(base1, 1, 32))
+    ps1 = np.where(first, sg0[31], _up(sg1, 1, 32))
+    link0 = base0 & (~pb0 | (sg0 == _up(sg0, 1, 32)))
+    link1 = base1 & (~pb1 | (sg1 == ps1))
+    a0 = _prefix_max(np.where(link0, -1, lane), 32)
+    a1 = np.maximum(_prefix_max(np.where(link1, -1, lane + 32), 32), a0[31])
+    last = lane == 31
+    lnext0 = np.where(last, link1[0], _down(link0, 1, 32))
+    lnext1 = ~last & _down(link1, 1, 32)
+    b1 = _suffix_min(np.where(lnext1, T, lane + 32), 32)
+    b0 = np.minimum(_suffix_min(np.where(lnext0, T, lane), 32), b1[0])
+    return (np.stack([np.maximum(a0, 0), np.maximum(a1, 0)]),
+            np.stack([b0, b1]))
+
+
+def _run_bounds_pair(pl, pos, ok, T):
+    """run_bounds_pair: warp h's lane l owns slot 32 h + l ([2, 32]
+    arrays); each warp runs its part, writes its PairEdge, meets the
+    other at the barrier and reads the other's edge."""
+    lane = np.arange(32)
+    t = np.stack([lane, lane + 32])
+    base, sg, link = [], [], []
+    for h in (0, 1):
+        bh, sh = _link_terms(pl[h], pos[h], ok[h], _up(pl[h], 1, 32),
+                             _up(pos[h], 1, 32), _up(ok[h], 1, 32),
+                             lane == 0)
+        base.append(bh)
+        sg.append(sh)
+        link.append(bh & ((lane == 0) | ~_up(bh, 1, 32)
+                          | (sh == _up(sh, 1, 32))))
+    # before the barrier: warp 0's prefix max, warp 1's suffix min (its
+    # lane 0 is fixed after the barrier)
+    a0 = _prefix_max(np.where(link[0], -1, t[0]), 32)
+    b1 = _suffix_min(np.where((lane != 31) & _down(link[1], 1, 32), T, t[1]),
+                     32)
+    edge0 = dict(pos=pos[0, 31], sg=sg[0][31], pl=pl[0, 31], scan=a0[31],
+                 ok=ok[0, 31], base=base[0][31])
+    edge1 = dict(pos=pos[1, 0], sg=sg[1][1], pl=pl[1, 0], scan=b1[1],
+                 ok=ok[1, 0], base=base[1][1])
+    # warp 0, lane 31: slots 32 and 33's links
+    d32 = edge1["pos"] - pos[0, 31]
+    base32 = (edge1["pl"] == pl[0, 31]) & edge1["ok"] & ok[0, 31] \
+        & (np.abs(d32) > 0)
+    sg32 = np.sign(d32)
+    link32 = base32 & (~base[0][31] | (sg32 == sg[0][31]))
+    link33 = edge1["base"] & (~base32 | (edge1["sg"] == sg32))
+    tail = min(T if link33 else 32, edge1["scan"])
+    lnext = np.where(lane == 31, link32, _down(link[0], 1, 32))
+    en0 = np.minimum(_suffix_min(np.where(lnext, T, t[0]), 32), tail)
+    st0 = np.maximum(a0, 0)
+    # warp 1: slot 32's step from slot 31, the links of slots 32 and 33
+    d = pos[1, 0] - edge0["pos"]
+    base[1][0] = (edge0["pl"] == pl[1, 0]) & ok[1, 0] & edge0["ok"] \
+        & (np.abs(d) > 0)
+    sg[1][0] = np.sign(d)
+    link[1][0] = base[1][0] & (~edge0["base"] | (sg[1][0] == edge0["sg"]))
+    link[1][1] = base[1][1] & (~base[1][0] | (sg[1][1] == sg[1][0]))
+    a1 = _prefix_max(np.where(link[1], -1, t[1]), 32)
+    st1 = np.maximum(np.maximum(a1, edge0["scan"]), 0)
+    en1 = b1.copy()
+    en1[0] = min(T if link[1][1] else 32, b1[1])
+    return np.stack([st0, st1]), np.stack([en0, en1])
+
+
+def _k7_scan_case(rng, dtype):
+    """Chains of every extent 1-64 (and the bucket edges again), each a
+    chain_valid prefix with some empty slots, candidates on few
+    polylines with long monotone runs, reversals and repeated
+    positions: (extent [C], pl, pos, okc, chain_valid [C, 64])."""
+    extent = np.concatenate([np.arange(1, 65),
+                             [1, 2, 3, 32, 33, 63, 64, 64, 33, 32]])
+    C, T = len(extent), 64
+    valid = np.arange(T)[None, :] < extent[:, None]
+    valid &= rng.random((C, T)) > 0.08
+    valid[np.arange(C), extent - 1] = True
+    pl = np.repeat(rng.integers(0, 3, (C, T // 8)), 8, 1)
+    pl[rng.random((C, T)) < 0.05] = 9
+    step = rng.choice([1.0, 1.0, 1.0, -1.0, 0.0], (C, T)) \
+        * rng.uniform(0.1, 2.0, (C, T))
+    pos = np.cumsum(step, 1).astype(dtype)
+    cok = rng.random((C, T)) < 0.85
+    return extent, pl.astype(np.int32), pos, cok & valid, valid
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("seed", range(6))
+def test_k7_pair_scan_matches_one_tile_and_plain(seed, dtype):
+    """K7's run scans, each chain on the lanes launch_plan gives it: run
+    start and end of the 64-slot pair equal run_bounds<32, 2>'s (the
+    single-warp tile it replaces) on every slot, and every tile's run
+    length and end-touch equal the plain version's run test (its
+    cont decision too, short chains included), for extents 1-64."""
+    rng = np.random.default_rng(seed)
+    extent, pl, pos, okc, valid = _k7_scan_case(rng, dtype)
+    C, T = valid.shape
+    run_len, touches = (a.numpy() for a in expansion._monotone_runs(
+        torch.as_tensor(pl), torch.as_tensor(pos), torch.as_tensor(okc),
+        torch.as_tensor(valid)))
+    short = valid.sum(1) <= 2
+    cont_plain = (run_len >= np.where(touches, 2, 3)) | short[:, None]
+    plan = expansion.launch_plan(extent)
+    pairs = across = 0
+    for _, _, b, c, lanes in _k7_tiles(plan):
+        if c < 0:
+            continue
+        t = np.array([s for _, _, s in lanes])
+        W = expansion.TILE_SLOTS[b]
+        args = (pl[c, t], pos[c, t], okc[c, t], T)
+        if W == 64:
+            pairs += 1
+            # a run through slots 31 and 32 (both ok, one run length)
+            across += int(run_len[c, 31] > 1 and okc[c, 32]
+                          and run_len[c, 32] == run_len[c, 31])
+            two = [a.reshape(2, 32) for a in args[:3]]
+            st, en = (a.reshape(-1) for a in _run_bounds_pair(*two, T))
+            st2, en2 = (a.reshape(-1)
+                        for a in _run_bounds_two_slots(*two, T))
+            np.testing.assert_array_equal(st, st2)
+            np.testing.assert_array_equal(en, en2)
+        else:
+            st, en = _run_bounds(*args, W)
+        vm = np.flatnonzero(valid[c, t])
+        first_valid = vm[0] if len(vm) else T + 1
+        last_valid = vm[-1] if len(vm) else -1
+        ok = okc[c, t]
+        rl = np.where(ok, en - st + 1, 0)
+        tch = (st <= first_valid) | (en >= last_valid)
+        np.testing.assert_array_equal(rl, run_len[c, t])
+        np.testing.assert_array_equal(tch[ok], touches[c, t][ok])
+        cont = (rl >= np.where(tch, 2, 3)) | (len(vm) <= 2)
+        np.testing.assert_array_equal(cont[ok], cont_plain[c, t][ok])
+    assert pairs == int((extent > 32).sum())
+    assert across and (run_len >= 3).any() and short.any()
