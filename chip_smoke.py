@@ -17,10 +17,12 @@ its final `ok` line:
      K1 is also timed as its launch alone into preallocated outputs and
      by its device time (a torch.profiler trace), in the view-by-view
      order the main path's callers ask for and in the caller's order.
-     K2's launch alone runs in its 8-lane body and its one-thread body
-     (the one K7's "epipolar" mode runs, and K2's design before that) on
-     the queries in the caller's, the view and the (view, cell) order,
-     each identical to the wrapper's result.  K3 runs its O = 3 register
+     K2 runs as the seeding calls it (its queries visited view-major in
+     tiles of rows), with its neighbourhood counts logged, and its
+     launch alone in each body (shared neighbourhoods, at several
+     `min_share`; one thread a query, the body K7's "epipolar" mode
+     runs) and visiting order (k2_variants), each identical to the
+     wrapper's result.  K3 runs its O = 3 register
      body and its general body (O = 49, 30% of the observations present
      at random), with the mean GN iterations and the mean of each warp's
      slowest row logged; K4 runs both launches of one follow_seeds call
@@ -183,6 +185,16 @@ by device time from profiler traces (per launch, their sum, and the
 time in which some K7 kernel ran), with the host wall of each call, the
 bound of its work, its chains and warps per launch and digests of its
 outputs (`time_k7`); it prints one JSON line and skips every check.
+
+    python3 chip_smoke.py --time-k2 ROOT
+
+times K2 of the checkout at ROOT and of this tree in fresh processes,
+in turns (ROOT, this, this, ROOT; `--time-k2-checkout`): in f32 and f64
+on the full scene, phase 2's shape and each launch of the main path's
+seeding through the wrapper, and the one-thread body's launch alone in
+the caller's order, by device time from profiler traces, with the bound
+and an exact digest of every output, which must equal ROOT's; this
+tree's process also runs k2_variants.
 
     python3 chip_smoke.py --time-follow ROOT
 
@@ -458,47 +470,63 @@ def record_into(results, name, mism, rows, err, ms, plain_ms, err_tol,
         fail(f"{name}: coordinate error {gated} > {err_tol}")
 
 
-def device_ms_by_kernel(fn, reps: int, pattern: str) -> dict:
+#: profiler traces taken of one measurement before its device time falls
+#: back to CUDA events: on the H100 machine a trace has come back with no
+#: CUDA entry at all, up to twice in a row, in a fresh process too
+PROFILE_TRIES = 6
+
+
+def device_ms_by_kernel(fn, reps: int, pattern: str, need=None):
     """{kernel: mean device ms per call of fn()} for every CUDA entry of
     one torch.profiler trace of `reps` calls (kernels, memsets, copies),
     each named by its match of the regular expression `pattern`, or by
-    its first 48 characters.  A trace without any CUDA entry fails the
-    run: no device time is recorded from it."""
+    its first 48 characters.  A trace without any CUDA entry, or without
+    one of the names in `need`, is taken again, up to PROFILE_TRIES
+    times; no device time is read from it.  Returns None when every
+    trace came back so."""
     import re
 
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            m = re.search(pattern, e.key)
-            name = m.group(0) if m else e.key[:48]
-            t = getattr(e, "self_device_time_total", None)
-            t = float(t if t is not None else e.self_cuda_time_total)
-            out[name] = out.get(name, 0.0) + t / 1e3 / reps
-    if not out:
-        fail("device_ms_by_kernel: the profiler trace holds no CUDA entry")
-    return out
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                m = re.search(pattern, e.key)
+                name = m.group(0) if m else e.key[:48]
+                t = getattr(e, "self_device_time_total", None)
+                t = float(t if t is not None else e.self_cuda_time_total)
+                out[name] = out.get(name, 0.0) + t / 1e3 / reps
+        if out and (need is None or any(out.get(k, 0.0) > 0 for k in need)):
+            return out
+        log(f"  device_ms_by_kernel: trace {attempt} without "
+            f"{list(need) if need else 'a CUDA entry'} ({len(out)} CUDA "
+            f"entries: {list(out)[:6]})")
+    return None
 
 
 def device_ms(fn, reps: int, name) -> float:
     """Mean device time per call of fn() of the CUDA kernels whose name
-    holds `name` (or one of a tuple of names), from one trace of
-    device_ms_by_kernel; fails when the trace has none of them."""
+    holds `name` (or one of a tuple of names), from a trace of
+    device_ms_by_kernel.  When every trace lacks them, the time of the
+    whole of fn() between two CUDA events on its stream instead (logged
+    so): the profiler failed, not the kernel."""
     import re
     names = (name,) if isinstance(name, str) else tuple(name)
-    times = device_ms_by_kernel(fn, reps, "|".join(map(re.escape, names)))
-    ms = sum(v for k, v in times.items() if k in names)
-    if ms == 0.0:
-        fail(f"device_ms: no CUDA kernel named {names} in the trace; its "
-             f"CUDA entries: {list(times)[:12]}")
-    return ms
+    times = device_ms_by_kernel(fn, reps, "|".join(map(re.escape, names)),
+                                need=names)
+    if times is None:
+        ms = cuda_time(fn, reps)[1]
+        log(f"  device_ms: {PROFILE_TRIES} profiler traces without "
+            f"{names}; timed by CUDA events instead: {ms:.4f} ms")
+        return ms
+    return sum(v for k, v in times.items() if k in names)
 
 
 def k1_times(args, want):
@@ -547,52 +575,180 @@ def k1_times(args, want):
     return res
 
 
-def k2_variants(ctx, args2, want):
-    """K2's launch alone in its 8-lane body and its one-thread body, on
-    the queries as the caller issues them (start-major; the one-thread
-    body in that order is K2's previous design), by view (the wrapper's
-    order) and by (view, grid cell); each identical to the wrapper's
-    result `want`.  The sorts are timed apart."""
+def k2_phase2_args(ctx, sfmd):
+    """K2 at the _seed_from_starts shape: the starts of the first
+    refpoint chunk (1,024 refpoints, every viewing camera) x every view,
+    start-major as the seeding issues them.  Returns (K2's arguments,
+    the starts, the chunk's observations and observation mask, the
+    number of queries on a view that does not observe their refpoint)."""
+    import torch
+
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    from edgegraph3d_tpu_torch.ops.geometry import epipolar_line
+    cfg = ctx.config
+    dev = ctx.device
+    M = cfg.max_candidates_per_view
+    obs_xy, obs_mask = rp.dense_observations(sfmd)
+    N, V = obs_mask.shape
+    om = torch.as_tensor(obs_mask[:min(1024, N)], device=dev)
+    oxc = torch.as_tensor(obs_xy[:min(1024, N)], device=dev)
+    starts = rp._start_sweep(ctx, oxc, om, cfg.detection_starting_dist_px, M)
+    K = len(starts["ridx"])
+    lines = epipolar_line(ctx.F_table[starts["vs"]],
+                          starts["xy"][:, None, :])
+    radius = torch.clamp_min(torch.clamp_max(starts["dist"] * 3.0, 30.0),
+                             3.0).repeat_interleave(V)
+    view2 = torch.arange(V, dtype=torch.int32, device=dev).repeat(K)
+    args2 = (ctx.grids, view2, oxc[starts["ridx"]].reshape(K * V, 2),
+             lines.reshape(K * V, 3), radius, ctx.cell, M)
+    return args2, starts, oxc, om, int((~om[starts["ridx"]]).sum())
+
+
+def k2_bytes(args, n_cells: int) -> float:
+    """Bytes K2 must move: each query's view, point, line and radius,
+    its [M] row of every output (pl, seg, t, xy, dist, valid) and each
+    distinct grid cell once."""
+    grids, view, pts, lines, radius, _, M = args
+    q_in = 4 + 2 * pts.element_size() + 3 * lines.element_size() \
+        + radius.element_size()
+    q_out = M * (4 + 4 + 1 + 4 * lines.element_size())
+    return len(view) * (q_in + q_out) + n_cells * grids.shape[3] * 24
+
+
+def k2_neighbourhoods(args, unobserved: int) -> dict:
+    """The sharing K2 can exploit: the queries, their distinct (view,
+    cell) neighbourhoods (the 5x5 cells a query reads depend on nothing
+    else), queries a neighbourhood (mean, max), the share of queries on
+    a view that does not observe their refpoint (point (0, 0)) and the
+    non-empty slots a query reads (mean)."""
+    import torch
+    grids, view, pts, _, _, cell, _ = args
+    V, GH, GW = grids.shape[:3]
+    c = torch.nan_to_num(pts / cell, nan=0.0).clamp(-1e9, 1e9).trunc().long()
+    key = (view.long() * GH + c[:, 1].clamp(0, GH - 1)) * GW \
+        + c[:, 0].clamp(0, GW - 1)
+    _, counts = torch.unique(key, return_counts=True)
+    entries, _ = grid_work(grids, view, pts, cell, 2)
+    Q = len(view)
+    return dict(queries=Q, neighbourhoods=len(counts),
+                queries_per_neighbourhood_mean=Q / max(1, len(counts)),
+                queries_per_neighbourhood_max=int(counts.max()),
+                unobserved_share=unobserved / max(1, Q),
+                nonempty_slots_per_query=entries / max(1, Q))
+
+
+def k2_digest(c) -> list:
+    """An exact digest of each output of a Candidates: the sum of its
+    elements' bits weighted by position (int64, wrapping)."""
+    import torch
+    out = []
+    for t in c:
+        x = t.reshape(-1)
+        if x.dtype == torch.bool:
+            x = x.to(torch.uint8)
+        bits = x.view({1: torch.uint8, 4: torch.int32,
+                       8: torch.int64}[x.element_size()]).long()
+        w = torch.arange(len(x), device=x.device) % 65521 + 1
+        out.append(int((bits * w).sum()))
+    return out
+
+
+#: K2's bodies by the C entry's `body`
+K2_BODIES = {"shared": 0, "one thread": 1}
+
+
+def k2_launch(args, out, body: str, order=None, n_rows: int = 0,
+              tile_rows: int = 0, min_share: int = 0, exclude=None):
+    """One launch of K2's C entry alone into the preallocated Candidates
+    `out`, as the wrapper makes it: `body` "one thread" (the body K7's
+    "epipolar" mode runs) or "shared" (the shared-neighbourhood body,
+    with `min_share`), the queries visited in `order` (or view-major in
+    tiles of `tile_rows` rows by `n_rows`, or as given).  Works with the C
+    entries of this tree and of the checkouts before the shared body,
+    whose entry takes a one_thread flag (0: eight lanes a query,
+    body "8 lanes") and no n_rows, tile_rows or min_share."""
     import torch
 
     from edgegraph3d_tpu_torch import kernels
     from edgegraph3d_tpu_torch.matching import detection
+    grids, view, pts, lines, radius, cell, M = args
+    V, GH, GW, Kc, _ = grids.shape
+    f64 = lines.dtype == torch.float64
+    if radius.dtype != lines.dtype:
+        fail("k2_launch: the radius must come in the lines' type, as the "
+             "wrapper widens it")
+    lib = kernels.lib()
+    entry = lib.eg3d_epipolar_topm_f64 if f64 else lib.eg3d_epipolar_topm
+    pts_arg = (pts.data_ptr(), int(pts.dtype == torch.float64)) if f64 \
+        else (pts.data_ptr(),)
+    use = exclude is not None
+    tail = (int(use), float(exclude) if use else 0.0,
+            *detection._out_ptrs(out), kernels.stream_of(pts))
+    o = None if order is None else order.data_ptr()
+    if len(kernels._SIGNATURES["eg3d_epipolar_topm"]) == 23:
+        if body.startswith("shared") or n_rows:
+            fail("k2_launch: this checkout has no shared body")
+        mid = (o, len(view), float(cell), M, int(body == "one thread"))
+    else:
+        mid = (o, n_rows, tile_rows, len(view), float(cell), M,
+               K2_BODIES[body], min_share)
+    rc = entry(grids.data_ptr(), V, GH, GW, Kc, view.data_ptr(), *pts_arg,
+               lines.data_ptr(), radius.data_ptr(), *mid, *tail)
+    kernels.check(rc, "epipolar_topm_query")
+
+
+def k2_variants(args2, want, unobserved: int, full: bool = True):
+    """K2's launch alone, at phase 2's shape, in its two bodies (the
+    shared-neighbourhood body, the wrapper's; one thread a query, the
+    body K7's "epipolar" mode runs) and visiting orders: as the caller
+    issues the queries (start-major), view-major by arithmetic in the
+    wrapper's tiles, in tiles of 512 and 2,048 rows and in one tile, and
+    sorted by (view, cell) (the wrapper's plan for other callers); the
+    shared body also with every group staged (`min_share` 1) and none
+    (33); each identical to the wrapper's result `want`.  `full` False
+    times the shared body in the wrapper's plan and the one-thread
+    body's yardstick only.  The sort is timed apart.  Logs the
+    neighbourhood counts first (k2_neighbourhoods)."""
+    import torch
+
+    from edgegraph3d_tpu_torch.matching import detection
 
     grids, view, pts, lines, radius, cell, M = args2
-    V, GH, GW, Kc, _ = grids.shape
+    args2 = (*args2[:4], radius.to(lines.dtype), *args2[5:])
+    V = grids.shape[0]
     Q = len(view)
-    cells = torch.nan_to_num(pts / cell).clamp(0, max(GH, GW) - 1).int()
-    cell_key = (view * GH + cells[:, 1].clamp_max(GH - 1)) * GW \
-        + cells[:, 0].clamp_max(GW - 1)
-    sorts = {"view": lambda: detection._view_major_order(view, V),
-             "view+cell": lambda: torch.argsort(cell_key, stable=True)
-             .to(torch.int32)}
-    orders = {"start-major": None}
-    for name, sort in sorts.items():
-        orders[name], ms = cuda_time(sort, 5)
-        log(f"  epipolar_topm_query order by {name}: sort_ms={ms:.4f}")
-    out = detection._empty_outputs(Q, M, pts.device)
-
-    def launch(one_thread, order):
-        rc = kernels.lib().eg3d_epipolar_topm(
-            grids.data_ptr(), V, GH, GW, Kc, view.data_ptr(),
-            pts.data_ptr(), lines.data_ptr(), radius.data_ptr(),
-            None if order is None else order.data_ptr(), Q, float(cell), M,
-            one_thread, 0, 0.0, *detection._out_ptrs(out),
-            kernels.stream_of(pts))
-        kernels.check(rc, "epipolar_topm_query")
-
-    for lanes, one_thread in ((1, 1), (8, 0)):
-        for name, order in orders.items():
-            for t in out:
-                t.fill_(7)                # every slot must be rewritten
-            _, ms = cuda_time(lambda: launch(one_thread, order), 5)
-            same = all(torch.equal(a, b) for a, b in zip(out, want))
-            log(f"  epipolar_topm_query lanes_per_query={lanes} {name}: "
-                f"launch_ms={ms:.4f} identical={same}")
-            if not same:
-                fail(f"epipolar_topm_query: {lanes} lanes per query, "
-                     f"{name} order, differ from the wrapper's result")
+    log(f"  epipolar_topm_query neighbourhoods: "
+        f"{json.dumps(k2_neighbourhoods(args2, unobserved))}")
+    order, ms = cuda_time(lambda: detection.k2_plan(grids, view, pts, cell,
+                                                    False)[0], 5)
+    log(f"  epipolar_topm_query order by view+cell: sort_ms={ms:.4f}")
+    tr = detection.K2_TILE_ROWS
+    orders = {"start-major": (None, 0, 0), "view-major": (None, Q // V, 0),
+              "view+cell": (order, 0, 0)}
+    orders.update({f"tiles of {t}": (None, Q // V, t)
+                   for t in (tr, 512, 2048)})
+    ms2, wrapper = detection.K2_MIN_SHARE, f"tiles of {tr}"
+    plan = [("one thread", 0, "start-major"), ("shared", ms2, wrapper)]
+    if full:
+        plan += [("one thread", 0, wrapper)] \
+            + [("shared", ms2, o) for o in orders
+               if o not in ("start-major", wrapper)] \
+            + [("shared", ms2, "start-major"), ("shared", 1, wrapper),
+               ("shared", 33, wrapper)]
+    out = detection._empty_outputs(Q, M, pts.device, lines.dtype)
+    for body, min_share, name in plan:
+        order, n_rows, tile_rows = orders[name]
+        for t in out:
+            t.fill_(7)                    # every slot must be rewritten
+        _, ms = cuda_time(lambda: k2_launch(args2, out, body, order, n_rows,
+                                            tile_rows, min_share), 5)
+        same = all(torch.equal(a, b) for a, b in zip(out, want))
+        log(f"  epipolar_topm_query {lines.dtype} body={body} "
+            f"min_share={min_share} order={name}: launch_ms={ms:.4f} "
+            f"identical={same}")
+        if not same:
+            fail(f"epipolar_topm_query: body {body}, min_share {min_share}, "
+                 f"{name} order, differs from the wrapper's result")
 
 
 def compare_kernels(ctx, sfmd):
@@ -601,7 +757,6 @@ def compare_kernels(ctx, sfmd):
     from edgegraph3d_tpu_torch.matching import detection, following
     from edgegraph3d_tpu_torch.matching import refpoints as rp
     from edgegraph3d_tpu_torch.ops import triangulation
-    from edgegraph3d_tpu_torch.ops.geometry import epipolar_line
 
     cfg = ctx.config
     dev = ctx.device
@@ -633,27 +788,16 @@ def compare_kernels(ctx, sfmd):
            work=(rows * (12 + 25 * M) + len(cells) * Kc * 24,
                  FLOPS["grid_entry"] * entries))
 
-    # K2 at the _seed_from_starts shape: the starts of one refpoint
-    # chunk (1,024 refpoints, every viewing camera) x all views
-    lo, hi = 0, min(1024, N)
-    om = torch.as_tensor(obs_mask[lo:hi], device=dev)
-    oxc = ox[lo:hi]
-    starts = rp._start_sweep(ctx, oxc, om, cfg.detection_starting_dist_px, M)
-    K = len(starts["ridx"])
-    vs = starts["vs"]
-    lines = epipolar_line(ctx.F_table[vs], starts["xy"][:, None, :])
-    radius = torch.clamp_min(torch.clamp_max(starts["dist"] * 3.0, 30.0),
-                             3.0).repeat_interleave(V)
-    view2 = torch.arange(V, dtype=torch.int32, device=dev).repeat(K)
-    args2 = (ctx.grids, view2, oxc[starts["ridx"]].reshape(K * V, 2),
-             lines.reshape(K * V, 3), radius, ctx.cell, M)
-    got, ms = cuda_time(lambda: detection.epipolar_topm_query(*args2), 5)
+    # K2 at the _seed_from_starts shape, as the seeding calls it
+    args2, starts, oxc, om, unobserved = k2_phase2_args(ctx, sfmd)
+    got, ms = cuda_time(lambda: detection.epipolar_topm_query(
+        *args2, view_cycle=True), 5)
     ref, pms = cuda_time(lambda: detection._epipolar_topm_plain(*args2), 1)
     mism, err, rows = _cand_diff(got, ref)
-    k2_variants(ctx, args2, got)
-    entries, cells = grid_work(ctx.grids, view2, args2[2], ctx.cell, 2)
+    k2_variants(args2, got, unobserved)
+    entries, cells = grid_work(ctx.grids, args2[1], args2[2], ctx.cell, 2)
     record("epipolar_topm_query", mism, rows, err, ms, pms, COORD_TOL_PX,
-           work=(rows * (28 + 25 * M) + len(cells) * Kc * 24,
+           work=(k2_bytes(args2, len(cells)),
                  FLOPS["epipolar_entry"] * entries))
 
     # K3 at its main-path callers' shapes: O = 3 cold (seed pairs, the
@@ -1884,7 +2028,8 @@ def time_k8(root: str) -> int:
                      ("Hxx_inv", "gx", "B", "A", "Hcc", "rhs", "resid_sq")]
     out["launch_alone_ms"] = cuda_time(
         k8_launch_alone(ba, kernels, state, obs, blocks, index), 20)[1]
-    out["device_ms"] = device_ms_by_kernel(run, 10, r"ba_\w+")
+    out["device_ms"] = device_ms_by_kernel(run, 10, r"ba_\w+") or {
+        "all, by CUDA events (no profiler trace)": cuda_time(run, 10)[1]}
     torch.cuda.synchronize()
     ba.ba_step_single(state, *obs, **kw)
     walls = []
@@ -2829,7 +2974,6 @@ def compare_kernels_f64(full, cfg, results):
     from edgegraph3d_tpu_torch.matching import matches
     from edgegraph3d_tpu_torch.matching import refpoints as rp
     from edgegraph3d_tpu_torch.ops import triangulation
-    from edgegraph3d_tpu_torch.ops.geometry import epipolar_line
     from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
 
     sfmd = full[0]
@@ -2838,7 +2982,7 @@ def compare_kernels_f64(full, cfg, results):
                            device="cuda")
     dev = ctx.device
     M = cfg.max_candidates_per_view
-    obs_xy, obs_mask = rp.dense_observations(sfmd)
+    _, obs_mask = rp.dense_observations(sfmd)
     N, V = obs_mask.shape
     Kc = ctx.grids.shape[3]
     log(f"  f64 context: P {ctx.P_mats.dtype}, F {ctx.F_table.dtype}, "
@@ -2852,7 +2996,6 @@ def compare_kernels_f64(full, cfg, results):
     # the f64 projections of every scene point through every f64 camera,
     # (refpoint, view) rows.  They are not f32 values, so a body that
     # rounded its query points to f32 would disagree with the twin.
-    ox = torch.as_tensor(obs_xy, device=dev)
     view = torch.arange(V, dtype=torch.int32, device=dev).repeat(N)
     X = torch.as_tensor(sfmd.points, dtype=torch.float64, device=dev)
     pts = rp._project_pos(ctx.P_mats, X).reshape(N * V, 2).contiguous()
@@ -2887,26 +3030,16 @@ def compare_kernels_f64(full, cfg, results):
                  FLOPS["grid_entry"] * entries))
 
     # K2: f64 lines from the f64 F over the f32 starts and observations
-    lo, hi = 0, min(1024, N)
-    om = torch.as_tensor(obs_mask[lo:hi], device=dev)
-    oxc = ox[lo:hi]
-    starts = rp._start_sweep(ctx, oxc, om, cfg.detection_starting_dist_px, M)
-    K = len(starts["ridx"])
-    lines = epipolar_line(ctx.F_table[starts["vs"]],
-                          starts["xy"][:, None, :])
-    radius = torch.clamp_min(torch.clamp_max(starts["dist"] * 3.0, 30.0),
-                             3.0).repeat_interleave(V)
-    view2 = torch.arange(V, dtype=torch.int32, device=dev).repeat(K)
-    args2 = (ctx.grids, view2, oxc[starts["ridx"]].reshape(K * V, 2),
-             lines.reshape(K * V, 3), radius, ctx.cell, M)
-    if lines.dtype != torch.float64:
-        fail(f"f64 epipolar lines came out {lines.dtype}")
-    got, ms = cuda_time(lambda: detection.epipolar_topm_query(*args2), 5)
+    args2, starts, oxc, om, _ = k2_phase2_args(ctx, sfmd)
+    if args2[3].dtype != torch.float64:
+        fail(f"f64 epipolar lines came out {args2[3].dtype}")
+    got, ms = cuda_time(lambda: detection.epipolar_topm_query(
+        *args2, view_cycle=True), 5)
     ref, pms = cuda_time(lambda: detection._epipolar_topm_plain(*args2), 1)
     mism, err, rows = _cand_diff(got, ref)
-    entries, cells = grid_work(ctx.grids, view2, args2[2], ctx.cell, 2)
+    entries, cells = grid_work(ctx.grids, args2[1], args2[2], ctx.cell, 2)
     record("epipolar_topm_query", mism, rows, err, ms, pms, F64_COORD_TOL,
-           work=(rows * (8 + 24 + 8 + 4 + 41 * M) + len(cells) * Kc * 24,
+           work=(k2_bytes(args2, len(cells)),
                  FLOPS["epipolar_entry"] * entries))
 
     # K3: the O = 3 body cold and the general body (the padded loop) warm
@@ -3229,21 +3362,26 @@ def main() -> int:
     return 0
 
 
-def k7_device_runs(fn, reps: int = 3, tries: int = 3):
-    """fn() (one K7 call: its launches and whatever host work surrounds
-    them) once to warm up, `reps` times on the host clock after a
-    synchronize, then `reps` times in one profiler trace, each run inside
-    a record_function range: per run, each K7 launch's device ms and
-    stream, their sum, the device time in which some K7 kernel ran (the
-    union of their intervals: launches on several streams overlap) and
-    the span from the first start to the last end.  A trace in which a
-    run holds no K7 kernel, or fewer than another run, is taken again,
-    up to `tries` traces, and then fails the run: no time is read from
-    an incomplete trace (the profiler's trace has come back empty on
-    this machine, in a fresh process too).  Returns (fn()'s first
-    result, the times)."""
+def device_runs(fn, kernel: str = "expand_chains", reps: int = 3,
+                tries: int = PROFILE_TRIES):
+    """fn() (one call: its launches of the kernel whose name holds
+    `kernel` and whatever host work surrounds them) once to warm up,
+    `reps` times on the host clock after a synchronize, then `reps` times
+    more, each alone in a profiler trace of its own, so that every CUDA
+    entry of a trace is the run's (splitting one trace of several runs
+    by their host ranges, as this did before, found no kernel in the
+    first run and one in each other, three traces in a row, on the H100
+    machine): per run, each launch's device ms and stream, their sum,
+    the device time in which some such kernel ran (the union of their
+    intervals: launches on several streams overlap), the span from the
+    first start to the last end, and the sum over every CUDA entry of
+    the run (`all_ms`: sorts, copies and memsets too).  A trace without
+    the kernel is taken again, up to `tries` times, and then fails the
+    run: no time is read from an incomplete trace (the profiler's trace
+    has come back empty on this machine, in a fresh process too).
+    Returns (fn()'s first result, the times)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
     out = fn()
     torch.cuda.synchronize()
     walls = []
@@ -3252,45 +3390,42 @@ def k7_device_runs(fn, reps: int = 3, tries: int = 3):
         fn()
         torch.cuda.synchronize()
         walls.append((time.time() - t0) * 1e3)
-    for attempt in range(1, tries + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(reps):
-                with record_function(f"k7_run_{i}"):
-                    fn()
-                    torch.cuda.synchronize()
-        events = prof.events()
-        cuda = torch.autograd.DeviceType.CUDA
-        # the host ranges (the trace also shows each range on the device,
-        # once for every stream it touched)
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in events if e.name.startswith("k7_run_")
-                       and e.device_type != cuda)
-        kern = sorted((e.time_range.start, e.time_range.end,
-                       getattr(e, "device_resource_id", -1))
-                      for e in events
-                      if e.device_type == cuda and "expand_chains" in e.name)
-        per_run = [[k for k in kern if a <= k[0] <= b] for a, b in spans]
-        counts = {len(ev) for ev in per_run}
-        if len(spans) == reps and len(counts) == 1 and 0 not in counts:
-            break
-        log(f"  k7_device_runs: trace {attempt} incomplete (K7 kernels per "
-            f"run {[len(ev) for ev in per_run]}, {len(spans)} runs)")
-    else:
-        fail(f"k7_device_runs: {tries} profiler traces without every K7 "
-             f"launch")
-    runs = []
-    for ev in per_run:
+    cuda = torch.autograd.DeviceType.CUDA
+    runs, retakes = [], 0
+    for _ in range(reps):
+        for attempt in range(1, tries + 1):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            dev = [e for e in prof.events() if e.device_type == cuda]
+            ev = sorted((e.time_range.start, e.time_range.end,
+                         getattr(e, "device_resource_id", -1))
+                        for e in dev if kernel in e.name)
+            if ev:
+                break
+            retakes += 1
+            log(f"  device_runs: trace {attempt} without a {kernel} kernel "
+                f"({len(dev)} CUDA entries)")
+        else:
+            fail(f"device_runs: {tries} profiler traces without a {kernel} "
+                 f"launch")
         busy, end = 0.0, ev[0][0]
         for a, b, _ in ev:
             busy += max(0.0, b - max(a, end))
             end = max(end, b)
-        runs.append(dict(launch_ms=[(b - a) / 1e3 for a, b, _ in ev],
-                         streams=[r for _, _, r in ev],
-                         sum_ms=sum(b - a for a, b, _ in ev) / 1e3,
-                         busy_ms=busy / 1e3, span_ms=(end - ev[0][0]) / 1e3))
-    return out, dict(wall_ms=walls, runs=runs, traces=attempt,
-                     busy_ms=sum(r["busy_ms"] for r in runs) / reps)
+        runs.append(dict(
+            launch_ms=[(b - a) / 1e3 for a, b, _ in ev],
+            streams=[r for _, _, r in ev],
+            sum_ms=sum(b - a for a, b, _ in ev) / 1e3, busy_ms=busy / 1e3,
+            span_ms=(end - ev[0][0]) / 1e3,
+            all_ms=sum(e.time_range.end - e.time_range.start
+                       for e in dev) / 1e3))
+    if len({len(r["launch_ms"]) for r in runs}) != 1:
+        fail(f"device_runs: the runs' traces hold different counts of "
+             f"{kernel} launches: {[len(r['launch_ms']) for r in runs]}")
+    return out, dict(wall_ms=walls, runs=runs, retakes=retakes,
+                     busy_ms=sum(r["busy_ms"] for r in runs) / reps,
+                     all_ms=sum(r["all_ms"] for r in runs) / reps)
 
 
 def k7_chunk_plans(chunks) -> list:
@@ -3320,7 +3455,7 @@ def time_k7(root: str) -> int:
     scene: the launches of one stage-3 expand_and_assemble call and of
     the first chain-extension call, and each tile bucket of the stage-3
     chains alone (bucket_pieces of one chunk of every chain; the 64-slot
-    bucket is the one the two-warp tile runs), each by k7_device_runs
+    bucket is the one the two-warp tile runs), each by device_runs
     (device ms from profiler traces, in this fresh process) beside the
     bound of its work (expansion_work) and digests of its outputs.
     Prints one JSON line."""
@@ -3339,7 +3474,7 @@ def time_k7(root: str) -> int:
     out = {"root": root, "source": expansion.__file__, "card": card_name()}
 
     def timed(entry, fn, digest):
-        got, t = k7_device_runs(fn)
+        got, t = device_runs(fn)
         entry.update(t, digest=digest(got))
         return entry
 
@@ -3552,6 +3687,138 @@ def time_k5(root: str) -> int:
     return 0
 
 
+def time_k2(root: str) -> int:
+    """K2 of the port checkout at `root` (e.g. an unpacked `git archive`
+    of an earlier commit) against this tree's, in one call: time_k2_checkout
+    in a fresh process for root, this tree, this tree and root, in turns.
+    Prints each process's JSON line, then one JSON line of device ms per
+    item (f32 and f64: phase 2's shape, each main-path launch, the
+    one-thread launch alone; the K2 kernel's own and, `all_ms`, every
+    CUDA entry of the call) for both checkouts, and fails if an output
+    digest differs between them."""
+    res = []
+    for r in (root, HERE, HERE, root):
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--time-k2-checkout", r], capture_output=True,
+                           text=True, timeout=900)
+        log(p.stdout)
+        if p.returncode != 0:
+            fail(f"--time-k2-checkout {r} failed ({p.returncode}): "
+                 f"{p.stderr[-3000:]}")
+        res.append(json.loads(p.stdout.strip().splitlines()[-1]))
+    summary = {"card": card_name(), "parent": root}
+    for dtype in ("float32", "float64"):
+        for item, t in res[1][dtype].items():
+            if "device_ms" not in t:
+                continue
+            summary[f"{dtype} {item}"] = dict(
+                parent_ms=[res[i][dtype][item]["device_ms"] for i in (0, 3)],
+                this_ms=[res[i][dtype][item]["device_ms"] for i in (1, 2)],
+                parent_all_ms=[res[i][dtype][item].get("all_ms")
+                               for i in (0, 3)],
+                this_all_ms=[res[i][dtype][item].get("all_ms")
+                             for i in (1, 2)],
+                bound_ms=t.get("bound_ms"))
+            if "digest" in t and any(res[i][dtype][item]["digest"]
+                                     != t["digest"] for i in (0, 2, 3)):
+                fail(f"--time-k2: {dtype} {item}: outputs differ from the "
+                     f"parent's")
+    log(json.dumps(summary))
+    return 0
+
+
+def time_k2_checkout(root: str) -> int:
+    """K2 for the port checkout at `root`, in f32 and f64 on the full
+    scene: phase 2's shape (k2_phase2_args, with its neighbourhood
+    counts, k2_neighbourhoods) and each launch of the main path's
+    seeding (compute_seeds_chunk over every 1,024-refpoint chunk, as
+    compute_and_follow_seeds calls it, arguments captured), each through
+    the wrapper by device_runs (device ms from profiler traces: the K2
+    kernel's own time and every CUDA entry of the call, sorts included),
+    beside its bound and an exact digest of its outputs; then, at phase
+    2's shape, the one-thread body's launch alone in the caller's
+    (start-major) order, which must equal the wrapper's result, and, for
+    this tree, k2_variants.  Phase 2's shape goes through the wrapper as
+    the seeding calls it (view_cycle, where the checkout's wrapper takes
+    it).  Prints one JSON line."""
+    import inspect
+
+    import torch
+    sys.path.insert(0, os.path.abspath(root))
+    from edgegraph3d_tpu_torch import kernels
+    from edgegraph3d_tpu_torch.matching import detection
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
+    if not torch.cuda.is_available():
+        fail("no CUDA GPU")
+    kernels.build()
+    kernels.lib()
+    sfmd, edges, _ = full_scene()
+    out = {"root": root, "source": detection.__file__, "card": card_name()}
+    obs_xy, obs_mask = rp.dense_observations(sfmd)
+    start_mask = rp._start_mask(obs_mask, None)
+    for dtype, peak in (("float32", PEAK_F32_FLOPS),
+                        ("float64", PEAK_F64_FLOPS)):
+        cfg = bench_config().replace(dtype=dtype)
+        ctx = rp.build_context(sfmd, extract_plgs(edges, cfg), cfg,
+                               device="cuda")
+        args2, *_, unobserved = k2_phase2_args(ctx, sfmd)
+        captured = []
+        real = rp.epipolar_topm_query
+
+        def spy(*a, **kw):
+            captured.append((a, kw))
+            return real(*a, **kw)
+
+        rp.epipolar_topm_query = spy
+        try:
+            for lo in range(0, len(obs_xy), 1024):
+                rp.compute_seeds_chunk(ctx, *(
+                    torch.as_tensor(a[lo:lo + 1024], device=ctx.device)
+                    for a in (obs_xy, obs_mask, start_mask)))
+        finally:
+            rp.epipolar_topm_query = real
+        r = out[dtype] = dict(neighbourhoods=k2_neighbourhoods(args2,
+                                                               unobserved))
+        cyc = "view_cycle" in inspect.signature(
+            detection.epipolar_topm_query).parameters
+        calls = [("phase2", args2, {"view_cycle": True} if cyc else {})] + [
+            (f"launch{i}", a, kw) for i, (a, kw) in enumerate(captured)]
+        for label, a, kw in calls:
+            got, t = device_runs(
+                lambda: detection.epipolar_topm_query(*a, **kw),
+                "epipolar_topm")
+            entries, cells = grid_work(a[0], a[1], a[2], a[5], 2)
+            r[label] = dict(
+                queries=len(a[1]), kw=sorted(kw), device_ms=t["busy_ms"],
+                all_ms=t["all_ms"], runs=t["runs"], wall_ms=t["wall_ms"],
+                bound_ms=bound(k2_bytes(a, len(cells)),
+                               FLOPS["epipolar_entry"] * entries, peak)[0],
+                digest=k2_digest(got))
+            if label == "phase2":
+                want = got
+        Q, M = len(args2[1]), args2[6]
+        one = detection._empty_outputs(Q, M, args2[2].device,
+                                       args2[3].dtype)
+        args1 = (*args2[:4], args2[4].to(args2[3].dtype), *args2[5:])
+        _, t = device_runs(lambda: k2_launch(args1, one, "one thread"),
+                           "epipolar_topm")
+        r["one_thread_start_major"] = dict(
+            device_ms=t["busy_ms"], runs=t["runs"],
+            identical=all(torch.equal(x, y) for x, y in zip(one, want)))
+        if not r["one_thread_start_major"]["identical"]:
+            fail(f"epipolar_topm_query {dtype}: the one-thread launch "
+                 f"differs from the wrapper")
+        if os.path.abspath(root) == HERE:
+            k2_variants(args2, want, unobserved, dtype == "float32")
+        log(f"  {dtype}: " + json.dumps({k: v.get("device_ms", v) for k, v
+                                         in r.items()}))
+        del ctx, captured, calls, args1, args2, want, one, got
+        torch.cuda.empty_cache()
+    log(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--mesh-cards"]:
         sys.exit(mesh_cards())
@@ -3565,6 +3832,10 @@ if __name__ == "__main__":
         sys.exit(time_k1_k6(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k5":
         sys.exit(time_k5(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-k2":
+        sys.exit(time_k2(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-k2-checkout":
+        sys.exit(time_k2_checkout(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k7":
         sys.exit(time_k7(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-follow":

@@ -49,6 +49,106 @@ static __device__ __forceinline__ const float* entry_ptr(
   return grids + ((((v * GH + yy) * GW + xx) * Kc) + k) * 6;
 }
 
+// The [Q, M] outputs of K1 and K2: polyline, segment, parameter,
+// point (2 values), distance and valid flag of each of a query's M
+// candidates, in the query's compute type Q.
+template <class Q>
+struct Out {
+  int* pl;
+  int* seg;
+  Q* t;
+  Q* xy;
+  Q* dist;
+  uint8_t* valid;
+};
+
+// Store N values at dst (aligned to 4 N bytes for N % 4 == 0, 2 N for
+// N == 2) in 16- or 8-byte pieces.
+template <int N>
+__device__ __forceinline__ void store_row(float* dst, const float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i)
+      reinterpret_cast<float4*>(dst)[i] =
+          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) dst[i] = v[i];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_row(double* dst, const double (&v)[N]) {
+  if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i)
+      reinterpret_cast<double2*>(dst)[i] = make_double2(v[2 * i], v[2 * i + 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) dst[i] = v[i];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_row(int* dst, const int (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i)
+      reinterpret_cast<int4*>(dst)[i] =
+          make_int4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<int2*>(dst) = make_int2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) dst[i] = v[i];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_row(uint8_t* dst,
+                                          const uint8_t (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i)
+      reinterpret_cast<uchar4*>(dst)[i] =
+          make_uchar4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<uchar2*>(dst) = make_uchar2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) dst[i] = v[i];
+  }
+}
+
+// Query q's row of every output: the values TopM::store writes, row by
+// row (K1 and K2).
+template <int M, class Q>
+__device__ __forceinline__ void store_rows(const TopM<M, Q>& top, int64_t q,
+                                           const Out<Q>& o) {
+  int pl[M], seg[M];
+  Q t[M], xy[2 * M], dist[M];
+  uint8_t valid[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const bool ok = top.ok(i);
+    pl[i] = ok ? top.pl[i] : -1;
+    seg[i] = ok ? top.seg[i] : 0;
+    t[i] = ok ? top.t[i] : Q(0);
+    xy[2 * i] = ok ? top.x[i] : Q(0);
+    xy[2 * i + 1] = ok ? top.y[i] : Q(0);
+    dist[i] = ok ? top.d[i] : big<Q>();
+    valid[i] = ok ? 1 : 0;
+  }
+  store_row(o.pl + q * M, pl);
+  store_row(o.seg + q * M, seg);
+  store_row(o.t + q * M, t);
+  store_row(o.xy + q * 2 * M, xy);
+  store_row(o.dist + q * M, dist);
+  store_row(o.valid + q * M, valid);
+}
+
 // K1's test of one non-empty entry against the point (px, py): the
 // point-segment distance, offered to the top-M when within `radius`.
 template <int M, class T>
@@ -154,87 +254,5 @@ __device__ __forceinline__ void epipolar_topm_one(
     }
   }
 }
-
-// Top-M distinct polylines keyed by (distance, arrival index), keys
-// only, for a query split over a group of lanes.  `offer` keeps the M
-// polylines of smallest key, each at its smallest-key entry, whatever the
-// order of the offers (keys are distinct: an arrival index names one
-// entry).  Offered in increasing index, as one lane offers its entries,
-// it decides exactly as TopM<M>::offer, whose strict `<` makes the
-// earliest of equal distances win.  Empty slots hold (BIG, -1, -1), so a
-// candidate at distance BIG never enters, as in TopM.  The winners'
-// fields (seg, t, x, y) are recomputed from their entries at the end.
-template <int M, class T = float>
-struct TopKey {
-  T d[M];
-  int idx[M];
-  int pl[M];
-
-  static __device__ __forceinline__ bool less(T d1, int i1, T d2, int i2) {
-    return d1 < d2 || (d1 == d2 && i1 < i2);
-  }
-
-  __device__ __forceinline__ void init() {
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      d[i] = big<T>();
-      idx[i] = -1;
-      pl[i] = -1;
-    }
-  }
-
-  __device__ __forceinline__ void swap_down(int i) {  // swap i-1 <-> i
-    T fd = d[i]; d[i] = d[i - 1]; d[i - 1] = fd;
-    int ii = idx[i]; idx[i] = idx[i - 1]; idx[i - 1] = ii;
-    int ip = pl[i]; pl[i] = pl[i - 1]; pl[i - 1] = ip;
-  }
-
-  // p >= 0
-  __device__ __forceinline__ void offer(T dd, int ii, int p) {
-    bool same = false;
-    bool moved = false;
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      if (pl[i] == p) {
-        same = true;
-        if (less(dd, ii, d[i], idx[i])) {
-          d[i] = dd;
-          idx[i] = ii;
-          moved = true;
-        }
-      }
-    }
-    if (same && !moved) return;
-    if (!same) {
-      if (!less(dd, ii, d[M - 1], idx[M - 1])) return;
-      d[M - 1] = dd;
-      idx[M - 1] = ii;
-      pl[M - 1] = p;
-    }
-#pragma unroll
-    for (int i = M - 1; i > 0; --i) {
-      if (less(d[i], idx[i], d[i - 1], idx[i - 1])) swap_down(i);
-    }
-  }
-
-  // Merge the partial of the lane `off` lanes away (xor) in a group of
-  // G lanes; after log2(G) rounds every lane of the group holds the
-  // group's top-M.
-  template <int G>
-  __device__ __forceinline__ void merge_xor(int off) {
-    T od[M];
-    int oi[M], op[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      od[i] = __shfl_xor_sync(0xffffffffu, d[i], off, G);
-      oi[i] = __shfl_xor_sync(0xffffffffu, idx[i], off, G);
-      op[i] = __shfl_xor_sync(0xffffffffu, pl[i], off, G);
-    }
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      if (op[i] >= 0) offer(od[i], oi[i], op[i]);
-    }
-  }
-};
 
 }  // namespace eg3d

@@ -25,10 +25,11 @@
 //   * any other Kc: grid_query.cuh grid_topm_one (the body K7 runs), an
 //     8-byte (pl, seg) load per entry and the endpoints only for non-empty
 //     slots.
-// The outputs are written as whole rows: int4 / float4 (and uchar4 for
-// `valid`) at M = 4 and 8, 8-byte stores at M = 2, scalars at M = 1 and
-// 3.  The wrapper hands in views of three allocations, laid out so that
-// every row is aligned (detection._empty_outputs).
+// The outputs are written as whole rows (grid_query.cuh store_rows):
+// int4 / float4 (and uchar4 for `valid`) at M = 4 and 8, 8-byte stores
+// at M = 2, scalars at M = 1 and 3.  The wrapper hands in views of three
+// allocations, laid out so that every row is aligned
+// (detection._empty_outputs).
 //
 // Visiting order.  The main path's callers lay the queries out as N rows
 // of every view (query q on view q % V) and say so (n_rows = N); thread t
@@ -54,16 +55,6 @@
 #include "grid_query.cuh"
 
 namespace {
-
-template <class Q>
-struct Out {
-  int* pl;
-  int* seg;
-  Q* t;
-  Q* xy;
-  Q* dist;
-  uint8_t* valid;
-};
 
 // Component i of a register array of float4 (i a compile-time constant
 // after unrolling, so this folds to one register).
@@ -113,93 +104,6 @@ __device__ __forceinline__ void grid_topm_cells(const float* __restrict__ grids,
   }
 }
 
-// Store N values at dst (aligned to 4 N bytes for N % 4 == 0, 2 N for
-// N == 2) in 16- or 8-byte pieces.
-template <int N>
-__device__ __forceinline__ void store_row(float* dst, const float (&v)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i)
-      reinterpret_cast<float4*>(dst)[i] =
-          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
-  } else if constexpr (N == 2) {
-    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) dst[i] = v[i];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_row(double* dst, const double (&v)[N]) {
-  if constexpr (N % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i)
-      reinterpret_cast<double2*>(dst)[i] = make_double2(v[2 * i], v[2 * i + 1]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) dst[i] = v[i];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_row(int* dst, const int (&v)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i)
-      reinterpret_cast<int4*>(dst)[i] =
-          make_int4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
-  } else if constexpr (N == 2) {
-    *reinterpret_cast<int2*>(dst) = make_int2(v[0], v[1]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) dst[i] = v[i];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_row(uint8_t* dst,
-                                          const uint8_t (&v)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i)
-      reinterpret_cast<uchar4*>(dst)[i] =
-          make_uchar4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
-  } else if constexpr (N == 2) {
-    *reinterpret_cast<uchar2*>(dst) = make_uchar2(v[0], v[1]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) dst[i] = v[i];
-  }
-}
-
-// Query q's row of every output: the values TopM::store writes, row by
-// row.
-template <int M, class Q>
-__device__ __forceinline__ void store(const eg3d::TopM<M, Q>& top, int64_t q,
-                                      const Out<Q>& o) {
-  int pl[M], seg[M];
-  Q t[M], xy[2 * M], dist[M];
-  uint8_t valid[M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    const bool ok = top.ok(i);
-    pl[i] = ok ? top.pl[i] : -1;
-    seg[i] = ok ? top.seg[i] : 0;
-    t[i] = ok ? top.t[i] : Q(0);
-    xy[2 * i] = ok ? top.x[i] : Q(0);
-    xy[2 * i + 1] = ok ? top.y[i] : Q(0);
-    dist[i] = ok ? top.d[i] : eg3d::big<Q>();
-    valid[i] = ok ? 1 : 0;
-  }
-  store_row(o.pl + q * M, pl);
-  store_row(o.seg + q * M, seg);
-  store_row(o.t + q * M, t);
-  store_row(o.xy + q * 2 * M, xy);
-  store_row(o.dist + q * M, dist);
-  store_row(o.valid + q * M, valid);
-}
-
 // KC = 8: the cell-at-once body; KC = 0: the generic body (Kc at run
 // time).
 // n_rows > 0: the caller's queries are n_rows rows of V views (query q
@@ -219,7 +123,8 @@ __global__ void grid_topm_kernel(const float* __restrict__ grids, int V,
                                  int GH, int GW, int Kc,
                                  const int* __restrict__ view,
                                  const Q* __restrict__ pts, int n_q,
-                                 int n_rows, Q cell, Q radius, Out<Q> o) {
+                                 int n_rows, Q cell, Q radius,
+                                 eg3d::Out<Q> o) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_q) return;
   const int64_t q = n_rows > 0 ? (t % n_rows) * V + t / n_rows : t;
@@ -232,13 +137,13 @@ __global__ void grid_topm_kernel(const float* __restrict__ grids, int V,
     eg3d::grid_topm_one<M>(grids, GH, GW, Kc, v, p.x, p.y, cell, radius,
                            top);
   }
-  store(top, q, o);
+  eg3d::store_rows(top, q, o);
 }
 
 template <int M, class Q>
 void launch(const float* grids, int V, int GH, int GW, int Kc,
             const int* view, const Q* pts, int n_q, int n_rows, Q cell,
-            Q radius, const Out<Q>& o, cudaStream_t stream) {
+            Q radius, const eg3d::Out<Q>& o, cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (n_q + threads - 1) / threads;
   if (Kc == 8) {
@@ -253,7 +158,7 @@ void launch(const float* grids, int V, int GH, int GW, int Kc,
 template <class Q>
 int grid_topm(const float* grids, int V, int GH, int GW, int Kc,
               const int* view, const Q* pts, int n_q, Q cell, Q radius,
-              int M, int n_rows, const Out<Q>& o, cudaStream_t s) {
+              int M, int n_rows, const eg3d::Out<Q>& o, cudaStream_t s) {
   if (n_rows < 0 || (n_rows > 0 && (int64_t)n_rows * V != n_q))
     return (int)cudaErrorInvalidValue;
 #define EG3D_LAUNCH(m) \
@@ -281,7 +186,8 @@ extern "C" int eg3d_grid_topm(const float* grids, int V, int GH, int GW,
                               float* xy, float* dist, uint8_t* valid,
                               void* stream) {
   return grid_topm<float>(grids, V, GH, GW, Kc, view, pts, Q, cell, radius,
-                          M, n_rows, Out<float>{pl, seg, t, xy, dist, valid},
+                          M, n_rows,
+                          eg3d::Out<float>{pl, seg, t, xy, dist, valid},
                           (cudaStream_t)stream);
 }
 
@@ -294,6 +200,6 @@ extern "C" int eg3d_grid_topm_f64(const float* grids, int V, int GH, int GW,
                                   void* stream) {
   return grid_topm<double>(grids, V, GH, GW, Kc, view, pts, Q, cell, radius,
                            M, n_rows,
-                           Out<double>{pl, seg, t, xy, dist, valid},
+                           eg3d::Out<double>{pl, seg, t, xy, dist, valid},
                            (cudaStream_t)stream);
 }

@@ -79,10 +79,11 @@ _SIGNATURES = {
     "eg3d_grid_topm": [_P, _I, _I, _I, _I, _P, _P, _I, _F, _F, _I, _I,
                        _P, _P, _P, _P, _P, _P, _P],
     # grids, V, GH, GW, Kc, view, pts, lines, radius, order (nullable),
-    # Q, cell, M, one_thread, use_excl, excl_cos, pl, seg, t, xy, dist, valid,
-    # stream
-    "eg3d_epipolar_topm": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _F,
-                           _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P],
+    # n_rows, tile_rows, Q, cell, M, body, min_share, use_excl, excl_cos,
+    # pl, seg, t, xy, dist, valid, stream
+    "eg3d_epipolar_topm": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _F, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P,
+                           _P, _P],
     # P_mats, V, cams, xy, mask, N, O, X0 (nullable), max_iters,
     # epsilon, accept_mse, det_min, place, X, mse, valid, stream
     "eg3d_triangulate_gn": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _F, _F, _F,

@@ -9,9 +9,11 @@ Port of edgegraph3d_tpu/matching/detection.py.  Two hand kernels:
   * K2 `epipolar_topm_query` (csrc/epipolar_topm.cu) — crossings of each
     query's epipolar line with the segments of the 5x5 cells around its
     observation, within a per-query radius, top-M distinct polylines
-    (detect_epipolar_correspondences).  A group of 8 lanes serves one
-    query, and the queries are visited in a stable view-major order
-    computed on the device (`_view_major_order`).
+    (detect_epipolar_correspondences).  A warp takes 32 consecutive
+    queries of a visiting order in which queries that read the same
+    5x5 neighbourhood sit side by side (`k2_plan`), stages each
+    neighbourhood its queries share once in shared memory, and every
+    query tests the staged entries; each query's row is written whole.
 
 Both take a whole [V, GH, GW, K, 6] grid stack plus a per-query view
 index, so one launch serves every view.  The plain-torch twins
@@ -208,28 +210,57 @@ def grid_topm_query(grids: torch.Tensor, view: torch.Tensor,
     return out
 
 
-def _view_major_order(view, V: int):
-    """[Q] int32: the queries in a stable order by view, computed on the
-    device.  It only schedules K2's reads; every result is written at
-    its query's own index.  (Ordering by grid cell within a view as well
-    measured no faster on the H100, and its wider sort key costs three
-    times the sort; PERF.md.)"""
-    key = view.to(torch.int16 if V <= 2 ** 15 else torch.int32)
-    return torch.argsort(key, stable=True).to(torch.int32)
+#: K2's shared body stages a neighbourhood for a group of at least this
+#: many of a warp's 32 queries; smaller groups read their cells alone
+K2_MIN_SHARE = 2
+#: the C entry's `body` of the shared-neighbourhood body
+K2_SHARED_BODY = 0
+#: rows of every view that K2 visits view-major at a time when the
+#: queries are rows of every view (`view_cycle`): the tile's outputs stay
+#: in L2 until their rows are whole (128 to 4,096 rows measured within
+#: 10% of each other, 128 fastest, on an H100; PERF.md)
+K2_TILE_ROWS = 128
+
+
+def k2_plan(grids, view, pts, cell: float, view_cycle: bool):
+    """K2's visiting order as (order or None, n_rows).  With `view_cycle`
+    (the queries are N rows of every view: view = arange(V).repeat(N))
+    the kernel visits them by arithmetic (n_rows = N, no order), in tiles
+    of K2_TILE_ROWS rows, view-major within a tile: consecutive queries
+    are then consecutive rows on one view, and the seeding's rows of one
+    refpoint share an observation there.
+    Else `order` is a stable device sort of the queries by neighbourhood
+    key (view, cell row, cell column).  The order only schedules the
+    kernel's work: each query reads its own inputs and writes its own
+    row, and the kernel groups queries by the cells it computes itself,
+    so a key that differs from the kernel's cell (a NaN point) costs
+    sharing, never a result."""
+    V, GH, GW = grids.shape[:3]
+    Q = view.shape[0]
+    if view_cycle and Q % V == 0:
+        return None, Q // V
+    c = torch.nan_to_num(pts / cell, nan=0.0).clamp(-1e9, 1e9).trunc()
+    key = (view.long() * GH + c[:, 1].long().clamp(0, GH - 1)) * GW \
+        + c[:, 0].long().clamp(0, GW - 1)
+    if V * GH * GW <= 2 ** 31:
+        key = key.to(torch.int32)
+    return torch.argsort(key, stable=True).to(torch.int32), 0
 
 
 def epipolar_topm_query(grids: torch.Tensor, view: torch.Tensor,
                         pts: torch.Tensor, lines: torch.Tensor,
                         radius: torch.Tensor, cell: float, M: int,
-                        exclude_parallel_cos: float | None = None
-                        ) -> Candidates:
+                        exclude_parallel_cos: float | None = None,
+                        view_cycle: bool = False) -> Candidates:
     """Kernel K2.  grids [V,GH,GW,K,6] f32, view [Q] i32, pts [Q,2]
     observations, lines [Q,3] normalized epipolar lines, radius [Q] ->
     top-M distinct polylines crossing the line within the radius.  The
     outputs take the promoted type of lines, pts and radius: f32, or f64
     with f64 lines (pts f32 or f64; the radius is widened to f64, where
     the reference's comparison promotes it); f32 lines with f64 points
-    have no instantiation and raise."""
+    have no instantiation and raise.  `view_cycle` says that the queries
+    are rows of every view in order (view = arange(V).repeat(N)), which
+    changes only the kernel's visiting order (`k2_plan`)."""
     if pts.device.type == "cpu":
         return _epipolar_topm_plain(grids, view, pts, lines, radius, cell,
                                     M, exclude_parallel_cos)
@@ -248,7 +279,7 @@ def epipolar_topm_query(grids: torch.Tensor, view: torch.Tensor,
     if Q == 0:
         return out
     use = exclude_parallel_cos is not None
-    order = _view_major_order(view, V)
+    order, n_rows = k2_plan(grids, view, pts, cell, view_cycle)
     lib = kernels.lib()
     pts_arg = (pts.data_ptr(),) if dt == torch.float32 else \
         (pts.data_ptr(), int(pts.dtype == torch.float64))
@@ -257,8 +288,9 @@ def epipolar_topm_query(grids: torch.Tensor, view: torch.Tensor,
     with kernels.on_device(pts):
         rc = entry(
             grids.data_ptr(), V, GH, GW, K, view.data_ptr(), *pts_arg,
-            lines.data_ptr(), radius.data_ptr(), order.data_ptr(), Q,
-            float(cell), M, 0, int(use),
+            lines.data_ptr(), radius.data_ptr(), kernels.ptr(order),
+            n_rows, K2_TILE_ROWS, Q, float(cell), M, K2_SHARED_BODY,
+            K2_MIN_SHARE, int(use),
             float(exclude_parallel_cos) if use else 0.0, *_out_ptrs(out),
             kernels.stream_of(pts))
     kernels.check(rc, "epipolar_topm_query")

@@ -307,7 +307,8 @@ def _seed_from_starts_steps(ctx: MatchingContext, starts: dict, obs_xy,
     view = torch.arange(V, dtype=torch.int32, device=dev).repeat(K)
     corr = epipolar_topm_query(
         ctx.grids, view, obs_xy[ridx].reshape(K * V, 2),
-        lines.reshape(K * V, 3), radius.repeat_interleave(V), ctx.cell, M)
+        lines.reshape(K * V, 3), radius.repeat_interleave(V), ctx.cell, M,
+        view_cycle=True)
     c_pl = corr.pl_id.reshape(K, V, M)
     c_seg = corr.seg.reshape(K, V, M)
     c_t = corr.t.reshape(K, V, M)

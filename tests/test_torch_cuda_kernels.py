@@ -154,6 +154,20 @@ def test_epipolar_topm_kernel_matches_plain(scene, exclude):
     torch.cuda.synchronize()
     assert ref.valid.any()
     _assert_same_candidates(got, ref)
+    # the seeding's layout, visited view-major (long runs of one
+    # neighbourhood), and the same queries shuffled (the sorted plan)
+    a = _k2_seeding_queries(rng, ctx.grids, ctx.cell, torch.float32)
+    ref = detection._epipolar_topm_plain(*a, ctx.cell, 4, exclude)
+    perm = torch.as_tensor(rng.permutation(len(a[1])), device=ctx.device)
+    got = detection.epipolar_topm_query(*a, ctx.cell, 4, exclude,
+                                        view_cycle=True)
+    got_s = detection.epipolar_topm_query(
+        ctx.grids, *(t[perm] for t in a[1:]), ctx.cell, 4, exclude)
+    torch.cuda.synchronize()
+    assert ref.valid.any()
+    _assert_same_candidates(got, ref)
+    _assert_same_candidates(got_s, detection.Candidates(*(t[perm]
+                                                          for t in ref)))
 
 
 def _gn_problem(sfmd, P, N, O, rng, mask_p=0.85):
@@ -760,42 +774,91 @@ def test_expand_chains_smem_bytes(cuda, dtype, pairs):
                 expansion.k7_table_bytes(V, epi, dtype, pairs)
 
 
-def _k2_one_thread(grids, view, pts, lines, radius, cell, M,
-                   exclude_parallel_cos=None):
-    """K2's one-thread-per-query body (the one K7's "epipolar" mode runs),
-    launched through the C entry as the wrapper launches its 8-lane body:
-    the same view-major order and outputs."""
-    grids, view, pts, lines, radius = (
-        t.contiguous() for t in (grids, view, pts, lines, radius))
+#: K2's bodies by the C entry's `body`: the shared-neighbourhood body
+#: (the wrapper's) and one thread a query (K7's)
+K2_BODIES = {"shared": 0, "one thread": 1}
+
+
+def _k2_launch(args, body, view_cycle=False, exclude=None,
+               min_share=detection.K2_MIN_SHARE,
+               tile_rows=detection.K2_TILE_ROWS):
+    """K2's C entry with `body` on the wrapper's plan (detection.k2_plan;
+    view-major tiles of `tile_rows` rows with `view_cycle`), into fresh
+    outputs, as the wrapper launches its own body."""
+    grids, view, pts, lines, radius, cell, M = (
+        t.contiguous() if torch.is_tensor(t) else t for t in args)
     V, GH, GW, Kc, _ = grids.shape
     Q = len(view)
-    out = detection._empty_outputs(Q, M, pts.device)
-    if Q == 0:
-        return out
-    use = exclude_parallel_cos is not None
-    order = detection._view_major_order(view, V)
-    rc = kernels.lib().eg3d_epipolar_topm(
-        grids.data_ptr(), V, GH, GW, Kc, view.data_ptr(), pts.data_ptr(),
-        lines.data_ptr(), radius.data_ptr(), order.data_ptr(), Q,
-        float(cell), M, 1, int(use),
-        float(exclude_parallel_cos) if use else 0.0,
-        *detection._out_ptrs(out), kernels.stream_of(pts))
+    dt = lines.dtype
+    radius = radius.to(dt)
+    out = detection._empty_outputs(Q, M, pts.device, dt)
+    order, n_rows = detection.k2_plan(grids, view, pts, cell, view_cycle)
+    use = exclude is not None
+    lib = kernels.lib()
+    entry, pts_arg = (lib.eg3d_epipolar_topm, (pts.data_ptr(),)) \
+        if dt == torch.float32 else (lib.eg3d_epipolar_topm_f64, (
+            pts.data_ptr(), int(pts.dtype == torch.float64)))
+    rc = entry(grids.data_ptr(), V, GH, GW, Kc, view.data_ptr(), *pts_arg,
+               lines.data_ptr(), radius.data_ptr(), kernels.ptr(order),
+               n_rows, tile_rows, Q, float(cell), M, K2_BODIES[body],
+               min_share,
+               int(use), float(exclude) if use else 0.0,
+               *detection._out_ptrs(out), kernels.stream_of(pts))
     kernels.check(rc, "epipolar_topm_query")
     return out
+
+
+def _k2_one_thread(grids, view, pts, lines, radius, cell, M,
+                   exclude_parallel_cos=None):
+    """K2's one-thread-per-query body (the one K7's "epipolar" mode runs)
+    in place of the wrapper, with the wrapper's signature."""
+    return _k2_launch((grids, view, pts, lines, radius, cell, M),
+                      "one thread", exclude=exclude_parallel_cos)
+
+
+def _k2_seeding_queries(rng, grids, cell, dtype, pts_dtype=torch.float32):
+    """Queries laid out as the seeding lays them (view, pts, lines,
+    radius): starts of refpoints x every view, start-major, every start of
+    a refpoint carrying the refpoint's point on each view.  Refpoints with
+    1 start (one-query runs) up to 150 (runs longer than several warps'
+    tasks); points at the image border, beyond it and at (0, 0) (a view
+    that does not observe the refpoint)."""
+    V, GH, GW = grids.shape[:3]
+    W, H = GW * cell, GH * cell
+    n = np.array([1, 1, 2, 31, 33, 1, 64, 129, 150, 5, 1, 40, 3, 97])
+    R, K = len(n), int(n.sum())
+    rp = np.stack([rng.uniform(-8, W + 8, (R, V)),
+                   rng.uniform(-8, H + 8, (R, V))], -1)
+    rp[0, :3] = [[0, 0], [W - 0.1, H - 0.1], [-4, H / 2]]
+    rp[rng.random((R, V)) < 0.2] = 0.0
+    ridx = np.repeat(np.arange(R), n)
+    pts = rp[ridx].reshape(K * V, 2)
+    ang = rng.uniform(0, np.pi, K * V)
+    ab = np.stack([np.cos(ang), np.sin(ang)], 1)
+    c = -(ab * pts).sum(1) + rng.normal(0, 4.0, K * V)
+    lines = np.concatenate([ab, c[:, None]], 1)
+    radius = np.repeat(rng.uniform(3.0, 30.0, K), V)
+    dev = grids.device
+    return (grids,
+            torch.arange(V, dtype=torch.int32, device=dev).repeat(K),
+            torch.as_tensor(pts, dtype=pts_dtype, device=dev),
+            torch.as_tensor(lines, dtype=dtype, device=dev),
+            torch.as_tensor(radius, dtype=torch.float32, device=dev))
 
 
 def test_expand_chains_epipolar_under_both_k2_bodies(scene, chains,
                                                      monkeypatch):
     """K7's "epipolar" mode runs K2's one-thread body per point; its
     plain version calls the K2 wrapper.  K7 equals the plain version with
-    K2 in its 8-lane body (the wrapper) and in its one-thread body."""
+    K2 in its shared-neighbourhood body (the wrapper) and in its
+    one-thread body."""
     _, ctx = scene
     C, T, extent, tensors = chains
     cfg = ctx.config.replace(expand_correspondence_mode="epipolar")
     args = (ctx.plg_coords, ctx.grids, ctx.P_mats, ctx.F_table, ctx.cell,
             *tensors, cfg, C, T)
     got = expansion.expand_chains_compact(*args, extent)
-    for body in ("8 lanes", "one thread"):
+    for body in ("shared", "one thread"):
         if body == "one thread":
             monkeypatch.setattr(expansion, "epipolar_topm_query",
                                 _k2_one_thread)
@@ -821,52 +884,64 @@ def _tie_grid(rng, V, GH, GW, Kc=8):
     return e.reshape(V, GH, GW, Kc, 6)
 
 
+@pytest.mark.parametrize("exclude", [None, 0.965])
 @pytest.mark.parametrize("ties", [False, True])
 @pytest.mark.parametrize("M", [1, 4, 8])
-def test_epipolar_topm_bodies_and_orders(scene, M, ties):
-    """K2's 8-lane body (the wrapper) and its one-thread body, on queries
-    given start-major (every view of one start side by side, as the
-    seeding issues them) and shuffled, with border queries (clamped
-    cells) and, on a lattice grid, forced distance ties: identical to the
-    plain version."""
+def test_epipolar_topm_bodies_and_orders(scene, M, ties, exclude):
+    """Both bodies of K2 (the shared-neighbourhood body, the wrapper's, at
+    several `min_share`: always staged, the wrapper's, never staged; one
+    thread a query) on the seeding's layout (runs of one neighbourhood
+    from 1 query to longer than several warps, (0, 0) and border points)
+    visited view-major (in tiles of 1, 7 and the wrapper's rows, and in
+    one tile), and on queries with a point each (one-query runs), each
+    also shuffled (the sorted plan), with forced distance ties on a
+    lattice grid: identical to the plain version."""
     _, ctx = scene
-    rng = np.random.default_rng(20 + M + ties)
+    rng = np.random.default_rng(20 + M + 10 * ties)
     grids = ctx.grids
     if ties:
         V, GH, GW, _, _ = grids.shape
         grids = torch.as_tensor(_tie_grid(rng, V, GH, GW), device=ctx.device)
     V, GH, GW = grids.shape[:3]
     W, H = GW * ctx.cell, GH * ctx.cell
-    S = 600
+    a = _k2_seeding_queries(rng, grids, ctx.cell, torch.float32)
+    S = 600                                 # a point a query
     starts = np.stack([rng.uniform(-8, W + 8, S),
                        rng.uniform(-8, H + 8, S)], 1)
-    starts[:6] = [[0, 0], [W - 0.1, H - 0.1], [-4, H / 2], [W + 3, 5],
-                  [W / 2, -6], [0.5, H + 2]]
     pts = np.repeat(starts, V, 0) + rng.normal(0, 3.0, (S * V, 2))
     if ties:
         pts = np.round(pts) + 0.5
-    view = np.tile(np.arange(V), S).astype(np.int32)
     ang = rng.choice([0.0, np.pi / 2], S * V) if ties else \
         rng.uniform(0, np.pi, S * V)
     ab = np.stack([np.cos(ang), np.sin(ang)], 1).round(6)
     c = -(ab * pts).sum(1) + rng.integers(-3, 4, S * V)
-    lines = np.concatenate([ab, c[:, None]], 1).astype(np.float32)
-    radius = rng.uniform(3.0, 30.0, S * V).astype(np.float32)
-    dev = ctx.device
-    as_t = lambda a: torch.as_tensor(a, device=dev)
-    a = (grids, as_t(view), as_t(pts.astype(np.float32)), as_t(lines),
-         as_t(radius), ctx.cell, M)
-    ref = detection._epipolar_topm_plain(*a)
-    perm = as_t(rng.permutation(S * V))
-    shuffled = (grids, *(t[perm] for t in a[1:5]), ctx.cell, M)
-    for body in (detection.epipolar_topm_query, _k2_one_thread):
-        got = body(*a)
-        got_s = body(*shuffled)
-        torch.cuda.synchronize()
-        for x, y, z in zip(got, ref, got_s):
-            assert torch.equal(x, y), body.__name__
-            assert torch.equal(z, y[perm]), body.__name__
-    assert ref.valid.any()
+    as_t = lambda x: torch.as_tensor(x, device=ctx.device)
+    scattered = (grids, as_t(np.tile(np.arange(V), S).astype(np.int32)),
+                 as_t(pts.astype(np.float32)),
+                 as_t(np.concatenate([ab, c[:, None]], 1).astype(np.float32)),
+                 as_t(rng.uniform(3.0, 30.0, S * V).astype(np.float32)))
+    for layout in (a, scattered):
+        ref = detection._epipolar_topm_plain(*layout, ctx.cell, M, exclude)
+        perm = as_t(rng.permutation(len(layout[1])))
+        shuffled = (grids, *(t[perm] for t in layout[1:]))
+        ref_s = detection.Candidates(*(t[perm] for t in ref))
+        runs = [(layout, True, ref), (shuffled, False, ref_s)]
+        for args, cyc, want in runs:
+            got = detection.epipolar_topm_query(*args, ctx.cell, M, exclude,
+                                                view_cycle=cyc)
+            ms2, tr = detection.K2_MIN_SHARE, detection.K2_TILE_ROWS
+            bodies = [(b, ms2, tr) for b in K2_BODIES] + [
+                ("shared", 1, tr), ("shared", 33, tr), ("shared", ms2, 0),
+                ("shared", ms2, 1), ("shared", ms2, 7)]
+            outs = [_k2_launch((*args, ctx.cell, M), b, cyc, exclude, ms, t)
+                    for b, ms, t in bodies]
+            torch.cuda.synchronize()
+            for x, y in zip(got, want):
+                assert torch.equal(x, y)
+            for (b, ms, t), out in zip(bodies, outs):
+                for x, y in zip(out, want):
+                    assert torch.equal(x, y), (b, ms, t, cyc)
+        assert ref.valid.any()
 
 
 def test_group_seeds_on_gpu_match_cpu(scene, groups):
@@ -1412,6 +1487,28 @@ def test_f64_epipolar_topm_kernel_matches_plain(scene64, exclude, pts64):
     torch.cuda.synchronize()
     assert ref.valid.any()
     _assert_same_candidates64(got, ref)
+    # the seeding's layout visited view-major and shuffled (the sorted
+    # plan), through the wrapper and every body, each identical to the
+    # wrapper's view-major result
+    a = _k2_seeding_queries(rng, ctx.grids, ctx.cell, torch.float64,
+                            torch.float64 if pts64 else torch.float32)
+    ref = detection._epipolar_topm_plain(*a, ctx.cell, 4, exclude)
+    got = detection.epipolar_topm_query(*a, ctx.cell, 4, exclude,
+                                        view_cycle=True)
+    perm = torch.as_tensor(rng.permutation(len(a[1])), device=ctx.device)
+    shuffled = (ctx.grids, *(t[perm] for t in a[1:]))
+    want_s = detection.Candidates(*(t[perm] for t in got))
+    runs = [(a, True, got), (shuffled, False, want_s)]
+    outs = [(_k2_launch((*args, ctx.cell, 4), b, cyc, exclude), want, b)
+            for args, cyc, want in runs for b in K2_BODIES]
+    outs.append((detection.epipolar_topm_query(*shuffled, ctx.cell, 4,
+                                               exclude), want_s, "wrapper"))
+    torch.cuda.synchronize()
+    assert ref.valid.any()
+    _assert_same_candidates64(got, ref)
+    for out, want, b in outs:
+        for x, y in zip(out, want):
+            assert torch.equal(x, y), b
 
 
 @pytest.mark.parametrize("O,warm,V_big", [(3, False, 0), (3, True, 0),
