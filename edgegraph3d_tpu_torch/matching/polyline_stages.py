@@ -24,7 +24,6 @@ come out in the JAX order whatever the group chunk: chunk by chunk, then
 
 from __future__ import annotations
 
-import time
 import weakref
 
 import numpy as np
@@ -41,6 +40,7 @@ from edgegraph3d_tpu_torch.ops import polyline_ops as po
 from edgegraph3d_tpu_torch.ops.gather import gather_rows
 from edgegraph3d_tpu_torch.ops.geometry import epipolar_line_fma
 from edgegraph3d_tpu_torch.ops.triangulation import triangulate_gn
+from edgegraph3d_tpu_torch.pipeline import PipelineStats
 
 #: polyline_line_intersections' own defaults, which the JAX sweep uses
 #: (not the config's quasi-parallel knobs)
@@ -249,48 +249,46 @@ def similarity_graph(sfmd: SfMData, ctx: rp.MatchingContext, stats=None,
     The edges come from the host path when `host`, else from the matmul
     path on the context's device; by default a CUDA context takes the
     matmul path and a CPU context the host path (as the JAX package picks
-    by backend).  With `stats` the sub-phases are logged as stage1_close
-    / stage1_graph."""
+    by backend).  The sub-phases are the spans stage1_close /
+    stage1_graph of `stats` (a PipelineStats)."""
     cfg = ctx.config
-    t0 = time.time()
-    obs_xy, obs_mask = rp.dense_observations(sfmd)
-    M = cfg.similarity_close_cap
-    cand = _close_polylines_cached(sfmd, ctx, M, cfg.find_within_dist_px)
-    valid = np.asarray(cand.valid) & obs_mask[..., None]   # [N,V,M]
-    pl = np.asarray(cand.pl_id)
-    if stats is not None:
-        stats.log("stage1_close", t0)
-    t0 = time.time()
+    stats = stats if stats is not None else PipelineStats()
+    with stats.span("stage1_close"):
+        obs_xy, obs_mask = rp.dense_observations(sfmd)
+        M = cfg.similarity_close_cap
+        cand = _close_polylines_cached(sfmd, ctx, M, cfg.find_within_dist_px)
+        valid = np.asarray(cand.valid) & obs_mask[..., None]   # [N,V,M]
+        pl = np.asarray(cand.pl_id)
 
-    N, V = obs_mask.shape
-    P_cnt = ctx.plg_coords.shape[1]
-    node = np.where(valid, np.arange(V)[None, :, None] * P_cnt + pl, -1)
+    with stats.span("stage1_graph") as sp:
+        N, V = obs_mask.shape
+        P_cnt = ctx.plg_coords.shape[1]
+        node = np.where(valid, np.arange(V)[None, :, None] * P_cnt + pl, -1)
 
-    # refpoint weights (compute_refpoint_weight)
-    n_close = valid.sum(axis=(1, 2)).astype(np.float64)       # [N]
-    n_views = np.any(valid, axis=2).sum(axis=1).astype(np.float64)
-    w_ref = np.where(n_close > 0, n_views / np.maximum(n_close, 1), 0.0)
+        # refpoint weights (compute_refpoint_weight)
+        n_close = valid.sum(axis=(1, 2)).astype(np.float64)       # [N]
+        n_views = np.any(valid, axis=2).sum(axis=1).astype(np.float64)
+        w_ref = np.where(n_close > 0, n_views / np.maximum(n_close, 1), 0.0)
 
-    # dense reindex of the used (view, polyline) pairs
-    used = np.unique(node[valid])
-    if len(used) == 0:
-        return None
-    nn, vv, mm = np.nonzero(valid)
-    u_idx = np.searchsorted(used, node[nn, vv, mm])
+        # dense reindex of the used (view, polyline) pairs
+        used = np.unique(node[valid])
+        if len(used) == 0:
+            return None
+        nn, vv, mm = np.nonzero(valid)
+        u_idx = np.searchsorted(used, node[nn, vv, mm])
 
-    if host is None:
-        host = not ctx.on_cuda
-    if not host:
-        res = _similarity_edges_device(
-            nn, u_idx, w_ref, obs_mask, (used // P_cnt).astype(np.int64),
-            ctx.device)
-    else:
-        res = _similarity_edges_host(node, valid, w_ref, obs_mask, used,
-                                     nn, vv, mm, u_idx, V, P_cnt)
-    if res is None or len(res[0]) == 0:
-        return None
-    if stats is not None:
-        stats.log("stage1_graph", t0, len(res[0]))
+        if host is None:
+            host = not ctx.on_cuda
+        if not host:
+            res = _similarity_edges_device(
+                nn, u_idx, w_ref, obs_mask, (used // P_cnt).astype(np.int64),
+                ctx.device)
+        else:
+            res = _similarity_edges_host(node, valid, w_ref, obs_mask, used,
+                                         nn, vv, mm, u_idx, V, P_cnt)
+        if res is None or len(res[0]) == 0:
+            return None
+        sp.count = len(res[0])
     return used, res[0], res[1]
 
 
@@ -299,18 +297,18 @@ def similarity_match_sets(sfmd: SfMData, ctx: rp.MatchingContext,
                           stats=None) -> list[np.ndarray]:
     """Polyline-compatibility communities of the similarity graph, as
     [k, 2] (view, polyline) arrays with >= 3 distinct views, largest
-    first.  With `stats` the sub-phases are logged as stage1_close /
-    graph / communities."""
+    first.  The sub-phases are the spans stage1_close / graph /
+    communities of `stats` (a PipelineStats)."""
+    stats = stats if stats is not None else PipelineStats()
     graph = similarity_graph(sfmd, ctx, stats)
     if graph is None:
         return []
     used, edges, weights = graph
-    t0 = time.time()
-    comms = comm_mod.communities_from_edges(
-        edges, weights, len(used), min_size=3,
-        method=ctx.config.community_method, device=ctx.device)
-    if stats is not None:
-        stats.log("stage1_communities", t0, len(comms))
+    with stats.span("stage1_communities") as sp:
+        comms = comm_mod.communities_from_edges(
+            edges, weights, len(used), min_size=3,
+            method=ctx.config.community_method, device=ctx.device)
+        sp.count = len(comms)
     return communities_to_match_sets(used, comms, ctx.plg_coords.shape[1],
                                      max_sets)
 

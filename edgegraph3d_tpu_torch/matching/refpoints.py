@@ -745,53 +745,72 @@ def sweep_seeds(seeds_np: dict | None, seed_ref: np.ndarray | None,
             np.concatenate(all_seed), np.concatenate(all_order))
 
 
+def _stats(stats):
+    """`stats`, or a PipelineStats of its own where the caller keeps none
+    (imported here: pipeline.py imports this module)."""
+    from edgegraph3d_tpu_torch.pipeline import PipelineStats
+    return stats if stats is not None else PipelineStats()
+
+
 def chain_chunks(ctx: MatchingContext, X, obs3, cams3, seed_ids, orders,
-                 chain_t: int = 64, chain_chunk: int | None = None):
+                 chain_t: int = 64, chain_chunk: int | None = None,
+                 stats=None):
     """The swept chains as expand_chains_compact takes them, chunk by
     chunk: yields (rows, args, extent), `rows` the flat points of the
     chunk in slot order.  Chains are sorted by length (results are per
     chain, so the order changes no output).  On the card one chunk holds
     every chain by default, so that K7's launch plan runs the long chains
-    beside the short ones; on the CPU chunks of 256 chains."""
+    beside the short ones; on the CPU chunks of 256 chains.  The grouping
+    is the span group_chains of `stats` (a PipelineStats), the host's
+    staging and upload of the chunks expansion_copies."""
     from edgegraph3d_tpu_torch.matching import expansion
 
     dev = ctx.device
-    gather, vld = expansion.group_chains(seed_ids, orders, max_t=chain_t)
+    stats = _stats(stats)
+    with stats.span("group_chains"):
+        gather, vld = expansion.group_chains(seed_ids, orders, max_t=chain_t)
     extent = vld.sum(1)
     by_len = np.argsort(extent, kind="stable")
     gather, vld, extent = gather[by_len], vld[by_len], extent[by_len]
-    # f32, as the JAX package hands them to expansion in either dtype
-    # (expansion promotes them to the cameras' type)
-    X32 = np.asarray(X, np.float32)
-    obs3_32 = np.asarray(obs3, np.float32)
+    with stats.span("expansion_copies"):
+        # f32, as the JAX package hands them to expansion in either dtype
+        # (expansion promotes them to the cameras' type)
+        X32 = np.asarray(X, np.float32)
+        obs3_32 = np.asarray(obs3, np.float32)
     if chain_chunk is None:
         chain_chunk = max(len(gather), 1) if ctx.on_cuda else 256
     for lo in range(0, len(gather), chain_chunk):
-        hi = min(lo + chain_chunk, len(gather))
-        gi = gather[lo:hi]
-        vl = vld[lo:hi]
-        kidx = np.flatnonzero(vl.reshape(-1))
-        rows = gi.reshape(-1)[kidx]
-        yield rows, (
-            ctx.plg_coords, ctx.grids, ctx.P_mats, ctx.F_table, ctx.cell,
-            torch.as_tensor(X32[rows], device=dev),
-            torch.as_tensor(obs3_32[rows], device=dev),
-            torch.as_tensor(cams3[gi[:, 0]].astype(np.int32), device=dev),
-            torch.as_tensor((kidx // chain_t).astype(np.int64), device=dev),
-            torch.as_tensor((kidx % chain_t).astype(np.int64), device=dev),
-            torch.ones(len(kidx), dtype=torch.bool, device=dev),
-            torch.as_tensor(vl, device=dev), ctx.config, hi - lo,
-            chain_t), extent[lo:hi]
+        with stats.span("expansion_copies"):
+            hi = min(lo + chain_chunk, len(gather))
+            gi = gather[lo:hi]
+            vl = vld[lo:hi]
+            kidx = np.flatnonzero(vl.reshape(-1))
+            rows = gi.reshape(-1)[kidx]
+            args = (
+                ctx.plg_coords, ctx.grids, ctx.P_mats, ctx.F_table, ctx.cell,
+                torch.as_tensor(X32[rows], device=dev),
+                torch.as_tensor(obs3_32[rows], device=dev),
+                torch.as_tensor(cams3[gi[:, 0]].astype(np.int32), device=dev),
+                torch.as_tensor((kidx // chain_t).astype(np.int64),
+                                device=dev),
+                torch.as_tensor((kidx % chain_t).astype(np.int64),
+                                device=dev),
+                torch.ones(len(kidx), dtype=torch.bool, device=dev),
+                torch.as_tensor(vl, device=dev), ctx.config, hi - lo,
+                chain_t)
+        yield rows, args, extent[lo:hi]
 
 
 def expand_and_assemble(ctx: MatchingContext, X, obs3, cams3, refs,
                         seed_ids, orders, chain_t: int = 64,
-                        chain_chunk: int | None = None) -> EdgePoints:
+                        chain_chunk: int | None = None,
+                        stats=None) -> EdgePoints:
     """Chain-aware expansion of every swept chain to all other views
     with GN re-validation (matching/expansion.py), then EdgePoints
     assembly.  Point coordinates take the per-view re-refined values.
     On a mesh each chunk's chains are sharded over it
-    (sharded_expand_compact)."""
+    (sharded_expand_compact).  The chunks' read-backs, the host's wait
+    on K7 included, join the span expansion_copies of `stats`."""
     from edgegraph3d_tpu_torch.matching import expansion
     from edgegraph3d_tpu_torch.parallel import sharded
 
@@ -799,20 +818,23 @@ def expand_and_assemble(ctx: MatchingContext, X, obs3, cams3, refs,
     Np = len(X)
     if Np == 0:
         return _empty_points(V)
+    stats = _stats(stats)
     obs_xy = np.zeros((Np, V, 2), dtype=np.float32)
     obs_mask = np.zeros((Np, V), dtype=bool)
     X_out = np.asarray(X, np.float64).copy()
     for rows, args, extent in chain_chunks(ctx, X, obs3, cams3, seed_ids,
-                                           orders, chain_t, chain_chunk):
+                                           orders, chain_t, chain_chunk,
+                                           stats):
         if ctx.mesh is None:
             Xr, oxy, ook = expansion.expand_chains_compact(*args,
                                                            extent=extent)
         else:
             Xr, oxy, ook = sharded.sharded_expand_compact(ctx, *args[5:],
                                                           extent=extent)
-        X_out[rows] = Xr.cpu().numpy()
-        obs_xy[rows] = oxy.cpu().numpy()
-        obs_mask[rows] = ook.cpu().numpy()
+        with stats.span("expansion_copies"):
+            X_out[rows] = Xr.cpu().numpy()
+            obs_xy[rows] = oxy.cpu().numpy()
+            obs_mask[rows] = ook.cpu().numpy()
     return EdgePoints(X=X_out, obs_xy=obs_xy, obs_mask=obs_mask,
                       seed_refpoint=refs, seed_id=seed_ids,
                       chain_order=orders)
@@ -924,15 +946,6 @@ def extend_chains(ctx: MatchingContext, pts: EdgePoints,
 
 def _extend_once(ctx: MatchingContext, pts: EdgePoints, manager,
                  stats=None, end_chunk: int | None = None):
-    import time as _time
-
-    def _log(name, t0, count=None):
-        if stats is not None:
-            stats.timings[name] = stats.timings.get(name, 0.0) \
-                + (_time.time() - t0)
-            if count is not None:
-                stats.counts[name] = stats.counts.get(name, 0) + count
-
     cfg = ctx.config
     dev = ctx.device
     n = len(pts.X)
@@ -952,95 +965,99 @@ def _extend_once(ctx: MatchingContext, pts: EdgePoints, manager,
         return None
     e = np.asarray(ends, np.int64)
     E = len(e)
-    _t0 = _time.time()
+    stats = _stats(stats)
+    with stats.span("ext_locate_follow", E):
+        m = pts.obs_mask[e[:, 0]] & pts.obs_mask[e[:, 1]]   # [E,V]
+        X_end = pts.X[e[:, 0]]
+        X_prev = pts.X[e[:, 1]]
+        away_dir = X_end - X_prev                            # [E,3]
+        end_xy = pts.obs_xy[e[:, 0]]
 
-    m = pts.obs_mask[e[:, 0]] & pts.obs_mask[e[:, 1]]       # [E,V]
-    X_end = pts.X[e[:, 0]]
-    X_prev = pts.X[e[:, 1]]
-    away_dir = X_end - X_prev                                # [E,3]
-    end_xy = pts.obs_xy[e[:, 0]]
-
-    if end_chunk is None:
-        end_chunk = 16384 if ctx.on_cuda else 4096
-    fdt = ctx.plg_coords.dtype
-    rows_l, meta_l, tv_l, loc_l = [], [], [], []
-    for lo in range(0, E, end_chunk):
-        hi = min(lo + end_chunk, E)
-        geo = lambda a: torch.as_tensor(a[lo:hi], device=dev).to(fdt)
-        rows_d, meta_d, tv_d, loc_d = _extension_locate_follow(
-            ctx, geo(X_end), geo(X_prev), geo(end_xy),
-            torch.as_tensor(m[lo:hi], device=dev), cfg)
-        rows_c = rows_d.cpu().numpy()
-        if len(rows_c):
-            rows_c[:, 9] += lo            # seed idx -> global end idx
-            rows_l.append(rows_c)
-        meta_l.append(meta_d.cpu().numpy())
-        tv_l.append(tv_d.cpu().numpy())
-        loc_l.append(loc_d.cpu().numpy())
-    meta = np.concatenate(meta_l)
-    tv = np.concatenate(tv_l).astype(np.int32)
-    loc = np.concatenate(loc_l)
-    _log("ext_locate_follow", _t0, E)
-    _t0 = _time.time()
+        if end_chunk is None:
+            end_chunk = 16384 if ctx.on_cuda else 4096
+        fdt = ctx.plg_coords.dtype
+        rows_l, meta_l, tv_l, loc_l = [], [], [], []
+        for lo in range(0, E, end_chunk):
+            hi = min(lo + end_chunk, E)
+            geo = lambda a: torch.as_tensor(a[lo:hi], device=dev).to(fdt)
+            rows_d, meta_d, tv_d, loc_d = _extension_locate_follow(
+                ctx, geo(X_end), geo(X_prev), geo(end_xy),
+                torch.as_tensor(m[lo:hi], device=dev), cfg)
+            rows_c = rows_d.cpu().numpy()
+            if len(rows_c):
+                rows_c[:, 9] += lo            # seed idx -> global end idx
+                rows_l.append(rows_c)
+            meta_l.append(meta_d.cpu().numpy())
+            tv_l.append(tv_d.cpu().numpy())
+            loc_l.append(loc_d.cpu().numpy())
+        meta = np.concatenate(meta_l)
+        tv = np.concatenate(tv_l).astype(np.int32)
+        loc = np.concatenate(loc_l)
     if not rows_l:
         return None
-    rows = np.concatenate(rows_l)
+    with stats.span("ext_claims"):
+        rows = np.concatenate(rows_l)
 
-    # away-from-chain direction filter: the first new 3D point of the
-    # kept direction must lie on the far side of the end point
-    sidx = rows[:, 9].astype(np.int64)
-    rord = rows[:, 10].astype(np.int64)
-    dots = np.full((E, 2), -np.inf)                          # [E, fwd/bwd]
-    first = np.abs(rord) == 1
-    for drow in np.flatnonzero(first):
-        s = sidx[drow]
-        d = 0 if rord[drow] > 0 else 1
-        dots[s, d] = np.dot(rows[drow, 0:3] - X_end[s], away_dir[s])
-    keep_dir = dots > 0
-    # at most ONE direction continues a chain end; keep the one reaching
-    # farther out
-    bidx = np.flatnonzero(keep_dir.all(axis=1))
-    keep_dir[bidx, np.argmin(dots[bidx], axis=1)] = False
-    keep_rows = np.where(rord > 0, keep_dir[sidx, 0], keep_dir[sidx, 1])
-    if not keep_rows.any():
-        return None
+        # away-from-chain direction filter: the first new 3D point of the
+        # kept direction must lie on the far side of the end point
+        sidx = rows[:, 9].astype(np.int64)
+        rord = rows[:, 10].astype(np.int64)
+        dots = np.full((E, 2), -np.inf)                  # [E, fwd/bwd]
+        first = np.abs(rord) == 1
+        for drow in np.flatnonzero(first):
+            s = sidx[drow]
+            d = 0 if rord[drow] > 0 else 1
+            dots[s, d] = np.dot(rows[drow, 0:3] - X_end[s], away_dir[s])
+        keep_dir = dots > 0
+        # at most ONE direction continues a chain end; keep the one
+        # reaching farther out
+        bidx = np.flatnonzero(keep_dir.all(axis=1))
+        keep_dir[bidx, np.argmin(dots[bidx], axis=1)] = False
+        keep_rows = np.where(rord > 0, keep_dir[sidx, 0],
+                             keep_dir[sidx, 1])
+        if not keep_rows.any():
+            return None
 
-    # claim the kept arcs (zero-span finals for the dropped direction);
-    # skip_start_check=True as in the reference's add-view walks
-    success = keep_dir.any(axis=1)
-    f_seg = np.where(keep_dir[:, 0:1], meta[:, _M_FSEG].astype(np.int64),
-                     loc[..., 1].astype(np.int64))
-    f_t = np.where(keep_dir[:, 0:1], meta[:, _M_FT], loc[..., 2])
-    b_seg = np.where(keep_dir[:, 1:2], meta[:, _M_BSEG].astype(np.int64),
-                     loc[..., 1].astype(np.int64))
-    b_t = np.where(keep_dir[:, 1:2], meta[:, _M_BT], loc[..., 2])
-    accept = manager.resolve_and_claim(
-        success, tv, loc[..., 0].astype(np.int64),
-        loc[..., 1].astype(np.int64), loc[..., 2],
-        f_seg, f_t, b_seg, b_t, skip_start_check=True)
-    keep_rows &= accept[sidx]
-    if not keep_rows.any():
-        return None
-    rows = rows[keep_rows]
-    sidx = sidx[keep_rows]
-    rord = rord[keep_rows]
+        # claim the kept arcs (zero-span finals for the dropped
+        # direction); skip_start_check=True as in the reference's
+        # add-view walks
+        success = keep_dir.any(axis=1)
+        f_seg = np.where(keep_dir[:, 0:1],
+                         meta[:, _M_FSEG].astype(np.int64),
+                         loc[..., 1].astype(np.int64))
+        f_t = np.where(keep_dir[:, 0:1], meta[:, _M_FT], loc[..., 2])
+        b_seg = np.where(keep_dir[:, 1:2],
+                         meta[:, _M_BSEG].astype(np.int64),
+                         loc[..., 1].astype(np.int64))
+        b_t = np.where(keep_dir[:, 1:2], meta[:, _M_BT], loc[..., 2])
+        accept = manager.resolve_and_claim(
+            success, tv, loc[..., 0].astype(np.int64),
+            loc[..., 1].astype(np.int64), loc[..., 2],
+            f_seg, f_t, b_seg, b_t, skip_start_check=True)
+        keep_rows &= accept[sidx]
+        if not keep_rows.any():
+            return None
+        rows = rows[keep_rows]
+        sidx = sidx[keep_rows]
+        rord = rord[keep_rows]
 
-    _log("ext_claims", _t0)
-    _t0 = _time.time()
-    # expand the new points to all views (fresh short chains per end)
-    sign_e = e[:, 2]
-    parent_order = pts.chain_order[e[:, 0]]
-    new_pts = expand_and_assemble(
-        ctx, rows[:, 0:3].astype(np.float64),
-        rows[:, 3:9].reshape(-1, 3, 2), tv[sidx],
-        pts.seed_refpoint[e[sidx, 0]], sidx, np.abs(rord))
-    # graft onto the parent chains: parent seed ids, continuing orders
-    # (both computed before assigning: new_pts.seed_id aliases sidx)
-    parent_sid = pts.seed_id[e[sidx, 0]]
-    new_order = parent_order[sidx] + sign_e[sidx] * np.abs(rord)
-    new_pts.seed_id[:] = parent_sid
-    new_pts.chain_order[:] = new_order
-    _log("ext_expand", _t0, len(new_pts.X))
+    with stats.span("ext_expand") as sp:
+        # expand the new points to all views (fresh short chains per end)
+        sign_e = e[:, 2]
+        parent_order = pts.chain_order[e[:, 0]]
+        new_pts = expand_and_assemble(
+            ctx, rows[:, 0:3].astype(np.float64),
+            rows[:, 3:9].reshape(-1, 3, 2), tv[sidx],
+            pts.seed_refpoint[e[sidx, 0]], sidx, np.abs(rord),
+            stats=stats)
+        # graft onto the parent chains: parent seed ids, continuing
+        # orders (both computed before assigning: new_pts.seed_id
+        # aliases sidx)
+        parent_sid = pts.seed_id[e[sidx, 0]]
+        new_order = parent_order[sidx] + sign_e[sidx] * np.abs(rord)
+        new_pts.seed_id[:] = parent_sid
+        new_pts.chain_order[:] = new_order
+        sp.count = len(new_pts.X)
     manager.counters["extension_points"] = \
         manager.counters.get("extension_points", 0) + len(new_pts.X)
     manager.counters["extension_rounds"] = \

@@ -44,20 +44,77 @@ from edgegraph3d_tpu_torch.matching import refpoints as refpoints_mod
 from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
 
 
+def profiler_range(name: str):
+    """A range "eg3d.<name>" on torch.profiler's CPU timeline, open for as
+    long as the context it returns is entered.
+
+    It is made with the private `torch._C._profiler._RecordFunctionFast`
+    because that range is an ordinary CPU operation in the trace
+    (`is_user_annotation()` False): a reducer that labels each idle gap
+    of the device with the innermost CPU operation open across it
+    (h100bench/devtrace.py) then names the program's stage.  A
+    `torch.profiler.record_function` range is a user annotation, which
+    such a reducer skips, and on the card it also puts a
+    `gpu_user_annotation` on the device timeline.  With no profiler
+    running the range costs about a microsecond.  Should torch drop the
+    class, switch to `torch.profiler.record_function` and have the
+    reducer read user annotations on the CPU timeline."""
+    return torch._C._profiler._RecordFunctionFast("eg3d." + name)
+
+
+class Span:
+    """One span of `PipelineStats.span` while it is open; set `count`
+    before it closes to log a count under its name."""
+
+    def __init__(self, stats: "PipelineStats", name: str,
+                 count: int | None):
+        self.stats, self.name, self.count = stats, name, count
+
+    def __enter__(self) -> "Span":
+        open_ = self.stats.open_spans
+        self.parent = open_[-1] if open_ else None
+        open_.append(self.name)
+        self._range = profiler_range(self.name)
+        self._range.__enter__()
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        end_ns = time.time_ns()
+        self._range.__exit__(*exc)
+        st = self.stats
+        st.open_spans.pop()
+        st.spans.append((self.name, self.parent, self.start_ns, end_ns))
+        st.timings[self.name] = (st.timings.get(self.name, 0.0)
+                                 + (end_ns - self.start_ns) / 1e9)
+        if self.count is not None:
+            st.counts[self.name] = st.counts.get(self.name, 0) + self.count
+
+
 @dataclass
 class PipelineStats:
-    """Wall-clock + count bookkeeping."""
+    """The port's spans, counts and counters for one run.
+
+    `span(name)` times a block of work: its seconds are added to
+    `timings[name]` (a name that repeats sums) and its count to
+    `counts[name]`, and `spans` gets (name, parent name, start_ns,
+    end_ns), both stamps on `time.time_ns()`, the profiler's clock, the
+    parent the innermost span open when it started."""
     timings: dict = field(default_factory=dict)
     counts: dict = field(default_factory=dict)
     #: suppression/truncation/overflow observability
     counters: dict = field(default_factory=dict)
     #: float-valued quality/diagnostic metrics
     metrics: dict = field(default_factory=dict)
+    #: closed spans, (name, parent name or None, start_ns, end_ns)
+    spans: list = field(default_factory=list)
+    #: names of the spans open now, outermost first
+    open_spans: list = field(default_factory=list)
 
-    def log(self, name: str, t0: float, count: int | None = None):
-        self.timings[name] = time.time() - t0
-        if count is not None:
-            self.counts[name] = count
+    def span(self, name: str, count: int | None = None) -> Span:
+        """A context manager timing its block as the span `name` (see
+        the class); it also holds `profiler_range(name)`."""
+        return Span(self, name, count)
 
     def report(self) -> str:
         lines = ["=== edgegraph3d_tpu_torch stats ==="]
@@ -78,7 +135,8 @@ class PipelineStats:
                      self.timings.items()},
             counts={k: int(v) for k, v in self.counts.items()},
             counters={k: int(v) for k, v in self.counters.items()},
-            metrics={k: float(v) for k, v in self.metrics.items()})
+            metrics={k: float(v) for k, v in self.metrics.items()},
+            spans=[list(sp) for sp in self.spans])
 
 
 def config_hash(config: EdgeGraphConfig) -> str:
@@ -151,52 +209,51 @@ def reconstruct_all_stages(sfmd, ctx, stats: PipelineStats,
     manager = matches_mod.MatchesManager(ctx.plg_length.cpu().numpy())
     pieces = []
 
-    def sweep(name, t0, round0, offset):
+    def sweep(span, round0, offset):
         """Claim and collect one stage's followed seeds."""
         res = (refpoints_mod.sweep_seeds(
             None, None, ctx, manager, seed_id_offset=offset,
             precomputed=round0) if round0 is not None else None)
         if res is not None:
             pieces.append(res)
-        stats.log(name, t0, 0 if res is None else len(res[0]))
+        span.count = 0 if res is None else len(res[0])
 
     if 1 in stages:
-        t0 = time.time()
-        groups1 = polyline_stages.similarity_match_sets(sfmd, ctx,
-                                                        stats=stats)
-        stats.log("stage1_similarity_graph", t0, len(groups1))
+        with stats.span("stage1_similarity_graph") as sp:
+            groups1 = polyline_stages.similarity_match_sets(sfmd, ctx,
+                                                            stats=stats)
+            sp.count = len(groups1)
         if debug is not None:
             debug["groups1"] = groups1
-        t0 = time.time()
-        sweep("stage1_sweep", t0,
-              polyline_stages.group_seeds_and_follow(groups1, ctx)[0], 0)
+        with stats.span("stage1_sweep") as sp:
+            sweep(sp, polyline_stages.group_seeds_and_follow(groups1,
+                                                             ctx)[0], 0)
     if 2 in stages:
-        t0 = time.time()
-        groups2 = polyline_stages.closeness_match_sets(sfmd, ctx)
-        stats.log("stage2_closeness_graph", t0, len(groups2))
+        with stats.span("stage2_closeness_graph") as sp:
+            groups2 = polyline_stages.closeness_match_sets(sfmd, ctx)
+            sp.count = len(groups2)
         if debug is not None:
             debug["groups2"] = groups2
-        t0 = time.time()
-        sweep("stage2_sweep", t0,
-              polyline_stages.group_seeds_and_follow(groups2, ctx)[0],
-              10 ** 7)
+        with stats.span("stage2_sweep") as sp:
+            sweep(sp, polyline_stages.group_seeds_and_follow(groups2,
+                                                             ctx)[0],
+                  10 ** 7)
     if 3 in stages:
-        t0 = time.time()
-        round0, _ = refpoints_mod.compute_and_follow_seeds(
-            sfmd, ctx, max_starting_views=max_starting_views)
-        sweep("stage3_refpoints", t0, round0, 2 * 10 ** 7)
+        with stats.span("stage3_refpoints") as sp:
+            round0, _ = refpoints_mod.compute_and_follow_seeds(
+                sfmd, ctx, max_starting_views=max_starting_views)
+            sweep(sp, round0, 2 * 10 ** 7)
 
     if not pieces:
         stats.counters.update(manager.counters)
         return refpoints_mod._empty_points(V)
     merged = [np.concatenate([p[i] for p in pieces]) for i in range(6)]
-    t0 = time.time()
-    pts = refpoints_mod.expand_and_assemble(ctx, *merged)
-    stats.log("expand_all_views", t0, len(pts.X))
-    t0 = time.time()
-    pts = refpoints_mod.extend_chains(ctx, pts, manager, stats=stats)
-    stats.log("chain_extension", t0,
-              manager.counters.get("extension_points", 0))
+    with stats.span("expand_all_views") as sp:
+        pts = refpoints_mod.expand_and_assemble(ctx, *merged, stats=stats)
+        sp.count = len(pts.X)
+    with stats.span("chain_extension") as sp:
+        pts = refpoints_mod.extend_chains(ctx, pts, manager, stats=stats)
+        sp.count = manager.counters.get("extension_points", 0)
     stats.counters.update(manager.counters)
     if debug is not None:
         debug["manager"] = manager
@@ -285,105 +342,109 @@ def run_pipeline(
             raise ValueError(f"mesh on {mesh.device} but device={device!r}")
         dev = mesh.device
     stats = stats if stats is not None else PipelineStats()
+    with stats.span("run_pipeline"):
+        with stats.span("plg_extraction") as sp:
+            plg_ckpt = (os.path.join(working_folder, "plgs.npz")
+                        if working_folder else None)
+            if plg_ckpt and os.path.exists(plg_ckpt):
+                from edgegraph3d_tpu_torch.plgs.plg_io import load_plg_stack
+                stack = load_plg_stack(plg_ckpt)
+            else:
+                stack = extract_plgs(edge_images, config)
+                if plg_ckpt:
+                    os.makedirs(working_folder, exist_ok=True)
+                    from edgegraph3d_tpu_torch.plgs.plg_io import \
+                        save_plg_stack
+                    save_plg_stack(stack, plg_ckpt)
+            sp.count = int((stack.length >= 2).sum())
+        stats.counters["polylines_dropped_overflow"] = \
+            stack.overflow_dropped
+        if stack.overflow_dropped:
+            import sys
+            print(f"WARNING: {stack.overflow_dropped} polylines dropped to "
+                  "the max_polylines_per_view="
+                  f"{config.max_polylines_per_view} budget — raise it to "
+                  "keep full recall", file=sys.stderr)
 
-    t0 = time.time()
-    plg_ckpt = (os.path.join(working_folder, "plgs.npz")
-                if working_folder else None)
-    if plg_ckpt and os.path.exists(plg_ckpt):
-        from edgegraph3d_tpu_torch.plgs.plg_io import load_plg_stack
-        stack = load_plg_stack(plg_ckpt)
-    else:
-        stack = extract_plgs(edge_images, config)
-        if plg_ckpt:
-            os.makedirs(working_folder, exist_ok=True)
-            from edgegraph3d_tpu_torch.plgs.plg_io import save_plg_stack
-            save_plg_stack(stack, plg_ckpt)
-    stats.log("plg_extraction", t0, int((stack.length >= 2).sum()))
-    stats.counters["polylines_dropped_overflow"] = stack.overflow_dropped
-    if stack.overflow_dropped:
-        import sys
-        print(f"WARNING: {stack.overflow_dropped} polylines dropped to "
-              f"the max_polylines_per_view={config.max_polylines_per_view}"
-              " budget — raise it to keep full recall", file=sys.stderr)
+        with stats.span("context(F+grids)"):
+            ctx = refpoints_mod.build_context(sfmd, stack, config,
+                                              device=dev, mesh=mesh)
 
-    t0 = time.time()
-    ctx = refpoints_mod.build_context(sfmd, stack, config, device=dev,
-                                      mesh=mesh)
-    stats.log("context(F+grids)", t0)
+        debug: dict | None = {} if debug_images else None
+        pts = reconstruct_all_stages(sfmd, ctx, stats, stages,
+                                     max_starting_views, debug=debug)
 
-    debug: dict | None = {} if debug_images else None
-    pts = reconstruct_all_stages(sfmd, ctx, stats, stages,
-                                 max_starting_views, debug=debug)
+        with stats.span("density_filter") as sp:
+            keep = density_filter(pts.obs_xy, pts.obs_mask,
+                                  int(sfmd.widths.max()),
+                                  int(sfmd.heights.max()),
+                                  cell=config.density_cell_size_px)
+            pts = pts.select(keep)
+            sp.count = len(pts.X)
 
-    t0 = time.time()
-    keep = density_filter(pts.obs_xy, pts.obs_mask,
-                          int(sfmd.widths.max()), int(sfmd.heights.max()),
-                          cell=config.density_cell_size_px)
-    pts = pts.select(keep)
-    stats.log("density_filter", t0, len(pts.X))
+        first_edgepoint = sfmd.n_points
+        with stats.span("append_edge_points"):
+            obs_cam, obs_xy = edge_points_to_obs_lists(pts)
+            augmented = sfm_io.add_edge_points(sfmd, pts.X, obs_cam,
+                                               obs_xy)
 
-    first_edgepoint = sfmd.n_points
-    obs_cam, obs_xy = edge_points_to_obs_lists(pts)
-    augmented = sfm_io.add_edge_points(sfmd, pts.X, obs_cam, obs_xy)
+        if working_folder:
+            with stats.span("write_checkpoints"):
+                os.makedirs(working_folder, exist_ok=True)
+                sfm_io.write_sfm_data(augmented, os.path.join(
+                    working_folder, "before_filtering.json"))
+                from edgegraph3d_tpu_torch.plgs.polyline_graph_3d import \
+                    assemble_from_edge_points
+                plg3d = assemble_from_edge_points(pts, sfmd.n_cameras)
+                if config.output_3d_simplify:
+                    plg3d = plg3d.simplify(config.output_3d_simplify_tol)
+                if config.output_3d_fragment_maxlen is not None:
+                    plg3d = plg3d.fragment(
+                        config.output_3d_fragment_maxlen)
+                plg3d.save(os.path.join(working_folder, "outgraph_3d.npz"))
 
-    if working_folder:
-        t0 = time.time()
-        os.makedirs(working_folder, exist_ok=True)
-        sfm_io.write_sfm_data(
-            augmented, os.path.join(working_folder, "before_filtering.json"))
-        from edgegraph3d_tpu_torch.plgs.polyline_graph_3d import \
-            assemble_from_edge_points
-        plg3d = assemble_from_edge_points(pts, sfmd.n_cameras)
-        if config.output_3d_simplify:
-            plg3d = plg3d.simplify(config.output_3d_simplify_tol)
-        if config.output_3d_fragment_maxlen is not None:
-            plg3d = plg3d.fragment(config.output_3d_fragment_maxlen)
-        plg3d.save(os.path.join(working_folder, "outgraph_3d.npz"))
-        stats.log("write_checkpoints", t0)
+        if config.ba_steps > 0:
+            # optional joint refinement (cameras + points free), judged by
+            # the outlier filter below
+            with stats.span("joint_ba", config.ba_steps):
+                augmented, mse0, mse1 = joint_ba_refine(
+                    augmented, config.ba_steps, config.ba_damping,
+                    device=dev, mesh=mesh)
+            if mse0 is not None:
+                stats.metrics["ba_mse_before"] = mse0
+                stats.metrics["ba_mse_after"] = mse1
 
-    if config.ba_steps > 0:
-        # optional joint refinement (cameras + points free), judged by
-        # the outlier filter below
-        t0 = time.time()
-        augmented, mse0, mse1 = joint_ba_refine(
-            augmented, config.ba_steps, config.ba_damping, device=dev,
-            mesh=mesh)
-        stats.log("joint_ba", t0, config.ba_steps)
-        if mse0 is not None:
-            stats.metrics["ba_mse_before"] = mse0
-            stats.metrics["ba_mse_after"] = mse1
+        with stats.span("outlier_filter") as sp:
+            filtered = filter_sfm_data(
+                augmented, first_edgepoint,
+                gn_max_mse=config.filter_gn_max_mse,
+                min_views_floor=config.filter_min_views,
+                epsilon=config.gn_epsilon, device=dev)
+            sp.count = filtered.n_points
 
-    t0 = time.time()
-    filtered = filter_sfm_data(augmented, first_edgepoint,
-                               gn_max_mse=config.filter_gn_max_mse,
-                               min_views_floor=config.filter_min_views,
-                               epsilon=config.gn_epsilon, device=dev)
-    stats.log("outlier_filter", t0, filtered.n_points)
-
+        if debug_images and working_folder:
+            # the full -i suite (parity: edge_matcher.cpp:89-96,138-143),
+            # with the JAX package's arguments, the edge images as
+            # rgb_images included
+            from edgegraph3d_tpu_torch.utils.drawing import save_debug_images
+            with stats.span("debug_images"):
+                save_debug_images(
+                    filtered, working_folder, stack=stack,
+                    first_edgepoint=first_edgepoint,
+                    rgb_images=edge_images,
+                    groups_stage1=debug.get("groups1"),
+                    groups_stage2=debug.get("groups2"),
+                    F_table=ctx.F_table.cpu().numpy(),
+                    epipolar_refpoints=range(0, min(3, sfmd.n_points)),
+                    manager=debug.get("manager"),
+                    edge_points=debug.get("edge_points"),
+                    P_mats=ctx.P_mats.cpu().numpy(), ctx=ctx)
     if working_folder:
         write_run_manifest(working_folder, config, stats, extra=dict(
             n_views=sfmd.n_cameras, n_refpoints=sfmd.n_points,
             n_edge_points_prefilter=augmented.n_points - first_edgepoint,
             n_edge_points=filtered.n_points - first_edgepoint,
             n_points_out=filtered.n_points, device=str(dev)))
-
-    if debug_images and working_folder:
-        # the full -i suite (parity: edge_matcher.cpp:89-96,138-143), with
-        # the JAX package's arguments, the edge images as rgb_images
-        # included
-        from edgegraph3d_tpu_torch.utils.drawing import save_debug_images
-        t0 = time.time()
-        save_debug_images(
-            filtered, working_folder, stack=stack,
-            first_edgepoint=first_edgepoint, rgb_images=edge_images,
-            groups_stage1=debug.get("groups1"),
-            groups_stage2=debug.get("groups2"),
-            F_table=ctx.F_table.cpu().numpy(),
-            epipolar_refpoints=range(0, min(3, sfmd.n_points)),
-            manager=debug.get("manager"),
-            edge_points=debug.get("edge_points"),
-            P_mats=ctx.P_mats.cpu().numpy(), ctx=ctx)
-        stats.log("debug_images", t0)
     return filtered
 
 

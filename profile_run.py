@@ -5,11 +5,15 @@
 
 For each scene of chip_smoke.py (the benchmark's config, the default
 stages (1, 2, 3)) it runs `run_pipeline` once to warm up, then, for each
-expansion path, once untraced and once under `torch.profiler`, and
-prints: the untraced and traced walls, the device busy time (the sum of
-the CUDA-side kernel, memcpy and memset times; CPU-side entries are left
-out, so nothing is counted twice), the idle share 1 - busy / traced
-wall, the stage timings of the traced run, and the largest device items.
+expansion path, once untraced and once under `torch.profiler` (inside
+the benchmark's `h100bench.devtrace.MARK` range), and prints: the
+untraced and traced walls, the device busy time and idle share as the
+benchmark reduces the trace (h100bench/devtrace.py: the union of the
+CUDA-side kernel, memcpy and memset intervals, so launches that overlap
+count once), the longest idle gaps, each labelled with the innermost
+CPU-side operation open across it (the program's `eg3d.<span>` ranges
+name the stage), the stage timings of the traced run, and the largest
+device items.
 `--expansion plain` swaps kernel K7 for its plain version (the per-view
 loop around K1 and K3, the path before K7) to measure both in one call;
 `both` runs kernel, plain, plain, kernel.  Imports nothing of JAX.
@@ -49,9 +53,10 @@ def expansion_path(which: str):
 
 def profile_scene(name, scene, max_starting_views, top: int, paths):
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from edgegraph3d_tpu_torch.pipeline import PipelineStats, run_pipeline
+    from h100bench import devtrace
 
     sfmd, edges, _ = scene
     cfg = chip_smoke.bench_config()
@@ -71,15 +76,20 @@ def profile_scene(name, scene, max_starting_views, top: int, paths):
             stats = PipelineStats()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                wall, _ = run(stats)
-        items = [e for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(_device_us(e) for e in items) / 1e6
+                with record_function(devtrace.MARK):
+                    wall, _ = run(stats)
+        trace = devtrace.reduce_profile(prof)
         print(f"PROFILE {name} expansion={which}: untraced wall "
               f"{untraced:.4f} s, traced wall {wall:.4f} s, device busy "
-              f"{busy:.4f} s, idle share {1 - busy / wall:.4f}, points "
-              f"{out.n_points - sfmd.n_points}", flush=True)
+              f"{trace.busy_s:.4f} s, idle share "
+              f"{1 - trace.busy_s / trace.window_s:.4f}, points "
+              f"{out.n_points - sfmd.n_points}, spans {len(stats.spans)}",
+              flush=True)
+        print("idle gaps: " + ", ".join(f"{label} {s:.4f} s"
+                                        for label, s in trace.gaps))
         print(json.dumps(stats.to_dict()["timings"]))
+        items = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
         for e in sorted(items, key=_device_us, reverse=True)[:top]:
             print(f"  {_device_us(e) / 1e3:10.3f} ms {e.count:7d}  "
                   f"{e.key[:90]}")
