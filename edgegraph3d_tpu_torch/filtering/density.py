@@ -1,31 +1,83 @@
 """2D density filter: one edge-point per 3 px cell per view.
 
-TPU-native equivalent of the reference's sequential occupancy-bitmap
-pass (reference: src/edgegraph3d/filtering/filtering_close_plgps.cpp:75-124):
-a point is kept iff >= 1 of its 2D observations lands in a cell not yet
-occupied by an earlier kept point; kept points mark all their cells.
+The reference's sequential occupancy-bitmap pass (reference:
+src/edgegraph3d/filtering/filtering_close_plgps.cpp:75-124): a point is
+kept iff >= 1 of its 2D observations lands in a cell not yet occupied by
+an earlier kept point; kept points mark all their cells.
 
-The sequential first-claim semantics are reproduced exactly with
-deterministic iterative claim rounds (propose -> min-index claim ->
-commit), which also parallelizes across devices later: each round is a
-scatter-min plus a gather.
+`density_filter`, the pipeline's pass, runs that definition in one C++
+loop on the host (native/density.cpp): the points live in host numpy and
+the pass is sequential by definition, one byte test per observation.
+`density_filter_numpy` is its numpy twin, which the tests hold it
+against: the same definition as a Python loop, and deterministic claim
+rounds (propose -> min-index claim -> commit) that reach the same keep
+mask in parallel passes.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 
+from edgegraph3d_tpu_torch import native
 
-#: below this point count the exact sequential pass runs; above it the
-#: round-based parallel claim path (same outcome, proven by
+#: below this point count the numpy twin runs the sequential loop; above
+#: it the claim rounds (same outcome, proven by
 #: tests/test_pipeline.py::test_density_round_path_matches_sequential)
 SEQUENTIAL_MAX_N = 50_000
 
+_ENTRIES = {np.dtype(np.float32): ("eg3d_density_keep_f32", ctypes.c_float),
+            np.dtype(np.float64): ("eg3d_density_keep_f64", ctypes.c_double)}
+
 
 def density_filter(obs_xy: np.ndarray, obs_mask: np.ndarray,
-                   width: int, height: int, cell: int = 3,
-                   max_rounds: int = 64,
-                   sequential_threshold: int | None = None) -> np.ndarray:
+                   width: int, height: int, cell: int = 3) -> np.ndarray:
+    """obs_xy [N,V,2] float32 or float64, obs_mask [N,V] -> keep [N] bool.
+
+    Points are processed in index order (parity: the reference's
+    insertion order).  A cell is (x / cell) truncated toward zero in
+    obs_xy's own precision and clipped to the grid, as numpy computes it
+    for a Python-int `cell`; masked slots never count.  Raises
+    TypeError for another dtype, ValueError for a malformed shape or
+    grid, RuntimeError when the native library cannot be built or
+    loaded."""
+    obs_xy = np.ascontiguousarray(obs_xy)
+    if obs_xy.dtype not in _ENTRIES:
+        raise TypeError(f"density_filter takes float32 or float64 "
+                        f"coordinates, not {obs_xy.dtype}")
+    if obs_xy.ndim != 3 or obs_xy.shape[2] != 2:
+        raise ValueError(f"obs_xy must be [N, V, 2], not {obs_xy.shape}")
+    N, V, _ = obs_xy.shape
+    mask = np.ascontiguousarray(obs_mask, dtype=bool)
+    if mask.shape != (N, V):
+        raise ValueError(f"obs_mask {mask.shape} does not match obs_xy "
+                         f"{obs_xy.shape}")
+    width, height, cell = int(width), int(height), int(cell)
+    GW, GH = -(-width // max(cell, 1)) + 1, -(-height // max(cell, 1)) + 1
+    # the native pass keeps a cell within its view in 32 bits, and the
+    # grid's last cell exact in float32
+    if cell < 1 or min(width, height) < 0 or max(GW, GH) > 2 ** 24 or \
+            GW * GH >= 2 ** 31:
+        raise ValueError(f"bad grid: width {width}, height {height}, "
+                         f"cell {cell}")
+    keep = np.zeros(N, dtype=bool)
+    if N == 0:
+        return keep
+    entry, ctype = _ENTRIES[obs_xy.dtype]
+    getattr(native.get_density_lib(), entry)(
+        obs_xy.ctypes.data_as(ctypes.POINTER(ctype)),
+        mask.view(np.uint8).ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        N, V, width, height, cell,
+        keep.view(np.uint8).ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return keep
+
+
+def density_filter_numpy(obs_xy: np.ndarray, obs_mask: np.ndarray,
+                         width: int, height: int, cell: int = 3,
+                         max_rounds: int = 64,
+                         sequential_threshold: int | None = None
+                         ) -> np.ndarray:
     """obs_xy [N,V,2], obs_mask [N,V] -> keep [N] bool.
 
     Points are processed in index order (parity: the reference's

@@ -1,9 +1,10 @@
 """Native (C++) host-runtime components, loaded via ctypes.
 
 The reference's runtime outside the compute kernels is C++; here the
-host-side preprocessing that cannot ride the device (sequential chain
-tracing, graph surgery) has a C++ fast path compiled on first use with
-g++.
+host-side passes that cannot ride the device have a C++ path compiled on
+first use with g++: the sequential chain tracing of PLG extraction
+(`extraction.cpp`) and the sequential first-claim pass of the density
+filter (`density.cpp`).
 
 Unlike the JAX package's loader, this one never returns None: a build or
 load that fails raises RuntimeError with g++'s output.  The numpy twin in
@@ -23,27 +24,52 @@ import os
 import subprocess
 import threading
 
-_LOCK = threading.Lock()
-_LIB = None
+_DIR = os.path.dirname(__file__)
 
-#: source and library paths, read at call time (tests point them at a
-#: fresh directory); the lock file is `_SO + ".lock"`
-_SRC = os.path.join(os.path.dirname(__file__), "extraction.cpp")
-_SO = os.path.join(os.path.dirname(__file__), "_extraction.so")
-
-_ARGTYPES = [
-    ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
-    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int,
-    ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
-    ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-    ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-]
+_f32p = ctypes.POINTER(ctypes.c_float)
+_f64p = ctypes.POINTER(ctypes.c_double)
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_i64p = ctypes.POINTER(ctypes.c_int64)
+_i64 = ctypes.c_int64
 
 
-def _build() -> str:
-    """Compile _SRC into _SO unless _SO is newer; returns _SO."""
-    src, so = _SRC, _SO
+class Library:
+    """One C++ source built into one shared library at first use.
+
+    `src` and `so` are read at build time (tests point them at a fresh
+    directory); the lock file is `so + ".lock"`.  `entries` maps each
+    exported C function to (restype, argtypes)."""
+
+    def __init__(self, name: str, entries: dict):
+        self.name = name
+        self.src = os.path.join(_DIR, f"{name}.cpp")
+        self.so = os.path.join(_DIR, f"_{name}.so")
+        self.entries = entries
+        self.lib = None
+        self._lock = threading.Lock()
+
+    def get(self):
+        """ctypes handle to the library (built on first use).  Raises
+        RuntimeError when it cannot be built or loaded."""
+        with self._lock:
+            if self.lib is None:
+                so = _build(self.src, self.so, self.name)
+                try:
+                    lib = ctypes.CDLL(so)
+                    for entry, (restype, argtypes) in self.entries.items():
+                        fn = getattr(lib, entry)
+                        fn.restype = restype
+                        fn.argtypes = argtypes
+                except (OSError, AttributeError) as e:
+                    raise RuntimeError(
+                        f"native {self.name} library {so} did not load: "
+                        f"{e}") from e
+                self.lib = lib
+            return self.lib
+
+
+def _build(src: str, so: str, name: str) -> str:
+    """Compile `src` into `so` unless `so` is newer; returns `so`."""
     with open(so + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if os.path.exists(so) and os.path.getmtime(so) >= \
@@ -56,33 +82,37 @@ def _build() -> str:
             res = subprocess.run(cmd, capture_output=True, text=True,
                                  timeout=300)
         except (OSError, subprocess.TimeoutExpired) as e:
-            raise RuntimeError(f"native extraction build failed: "
+            raise RuntimeError(f"native {name} build failed: "
                                f"{' '.join(cmd)}: {e}") from e
         if res.returncode != 0:
             if os.path.exists(tmp):
                 os.remove(tmp)
             raise RuntimeError(
-                f"native extraction build failed ({res.returncode}):\n"
+                f"native {name} build failed ({res.returncode}):\n"
                 f"{' '.join(cmd)}\n{res.stderr}")
         os.replace(tmp, so)
         return so
 
 
+EXTRACTION = Library("extraction", {"eg3d_extract_chains": (ctypes.c_int, [
+    _u8p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int,
+    _f32p, _i64, _i64p, _i64, _i64p, _i64p,
+])})
+
+#: keep[N] from obs_xy [N,V,2], obs_mask [N,V], N, V, width, height, cell
+DENSITY = Library("density", {
+    f"eg3d_density_keep_{t}": (None, [xyp, _u8p, _i64, _i64, _i64, _i64,
+                                      _i64, _u8p])
+    for t, xyp in (("f32", _f32p), ("f64", _f64p))})
+
+
 def get_extraction_lib():
-    """ctypes handle to the native extraction library (built on first
-    use).  Raises RuntimeError when it cannot be built or loaded."""
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            so = _build()
-            try:
-                lib = ctypes.CDLL(so)
-                fn = lib.eg3d_extract_chains
-            except (OSError, AttributeError) as e:
-                raise RuntimeError(
-                    f"native extraction library {so} did not load: {e}") \
-                    from e
-            fn.restype = ctypes.c_int
-            fn.argtypes = _ARGTYPES
-            _LIB = lib
-        return _LIB
+    """The native extraction library (`extraction.cpp`)."""
+    return EXTRACTION.get()
+
+
+def get_density_lib():
+    """The native density filter library (`density.cpp`)."""
+    return DENSITY.get()

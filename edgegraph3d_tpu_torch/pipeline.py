@@ -375,6 +375,7 @@ def run_pipeline(
                                      max_starting_views, debug=debug)
 
         with stats.span("density_filter") as sp:
+            stats.counters["density_points_in"] = len(pts.X)
             keep = density_filter(pts.obs_xy, pts.obs_mask,
                                   int(sfmd.widths.max()),
                                   int(sfmd.heights.max()),

@@ -1,11 +1,11 @@
-"""The port's native extraction loader (edgegraph3d_tpu_torch/native).
+"""The port's native loader (edgegraph3d_tpu_torch/native).
 
-The port builds the C++ extraction library under an inter-process lock
-into a file of its own per process, and raises on a failed build or
-load instead of falling back to the numpy twin.  The JAX package keeps
-its own loader, which can return None when several processes build at
-once; `require_jax_native_lib` makes sure the reference side of a parity
-test runs its native path too.
+The port builds each C++ library (extraction, density) under an
+inter-process lock into a file of its own per process, and raises on a
+failed build or load instead of falling back to a numpy twin.  The JAX
+package keeps its own loader, which can return None when several
+processes build at once; `require_jax_native_lib` makes sure the
+reference side of a parity test runs its native path too.
 """
 
 import os
@@ -43,60 +43,74 @@ def require_jax_native_lib(tries: int = 120, wait_s: float = 0.5) -> None:
 
 
 _LOAD = textwrap.dedent("""
+    import subprocess
     import sys
     sys.path.insert(0, {root!r})
     from edgegraph3d_tpu_torch import native
-    native._SRC, native._SO = sys.argv[1], sys.argv[2]
-    lib = native.get_extraction_lib()
-    print("LOADED", lib._name)
+    builds = []
+    run = subprocess.run
+    subprocess.run = lambda *a, **k: builds.append(1) or run(*a, **k)
+    lib = getattr(native, sys.argv[1])
+    lib.src, lib.so = sys.argv[2], sys.argv[3]
+    print("LOADED", lib.get()._name, "BUILDS", len(builds))
 """)
 
 
-@pytest.fixture
-def fresh_paths(tmp_path, monkeypatch):
-    """The library's source copied into an empty directory, and the
-    loader pointed at it."""
-    src = tmp_path / "extraction.cpp"
-    shutil.copy(native._SRC, src)
-    so = tmp_path / "_extraction.so"
-    monkeypatch.setattr(native, "_SRC", str(src))
-    monkeypatch.setattr(native, "_SO", str(so))
-    monkeypatch.setattr(native, "_LIB", None)
-    return src, so
+@pytest.fixture(params=["EXTRACTION", "DENSITY"], ids=str.lower)
+def fresh_paths(request, tmp_path, monkeypatch):
+    """A library's source copied into an empty directory, and the
+    loader pointed at it: (library attribute, library, src, so)."""
+    attr = request.param
+    lib = getattr(native, attr)
+    src = tmp_path / os.path.basename(lib.src)
+    shutil.copy(lib.src, src)
+    so = tmp_path / os.path.basename(lib.so)
+    monkeypatch.setattr(lib, "src", str(src))
+    monkeypatch.setattr(lib, "so", str(so))
+    monkeypatch.setattr(lib, "lib", None)
+    return attr, lib, src, so
 
 
 def test_concurrent_first_builds_all_load(fresh_paths):
     """Four processes build the library at once into a fresh directory:
-    every one of them loads it, and no temporary file is left."""
-    src, so = fresh_paths
+    every one of them loads it, g++ runs once among them, and no
+    temporary file is left."""
+    attr, _, src, so = fresh_paths
     procs = [subprocess.Popen(
-        [sys.executable, "-c", _LOAD.format(root=ROOT), str(src), str(so)],
+        [sys.executable, "-c", _LOAD.format(root=ROOT), attr, str(src),
+         str(so)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for _ in range(4)]
     outs = [p.communicate(timeout=300) for p in procs]
+    builds = 0
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err[-2000:]
         assert f"LOADED {so}" in out
+        builds += int(out.split("BUILDS")[1])
+    assert builds == 1
     left = sorted(os.listdir(so.parent))
-    assert left == ["_extraction.so", "_extraction.so.lock", "extraction.cpp"]
+    assert left == sorted([so.name, so.name + ".lock", src.name])
 
 
 def test_failed_build_raises(fresh_paths):
-    src, so = fresh_paths
+    """A source g++ refuses raises RuntimeError with g++'s output, and
+    leaves no library and no temporary file."""
+    _, lib, src, so = fresh_paths
     src.write_text("this is not C++\n")
-    with pytest.raises(RuntimeError, match="build failed"):
-        native.get_extraction_lib()
-    assert native._LIB is None and not so.exists()
+    with pytest.raises(RuntimeError, match="build failed") as err:
+        lib.get()
+    assert "error" in str(err.value) and str(src) in str(err.value)
+    assert lib.lib is None and not so.exists()
     assert [f for f in os.listdir(so.parent) if f.endswith(".tmp")] == []
 
 
 def test_rebuilds_when_source_is_newer(fresh_paths):
-    src, so = fresh_paths
-    native.get_extraction_lib()
+    _, lib, src, so = fresh_paths
+    lib.get()
     first = so.stat().st_mtime
     os.utime(src, (first + 10, first + 10))
-    native._LIB = None
-    native.get_extraction_lib()
+    lib.lib = None
+    lib.get()
     assert so.stat().st_mtime > first
 
 

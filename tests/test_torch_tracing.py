@@ -54,13 +54,23 @@ def runs(scene, tmp_path_factory):
     and the debug images: between them every child of run_pipeline."""
     sfmd, imgs, _ = scene
     memory, folder = tp.PipelineStats(), tp.PipelineStats()
-    tp.run_pipeline(sfmd, imgs, EdgeGraphConfig().replace(**KW),
-                    stats=memory, device="cpu")
-    work = tmp_path_factory.mktemp("work")
-    tp.run_pipeline(sfmd, imgs, EdgeGraphConfig().replace(ba_steps=1, **KW),
-                    working_folder=str(work), stats=folder,
-                    debug_images=True, device="cpu")
-    return dict(memory=memory, folder=folder, work=work)
+    density_in, real_density_filter = [], tp.density_filter
+
+    def density_filter(obs_xy, *a, **k):
+        density_in.append(len(obs_xy))
+        return real_density_filter(obs_xy, *a, **k)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tp, "density_filter", density_filter)
+        tp.run_pipeline(sfmd, imgs, EdgeGraphConfig().replace(**KW),
+                        stats=memory, device="cpu")
+        work = tmp_path_factory.mktemp("work")
+        tp.run_pipeline(sfmd, imgs,
+                        EdgeGraphConfig().replace(ba_steps=1, **KW),
+                        working_folder=str(work), stats=folder,
+                        debug_images=True, device="cpu")
+    return dict(memory=memory, folder=folder, work=work,
+                density_in=dict(zip(RUNS, density_in)))
 
 
 RUNS = ("memory", "folder")
@@ -71,6 +81,16 @@ def test_benchmark_spans_are_logged(runs, run):
     stats = runs[run]
     assert set(READ) <= set(stats.timings)
     assert not stats.open_spans
+
+
+@pytest.mark.parametrize("run", RUNS)
+def test_density_points_in_counts_what_entered_the_filter(runs, run):
+    """`density_points_in` is the number of points handed to the density
+    filter; the span's count, the number it kept, is no larger."""
+    stats = runs[run]
+    n_in = stats.counters["density_points_in"]
+    assert n_in == runs["density_in"][run] > 0
+    assert 0 < stats.counts["density_filter"] <= n_in
 
 
 @pytest.mark.parametrize("run", RUNS)
