@@ -49,14 +49,21 @@ class EdgeGraphConfig:
     #: (ref: geometric_utilities.cpp:750-781, 10).
     fmat_min_common_points: int = 10
     #: F-matrix source: "exact" (from the calibrated cameras,
-    #: geometric_utilities.cpp:683-710) or "lmeds" (robust fit from
-    #: common refpoint correspondences — the reference's production
-    #: path, :750-781).  Default "exact": with bundle-adjusted poses the
-    #: exact F dominates on clean data and stays within a fraction of
-    #: the lmeds recall under pose noise (tests/test_fmat_ab.py
-    #: quantifies the A/B on a noisy-pose scene); "lmeds" reproduces the
-    #: reference's behavior of fitting the observation noise.
+    #: geometric_utilities.cpp:683-710), "opencv_lmeds" (the reference's
+    #: production path, :750-781: cv::findFundamentalMat(FM_LMEDS) on
+    #: the common refpoint correspondences of each pair, reproduced in
+    #: ops/geometry.py) or "lmeds" (the JAX package's LMedS-style fit:
+    #: 8-point subsets, Sampson scores, an inlier refit).  Default
+    #: "exact": with bundle-adjusted poses the exact F dominates on clean
+    #: data and stays within a fraction of the lmeds recall under pose
+    #: noise (tests/test_fmat_ab.py quantifies the A/B on a noisy-pose
+    #: scene); "opencv_lmeds" reproduces the reference's behavior of
+    #: fitting the observation noise.
     fmat_source: str = "exact"
+    #: "opencv_lmeds"'s confidence, findFundamentalMat's argument: it sets
+    #: the trials, cv::RANSACUpdateNumIters(confidence, 0.45, 7, 1000),
+    #: 300 at OpenCV's default 0.99 (ops.geometry.lmeds_trials).
+    fmat_lmeds_confidence: float = 0.99
 
     # ---- PLG following / matching --------------------------------------
     #: step length on the driving view (ref: plg_matching.hpp:39

@@ -148,10 +148,11 @@ LMEDS_PAIR_CHUNK = 256
 def lmeds_fundamental_table(sfmd: SfMData, config: EdgeGraphConfig,
                             device="cuda") -> torch.Tensor:
     """All-pairs F table [V, V, 3, 3] fit from common refpoint
-    observations with LMedS (the reference's production path,
-    cv::findFundamentalMat(FM_LMEDS) on >= fmat_min_common_points common
-    points).  Pairs with too few common points get the line (0,0,1)
-    sentinel: epipolar queries then find no crossings.  Pairs are fit
+    observations with the JAX package's LMedS-style fit
+    (ops.geometry.fundamental_lmeds, on >= fmat_min_common_points common
+    points; opencv_lmeds_fundamental_table is the reference's FM_LMEDS).
+    Pairs with too few common points get the line (0,0,1) sentinel:
+    epipolar queries then find no crossings.  Pairs are fit
     LMEDS_PAIR_CHUNK at a time (the median sort is [chunk, 64, N] f32:
     ~411 MB at N = 6,268 refpoints); each pair's subsets are drawn once
     for the whole table (ops.geometry.lmeds_subsets), so the draws do not
@@ -186,25 +187,147 @@ def lmeds_fundamental_table(sfmd: SfMData, config: EdgeGraphConfig,
     return F_out.to(context_dtype(config))
 
 
+#: the most bytes the [pairs, models, points] work of one chunk of
+#: opencv_lmeds_fit may take: about 64 B a (model, point), the f64
+#: product rows, two f64 temporaries and the f32 errors
+OPENCV_LMEDS_CHUNK_BYTES = 4 << 30
+
+
+@dataclass
+class LMedsFit:
+    """OpenCV's FM_LMEDS over the ordered pairs with enough common
+    refpoints (ops.geometry.fundamental_lmeds_opencv's outputs, on the
+    host, one row a pair)."""
+    pairs: np.ndarray           # [P,2] (i, j): F[i, j] maps view i to j
+    n_common: np.ndarray        # [P] common refpoints
+    samples: torch.Tensor       # [P,T,7] positions among them
+    F: torch.Tensor             # [P,3,3] f64, unit Frobenius norm
+    valid: torch.Tensor         # [P]
+    score: torch.Tensor         # [P] f32, the upper median
+    best: torch.Tensor          # [P] sample * 3 + root
+    models: torch.Tensor        # [P] models scored
+    no_model: torch.Tensor      # [P] samples without a model
+
+
+def common_points(obs_xy, obs_mask, i, j, n_max: int):
+    """The common refpoints of pairs (i[p], j[p]) in point order, first:
+    (x1, x2 [P, n_max, 2]) from dense observations on one device."""
+    mm = obs_mask[:, i] & obs_mask[:, j]                   # [N,P]
+    order = torch.argsort((~mm.T).to(torch.int8), dim=-1,
+                          stable=True)[:, :n_max]
+    take = lambda v: torch.take_along_dim(
+        obs_xy[:, v].transpose(0, 1), order[..., None], 1)
+    return take(i), take(j)
+
+
+def opencv_lmeds_fit(sfmd: SfMData, config: EdgeGraphConfig,
+                     device="cuda") -> LMedsFit:
+    """OpenCV's FM_LMEDS (ops.geometry.fundamental_lmeds_opencv) on the
+    common refpoint observations of every ordered pair (i, j), i != j,
+    with at least max(fmat_min_common_points, 8) of them; F[j, i] is fit
+    on its own.  lmeds_trials(config.fmat_lmeds_confidence) samples a
+    pair (300 at 0.99), drawn once for all pairs (lmeds7_samples), so
+    that the fit depends on neither the chunk nor the device but through
+    rounding.  Pairs are fit a chunk at a time, as many as keep the [pairs, 3T, points] work
+    under OPENCV_LMEDS_CHUNK_BYTES."""
+    from edgegraph3d_tpu_torch.ops.geometry import (fundamental_lmeds_opencv,
+                                                    lmeds7_samples,
+                                                    lmeds_trials)
+    dev = resolve_device(device)
+    V = sfmd.n_cameras
+    obs_xy, obs_mask = dense_observations(sfmd)
+    m = obs_mask.astype(np.int64)
+    common = m.T @ m                                       # [V,V]
+    least = max(config.fmat_min_common_points, 8)
+    pairs = np.asarray([(i, j) for i in range(V) for j in range(V)
+                        if i != j and common[i, j] >= least],
+                       np.int64).reshape(-1, 2)
+    n_common = common[pairs[:, 0], pairs[:, 1]]
+    trials = lmeds_trials(config.fmat_lmeds_confidence)
+    samples = lmeds7_samples(n_common, trials)
+    P = len(pairs)
+    out = dict(F=torch.zeros((P, 3, 3), dtype=torch.float64),
+               valid=torch.zeros(P, dtype=torch.bool),
+               score=torch.full((P,), float("inf")),
+               best=torch.zeros(P, dtype=torch.int64),
+               models=torch.zeros(P, dtype=torch.int64),
+               no_model=torch.zeros(P, dtype=torch.int64))
+    if P:
+        xy = torch.as_tensor(obs_xy, device=dev)           # [N,V,2]
+        mask = torch.as_tensor(obs_mask, device=dev)
+        chunk = max(1, OPENCV_LMEDS_CHUNK_BYTES
+                    // (3 * trials * int(n_common.max()) * 64))
+        for lo in range(0, P, chunk):
+            sl = slice(lo, lo + chunk)
+            n = torch.as_tensor(n_common[sl])
+            pi = torch.as_tensor(pairs[sl], device=dev)
+            x1, x2 = common_points(xy, mask, pi[:, 0], pi[:, 1],
+                                   int(n.max()))
+            fit = fundamental_lmeds_opencv(
+                x1, x2, n, samples[sl],
+                min_points=config.fmat_min_common_points)
+            for k, v in out.items():
+                v[sl] = fit[k].cpu()
+    return LMedsFit(pairs=pairs, n_common=n_common, samples=samples, **out)
+
+
+def opencv_lmeds_fundamental_table(sfmd: SfMData, config: EdgeGraphConfig,
+                                   device="cuda",
+                                   stats=None) -> torch.Tensor:
+    """All-pairs F table [V, V, 3, 3] on the host, in config.dtype's
+    type, from OpenCV's FM_LMEDS (opencv_lmeds_fit), the reference's
+    production path (geometric_utilities.cpp:750-781).  Pairs with too
+    few common points, or no fit, get the (0,0,1) sentinel, as in
+    lmeds_fundamental_table.  The counters fmat_pairs_fit,
+    fmat_pairs_sentinel, fmat_models_scored and fmat_samples_no_model of
+    `stats` count the fit."""
+    V = sfmd.n_cameras
+    fit = opencv_lmeds_fit(sfmd, config, device)
+    F = torch.zeros((V, V, 3, 3), dtype=torch.float64)
+    F[:, :, 2, 2] = 1.0              # invalid-F sentinel: line (0,0,1)
+    ok = fit.valid.numpy()
+    F[fit.pairs[ok, 0], fit.pairs[ok, 1]] = fit.F[ok]
+    n_fit = int(ok.sum())
+    _stats(stats).counters.update(
+        fmat_pairs_fit=n_fit, fmat_pairs_sentinel=V * (V - 1) - n_fit,
+        fmat_models_scored=int(fit.models.sum()),
+        fmat_samples_no_model=int(fit.no_model.sum()))
+    return F.to(context_dtype(config))
+
+
+#: config.fmat_source's values
+FMAT_SOURCES = ("exact", "lmeds", "opencv_lmeds")
+
+
 def build_context(sfmd: SfMData, stack: PLGStack,
                   config: EdgeGraphConfig = DEFAULT_CONFIG,
                   cell: float = 10.0, device="cuda",
-                  mesh=None) -> MatchingContext:
+                  mesh=None, stats=None) -> MatchingContext:
     """The context on `device`; with `mesh`, on the mesh's first device
     (which must be of `device`'s type), with a replica of its tensors on
     each other device of the mesh.  The geometry takes config.dtype's
-    type (context_dtype)."""
+    type (context_dtype).  The F table (config.fmat_source) is the span
+    f_table of `stats` (a PipelineStats), until it is on the host; the
+    per-view grids the span grids."""
+    if config.fmat_source not in FMAT_SOURCES:
+        raise ValueError(f"fmat_source {config.fmat_source!r} is none of "
+                         f"{FMAT_SOURCES}")
     if mesh is not None:
         if mesh.device.type != resolve_device(device).type:
             raise ValueError(f"mesh on {mesh.device} but device={device!r}")
         device = mesh.device
-    if config.fmat_source == "lmeds":
-        F = lmeds_fundamental_table(sfmd, config, device).cpu()
-    else:
-        F = all_fundamental_matrices(sfmd.P, sfmd.center,
-                                     context_dtype(config))
-    grids = build_grids(stack, sfmd.widths, sfmd.heights, cell,
-                        config.grid_cell_capacity)
+    stats = _stats(stats)
+    with stats.span("f_table"):
+        if config.fmat_source == "opencv_lmeds":
+            F = opencv_lmeds_fundamental_table(sfmd, config, device, stats)
+        elif config.fmat_source == "lmeds":
+            F = lmeds_fundamental_table(sfmd, config, device).cpu()
+        else:
+            F = all_fundamental_matrices(sfmd.P, sfmd.center,
+                                         context_dtype(config))
+    with stats.span("grids"):
+        grids = build_grids(stack, sfmd.widths, sfmd.heights, cell,
+                            config.grid_cell_capacity)
     ctx = context_from_arrays(stack.coords, stack.length, grids, sfmd.P,
                               F.numpy(), cell, config, device)
     if mesh is not None:

@@ -368,7 +368,8 @@ def run_pipeline(
 
         with stats.span("context(F+grids)"):
             ctx = refpoints_mod.build_context(sfmd, stack, config,
-                                              device=dev, mesh=mesh)
+                                              device=dev, mesh=mesh,
+                                              stats=stats)
 
         debug: dict | None = {} if debug_images else None
         pts = reconstruct_all_stages(sfmd, ctx, stats, stages,

@@ -25,10 +25,10 @@ from h100bench import devtrace
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(max_polylines_per_view=256, max_polyline_len=128)
 #: the spans that h100bench/metrics/*.py read
-READ = ("plg_extraction", "context(F+grids)", "stage3_refpoints",
-        "expand_all_views", "chain_extension", "density_filter",
-        "outlier_filter", "group_chains", "expansion_copies",
-        "run_pipeline")
+READ = ("plg_extraction", "context(F+grids)", "f_table",
+        "stage3_refpoints", "expand_all_views", "chain_extension",
+        "density_filter", "outlier_filter", "group_chains",
+        "expansion_copies", "run_pipeline")
 MS = 1_000_000
 
 
@@ -248,7 +248,8 @@ def run_record(*timings, traces=()):
 
 @pytest.mark.parametrize("name,span", [("group_chains_s", "group_chains"),
                                        ("expansion_copies_s",
-                                        "expansion_copies")])
+                                        "expansion_copies"),
+                                       ("f_table_s", "f_table")])
 def test_span_readers(name, span):
     read = reader(name).read
     assert read(run_record({span: 1.0, "expand_all_views": 3.0},
