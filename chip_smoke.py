@@ -6,7 +6,7 @@ Needs one CUDA GPU (an H100: the kernels are built for sm_90a) and nvcc.
 Phases, each of which must pass or the script exits non-zero without
 its final `ok` line:
 
-  1. card and build: the card's name and power limit, then the eight
+  1. card and build: the card's name and power limit, then the nine
      hand-written kernels built from edgegraph3d_tpu_torch/csrc (one nvcc
      per source, all started together);
   2. kernel vs plain torch on the card, at the main path's full-scale
@@ -99,7 +99,20 @@ its final `ok` line:
      are logged.  The LMedS F
      table of the full scene: its time, and the median epipolar
      distance of the refpoint observations under it (< 0.5 px) and
-     under the exact table.  Last, cube8 through run_pipeline with
+     under the exact table.  K9 lmeds7_fit (`check_lmeds7`) on the full
+     scene's OpenCV FM_LMEDS table (every ordered pair, 300 samples),
+     against its plain twin on the same samples on the card, fit a chunk
+     of pairs at a time as the plain route fits them: no pair valid on
+     one side only, the samples' models counted alike within
+     DECISION_TOL of the samples, the same winning sample on at least
+     0.9 of the pairs, F within 1e-8 per entry where the sample is the
+     same and the scores within 0.02 relative (the tolerances of
+     tools/check_fmat_on_card.py, which a float32 solve fails), the
+     inlier flags that differ logged; K9's ms, its bound and the plain
+     route's ms; then the full scene's stage 3 with
+     fmat_source="opencv_lmeds", under the quality gates, with K9's
+     launches read from that run and its fmat_pairs_kernel counter
+     equal to the pairs.  Last, cube8 through run_pipeline with
      fmat_source="lmeds" and ba_steps=2 (K8 launched twice), under the
      quality gates;
   7. the debug images and the host tools on cube8 (phase 3's scene
@@ -222,6 +235,11 @@ index's build, the wrapper, its launch alone into preallocated outputs,
 each CUDA entry's device time and one LM step's wall; it needs no phase
 4, so an earlier checkout and this one compare in one call.
 
+    python3 chip_smoke.py --check-k9
+
+runs phase 6's K9 check alone on the full scene (`check_lmeds7`), its
+gates included, and prints its results as one JSON line.
+
     python3 chip_smoke.py --mesh-worker RANK WORLD PORT OUT [BACKEND]
 
 is one process of phase 8(b) (BACKEND gloo, the default) or (c) (nccl):
@@ -285,7 +303,13 @@ KERNEL_META = {
                       "edgegraph3d_tpu/matching/expansion.py:361"),
     "ba_blocks": ("edgegraph3d_tpu_torch/csrc/ba_blocks.cu",
                   "edgegraph3d_tpu/ops/ba.py:82"),
+    # K9 replaces no TPU kernel: the port's plain FM_LMEDS route
+    "lmeds7_fit": ("edgegraph3d_tpu_torch/csrc/lmeds7_fit.cu",
+                   "edgegraph3d_tpu_torch/ops/geometry.py:531"),
 }
+#: f64 operations of one OpenCV epipolar error as K9 forms it (err_bits:
+#: 12 fused multiply-adds, two squared norms, r * r, a division, a min)
+K9_ERROR_FLOPS = 33
 
 
 def log(*a):
@@ -1595,6 +1619,8 @@ MAIN_OUTPUTS = {}
 #: per run_main_path run: launches per kernel and dtype, and the wall
 MAIN_DTYPE_LAUNCHES = {}
 MAIN_WALLS = {}
+#: the stats counters of each run_main_path run through run_pipeline
+MAIN_COUNTERS = {}
 
 
 def run_main_path(name, scene, max_starting_views, stages=(1, 2, 3),
@@ -1666,6 +1692,7 @@ def run_main_path(name, scene, max_starting_views, stages=(1, 2, 3),
         else:
             log(stats.report())
             counts = dict(stats.counts)
+            MAIN_COUNTERS[name] = dict(stats.counters)
     peak = torch.cuda.max_memory_allocated()
     MAIN_OUTPUTS[name] = out
     qual = quality_metrics(out, sfmd, curves)
@@ -2150,6 +2177,138 @@ def check_lmeds(full, cfg, device="cuda"):
     if not bool(torch.isfinite(F_lm).all()) or not med_lm < 0.5:
         fail(f"LMedS F table: not finite, or median epipolar distance "
              f"{med_lm} px >= 0.5")
+
+
+def lmeds_table_inputs(sfmd, cfg, device="cuda"):
+    """refpoints.opencv_lmeds_fit's inputs on `device`: x1, x2 [P, n_max,
+    2], n_common [P] (host) and samples [P, T, 7] of every ordered pair
+    with at least max(fmat_min_common_points, 8) common refpoints."""
+    import numpy as np
+    import torch
+
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    from edgegraph3d_tpu_torch.ops import geometry
+    xy, mask = rp.dense_observations(sfmd)
+    m = mask.astype(np.int64)
+    common = m.T @ m
+    V = sfmd.n_cameras
+    least = max(cfg.fmat_min_common_points, 8)
+    pairs = np.asarray([(i, j) for i in range(V) for j in range(V)
+                        if i != j and common[i, j] >= least])
+    n = common[pairs[:, 0], pairs[:, 1]]
+    pi = torch.as_tensor(pairs, device=device)
+    x1, x2 = rp.common_points(torch.as_tensor(xy, device=device),
+                              torch.as_tensor(mask, device=device),
+                              pi[:, 0], pi[:, 1], int(n.max()))
+    samples = geometry.lmeds7_samples(
+        n, geometry.lmeds_trials(cfg.fmat_lmeds_confidence)).to(device)
+    return x1, x2, n, samples
+
+
+def check_lmeds7(full, cfg, results, device="cuda"):
+    """K9 lmeds7_fit on the full scene's OpenCV FM_LMEDS table against
+    its plain twin on the same samples (the plain route's chunks of
+    pairs), then the full scene's stage 3 with fmat_source="opencv_lmeds"
+    with the launch counts set to 0 just before it: K9's launches there,
+    which must be the route's chunks, and fmat_pairs_kernel, which must
+    be the pairs.  The bound counts one error pass over every model's
+    points; the selections' passes come on top.  Returns the launches."""
+    import torch
+
+    from edgegraph3d_tpu_torch import kernels
+    from edgegraph3d_tpu_torch.matching import refpoints as rp
+    from edgegraph3d_tpu_torch.ops import geometry, lmeds7
+
+    sfmd = full[0]
+    x1, x2, n, samples = lmeds_table_inputs(sfmd, cfg, device)
+    P, T = samples.shape[:2]
+    N = x1.shape[1]
+    chunk = rp.opencv_lmeds_chunk(sfmd.n_points, N, T, False)
+
+    def plain():
+        out = {}
+        for lo in range(0, P, chunk):
+            part = geometry.fundamental_lmeds_opencv(
+                x1[lo:lo + chunk], x2[lo:lo + chunk],
+                torch.as_tensor(n[lo:lo + chunk], device=device),
+                samples[lo:lo + chunk])
+            for k, v in part.items():
+                out.setdefault(k, []).append(v)
+        return {k: torch.cat(v) for k, v in out.items()}
+
+    got, ms = cuda_time(lambda: lmeds7.lmeds7_fit(x1, x2, n, samples), 5)
+    want, plain_ms = cuda_time(plain, 1)
+    got = {k: v.cpu() for k, v in got.items()}
+    want = {k: v.cpu() for k, v in want.items()}
+    both = got["valid"] & want["valid"]
+    same = both & (got["best"] // 3 == want["best"] // 3)
+    gap = torch.minimum((got["F"] - want["F"]).abs().amax((-2, -1)),
+                        (got["F"] + want["F"]).abs().amax((-2, -1)))
+    f_same = float(gap[same].max()) if bool(same.any()) else 0.0
+    rel = (got["score"][both].double() / want["score"][both].double()
+           - 1).abs()
+    score_rel = float(rel.max()) if bool(both.any()) else 0.0
+    share = float(same.sum()) / max(int(both.sum()), 1)
+    model_diff = int((got["models"] - want["models"]).abs().sum()
+                     + (got["no_model"] - want["no_model"]).abs().sum())
+    live = torch.arange(N)[None] < torch.as_tensor(n)[:, None]
+    inl_diff = int((got["inliers"] != want["inliers"])[same[:, None]
+                                                       & live].sum())
+    valid_mism = int((got["valid"] != want["valid"]).sum())
+    errors = float((want["models"] * torch.as_tensor(n)).sum())
+    work = (float(x1.numel() * 8 + samples.numel() * 8
+                  + P * 3 * T * (72 * 2 + 2) + P * N),
+            errors * K9_ERROR_FLOPS)
+    log(f"  lmeds7_fit: {P} pairs, up to {N} points, {T} samples, "
+        f"placed {kernels.LAST_PLACEMENT.get('lmeds7_fit')}; {errors:.6g} "
+        f"errors in one pass; valid mismatches {valid_mism}, model-count "
+        f"differences {model_diff} of {P * T} samples, same sample on "
+        f"{share:.6f} of the pairs valid on both, F gap there {f_same:.3g}, "
+        f"score rel {score_rel:.3g}, inlier flags differing on those pairs "
+        f"{inl_diff} of {int(live[same].sum())}")
+    record_into(results, "lmeds7_fit", valid_mism, P, f_same, ms, plain_ms,
+                1e-8, exact=True, work=work, library_ms=plain_ms,
+                peak=PEAK_F64_FLOPS)
+    results["lmeds7_fit"].update(
+        same_sample_share=share, score_rel=score_rel,
+        model_count_differences=model_diff, inlier_flags_differing=inl_diff)
+    if model_diff > DECISION_TOL * P * T:
+        fail(f"lmeds7_fit: {model_diff} model counts differ over {P * T} "
+             f"samples")
+    if share < 0.9 or not score_rel <= 0.02:
+        fail(f"lmeds7_fit: same sample on {share} of the pairs (< 0.9) or "
+             f"scores {score_rel} apart (> 0.02)")
+    del x1, x2, samples, got, want
+    torch.cuda.empty_cache()
+    name = "full stage 3 (opencv_lmeds)"
+    launches, _ = run_main_path(name, full, None, stages=(3,),
+                                config=cfg.replace(
+                                    fmat_source="opencv_lmeds"))
+    chunks = -(-P // rp.opencv_lmeds_chunk(sfmd.n_points, N, T, True))
+    kern = MAIN_COUNTERS[name].get("fmat_pairs_kernel")
+    log(f"  {name}: K9 launched {launches['lmeds7_fit']} times "
+        f"({chunks} chunks), fmat_pairs_kernel {kern} of {P} pairs")
+    if launches["lmeds7_fit"] != chunks or kern != P:
+        fail(f"{name}: K9 launched {launches['lmeds7_fit']} times, not "
+             f"{chunks}, or fmat_pairs_kernel {kern} != {P}")
+    return launches["lmeds7_fit"]
+
+
+def check_k9_alone() -> int:
+    """`--check-k9`: check_lmeds7 on the full scene in this process."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA GPU")
+    sys.path.insert(0, HERE)
+    from edgegraph3d_tpu_torch import kernels
+    log(card_name())
+    kernels.build(verbose=False)
+    kernels.lib()
+    results = {}
+    launches = check_lmeds7(full_scene(), bench_config(), results)
+    log(json.dumps(dict(results["lmeds7_fit"], launches=launches)))
+    log(json.dumps({"ok": True}))
+    return 0
 
 
 # ----------------------------------------------------------------------
@@ -3302,6 +3461,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches["ba_blocks"] = check_joint_ba(aug, results)
+    launches["lmeds7_fit"] = check_lmeds7(full, cfg, results)
     torch.cuda.empty_cache()
     # torch.profiler's CUDA trace has come back empty in this process
     # after phase 4 (PERF.md section 7), so K8's device times come from a
@@ -3828,6 +3988,8 @@ if __name__ == "__main__":
                              *sys.argv[6:]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k8":
         sys.exit(time_k8(sys.argv[2]))
+    if sys.argv[1:] == ["--check-k9"]:
+        sys.exit(check_k9_alone())
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k1-k6":
         sys.exit(time_k1_k6(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k5":

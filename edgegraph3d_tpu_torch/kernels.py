@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels (csrc/*.cu).
 
-All eight kernels (K1-K7 of the main path and K8 of joint BA) live in
-one shared library with a plain C interface, compiled by nvcc for Hopper
-(sm_90a) at first use into `_build/` and loaded with ctypes.  The
+All nine kernels (K1-K7 of the main path, K8 of joint BA and K9 of
+OpenCV's FM_LMEDS F table) live in one shared library with a plain C
+interface, compiled by nvcc for Hopper (sm_90a) at first use into
+`_build/` and loaded with ctypes.  The
 library is rebuilt when any source is newer than it.  Each C entry
 launches on the caller's stream and returns `cudaGetLastError()`;
 `check()` raises on non-zero.  Every wrapper calls its C entry inside
@@ -13,13 +14,14 @@ given, not on the thread's current device (a mesh's shards sit on
 
 `LAUNCHES[name][dtype]` counts the launches of kernel `name`'s
 instantiation for one compute type ("float32", or "float64" for the f64
-bodies of K1-K5 and K7 that EdgeGraphConfig(dtype="float64") runs);
+bodies of K1-K5 and K7 that EdgeGraphConfig(dtype="float64") runs, and
+for K9, which computes in float64 only);
 `launch_totals()` sums them per kernel.  The wrappers
 (detection.grid_topm_query / epipolar_topm_query,
 triangulation.triangulate_gn, following.follow_walk, gather.gather_rows,
 polyline_stages.group_seed_sample, expansion.expand_chains_compact,
-ba.ba_blocks) call `count_launch` right after each launch of their
-kernel and nowhere else.
+ba.ba_blocks, lmeds7.lmeds7_fit) call `count_launch` right after each
+launch of their kernel and nowhere else.
 
 A wrapper picks its instantiation from the promoted type of its float
 inputs, as jnp.result_type would under x64 (`compute_dtype`); it widens
@@ -55,8 +57,9 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 MAIN_PATH_KERNELS = ("grid_topm_query", "epipolar_topm_query",
                      "triangulate_gn", "follow_walk", "gather_rows",
                      "group_seed_sample", "expand_chains")
-#: K8 runs only with joint BA (config.ba_steps > 0)
-KERNEL_NAMES = MAIN_PATH_KERNELS + ("ba_blocks",)
+#: K8 runs only with joint BA (config.ba_steps > 0), K9 (float64 only)
+#: only with fmat_source="opencv_lmeds"
+KERNEL_NAMES = MAIN_PATH_KERNELS + ("ba_blocks", "lmeds7_fit")
 #: the kernels with a float64 instantiation (the stage-3 path's)
 F64_KERNELS = ("grid_topm_query", "epipolar_topm_query", "triangulate_gn",
                "follow_walk", "gather_rows", "expand_chains")
@@ -127,6 +130,12 @@ _SIGNATURES = {
     "eg3d_ba_blocks": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _F,
                        _P, _P, _P, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # n_stage -> shared-memory bytes of a K9 scoring block
+    "eg3d_lmeds7_smem": [_L],
+    # x1, x2, N, n_stage, samples, n_common, P, T, place, min_valid,
+    # models, ok, counts, F, score, best, valid, inliers, stream
+    "eg3d_lmeds7_fit": [_P, _P, _L, _L, _P, _P, _L, _I, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -194,7 +203,7 @@ SMEM_STATIC_BYTES = 48 * 1024
 H100_SMEM_OPTIN_BYTES = 232_448
 #: where a launch places a per-block table; the index is the `place`
 #: argument of the C entries that stage one (K3's general body, K6, K7,
-#: K8's point kernel)
+#: K8's point kernel, K9's scoring kernel)
 PLACEMENTS = ("static", "optin", "global")
 #: the placement each of those kernels' last launch used (for logs)
 LAST_PLACEMENT: dict[str, str] = {}

@@ -188,9 +188,29 @@ def lmeds_fundamental_table(sfmd: SfMData, config: EdgeGraphConfig,
 
 
 #: the most bytes the [pairs, models, points] work of one chunk of
-#: opencv_lmeds_fit may take: about 64 B a (model, point), the f64
-#: product rows, two f64 temporaries and the f32 errors
+#: opencv_lmeds_fit's plain route (the CPU) may take: about 64 B a
+#: (model, point), the f64 product rows, two f64 temporaries and the f32
+#: errors
 OPENCV_LMEDS_CHUNK_BYTES = 4 << 30
+#: the most bytes one chunk of opencv_lmeds_fit may take on the card:
+#: common_points' work over every refpoint (the pair mask, its int64
+#: sort and the gathers, about 48 B a refpoint), the pair's points and
+#: inliers (17 B a point) and K9's models (73 B a model slot)
+OPENCV_LMEDS_CARD_CHUNK_BYTES = 2 << 30
+
+
+def opencv_lmeds_chunk(n_refpoints: int, n_max: int, trials: int,
+                       on_card: bool) -> int:
+    """Pairs a chunk of opencv_lmeds_fit, whose pairs hold up to n_max
+    of n_refpoints common refpoints and draw `trials` samples: on the
+    card as many as keep common_points and K9 under
+    OPENCV_LMEDS_CARD_CHUNK_BYTES (dtu49's 2,352 pairs are one chunk), on
+    the CPU as many as keep the plain twin under
+    OPENCV_LMEDS_CHUNK_BYTES."""
+    if on_card:
+        pair = 48 * n_refpoints + 17 * n_max + 73 * 3 * trials
+        return max(1, OPENCV_LMEDS_CARD_CHUNK_BYTES // pair)
+    return max(1, OPENCV_LMEDS_CHUNK_BYTES // (3 * trials * n_max * 64))
 
 
 @dataclass
@@ -207,6 +227,7 @@ class LMedsFit:
     best: torch.Tensor          # [P] sample * 3 + root
     models: torch.Tensor        # [P] models scored
     no_model: torch.Tensor      # [P] samples without a model
+    pairs_kernel: int = 0       # pairs scored by K9 (all on the card)
 
 
 def common_points(obs_xy, obs_mask, i, j, n_max: int):
@@ -228,11 +249,12 @@ def opencv_lmeds_fit(sfmd: SfMData, config: EdgeGraphConfig,
     on its own.  lmeds_trials(config.fmat_lmeds_confidence) samples a
     pair (300 at 0.99), drawn once for all pairs (lmeds7_samples), so
     that the fit depends on neither the chunk nor the device but through
-    rounding.  Pairs are fit a chunk at a time, as many as keep the [pairs, 3T, points] work
-    under OPENCV_LMEDS_CHUNK_BYTES."""
-    from edgegraph3d_tpu_torch.ops.geometry import (fundamental_lmeds_opencv,
-                                                    lmeds7_samples,
+    rounding.  ops.lmeds7.lmeds7_fit fits a chunk of pairs at a time
+    (opencv_lmeds_chunk): on the card kernel K9, every chunk into the
+    same device tensors, read back once; on the CPU its plain twin."""
+    from edgegraph3d_tpu_torch.ops.geometry import (lmeds7_samples,
                                                     lmeds_trials)
+    from edgegraph3d_tpu_torch.ops.lmeds7 import lmeds7_fit
     dev = resolve_device(device)
     V = sfmd.n_cameras
     obs_xy, obs_mask = dense_observations(sfmd)
@@ -246,29 +268,32 @@ def opencv_lmeds_fit(sfmd: SfMData, config: EdgeGraphConfig,
     trials = lmeds_trials(config.fmat_lmeds_confidence)
     samples = lmeds7_samples(n_common, trials)
     P = len(pairs)
-    out = dict(F=torch.zeros((P, 3, 3), dtype=torch.float64),
-               valid=torch.zeros(P, dtype=torch.bool),
-               score=torch.full((P,), float("inf")),
-               best=torch.zeros(P, dtype=torch.int64),
-               models=torch.zeros(P, dtype=torch.int64),
-               no_model=torch.zeros(P, dtype=torch.int64))
+    on_card = dev.type == "cuda"
+    zeros = lambda *shape, dtype=torch.int64: torch.zeros(
+        shape, dtype=dtype, device=dev)
+    out = dict(F=zeros(P, 3, 3, dtype=torch.float64),
+               valid=zeros(P, dtype=torch.bool),
+               score=torch.full((P,), float("inf"), device=dev),
+               best=zeros(P), models=zeros(P), no_model=zeros(P))
     if P:
         xy = torch.as_tensor(obs_xy, device=dev)           # [N,V,2]
         mask = torch.as_tensor(obs_mask, device=dev)
-        chunk = max(1, OPENCV_LMEDS_CHUNK_BYTES
-                    // (3 * trials * int(n_common.max()) * 64))
+        pi = torch.as_tensor(pairs, device=dev)
+        s = samples.to(dev)
+        chunk = opencv_lmeds_chunk(len(obs_xy), int(n_common.max()),
+                                   trials, on_card)
         for lo in range(0, P, chunk):
             sl = slice(lo, lo + chunk)
-            n = torch.as_tensor(n_common[sl])
-            pi = torch.as_tensor(pairs[sl], device=dev)
-            x1, x2 = common_points(xy, mask, pi[:, 0], pi[:, 1],
+            n = n_common[sl]
+            x1, x2 = common_points(xy, mask, pi[sl, 0], pi[sl, 1],
                                    int(n.max()))
-            fit = fundamental_lmeds_opencv(
-                x1, x2, n, samples[sl],
-                min_points=config.fmat_min_common_points)
+            fit = lmeds7_fit(x1, x2, n, s[sl],
+                             min_points=config.fmat_min_common_points)
             for k, v in out.items():
-                v[sl] = fit[k].cpu()
-    return LMedsFit(pairs=pairs, n_common=n_common, samples=samples, **out)
+                v[sl] = fit[k]
+    return LMedsFit(pairs=pairs, n_common=n_common, samples=samples,
+                    pairs_kernel=P if on_card else 0,
+                    **{k: v.cpu() for k, v in out.items()})
 
 
 def opencv_lmeds_fundamental_table(sfmd: SfMData, config: EdgeGraphConfig,
@@ -279,8 +304,9 @@ def opencv_lmeds_fundamental_table(sfmd: SfMData, config: EdgeGraphConfig,
     production path (geometric_utilities.cpp:750-781).  Pairs with too
     few common points, or no fit, get the (0,0,1) sentinel, as in
     lmeds_fundamental_table.  The counters fmat_pairs_fit,
-    fmat_pairs_sentinel, fmat_models_scored and fmat_samples_no_model of
-    `stats` count the fit."""
+    fmat_pairs_sentinel, fmat_models_scored, fmat_samples_no_model and
+    fmat_pairs_kernel (the pairs K9 scored: all on the card, none on the
+    CPU) of `stats` count the fit."""
     V = sfmd.n_cameras
     fit = opencv_lmeds_fit(sfmd, config, device)
     F = torch.zeros((V, V, 3, 3), dtype=torch.float64)
@@ -291,7 +317,8 @@ def opencv_lmeds_fundamental_table(sfmd: SfMData, config: EdgeGraphConfig,
     _stats(stats).counters.update(
         fmat_pairs_fit=n_fit, fmat_pairs_sentinel=V * (V - 1) - n_fit,
         fmat_models_scored=int(fit.models.sum()),
-        fmat_samples_no_model=int(fit.no_model.sum()))
+        fmat_samples_no_model=int(fit.no_model.sum()),
+        fmat_pairs_kernel=fit.pairs_kernel)
     return F.to(context_dtype(config))
 
 

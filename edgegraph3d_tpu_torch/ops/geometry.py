@@ -573,7 +573,20 @@ def fundamental_lmeds_opencv(x1: torch.Tensor, x2: torch.Tensor,
         b = scores.argmin(-1, keepdim=True)
         score = scores.gather(1, b)[:, 0]
         best = order.gather(1, b)[:, 0]
-    F = Fs[torch.arange(P, device=dev), best]
+    F, valid, inliers = lmeds_opencv_finish(
+        Fs[torch.arange(P, device=dev), best], score, x1, x2, n, min_points)
+    return dict(F=F, valid=valid, score=score, best=best, inliers=inliers,
+                models=models, no_model=no_model)
+
+
+def lmeds_opencv_finish(F: torch.Tensor, score: torch.Tensor,
+                        x1: torch.Tensor, x2: torch.Tensor, n: torch.Tensor,
+                        min_points: int = 10):
+    """The last step of fundamental_lmeds_opencv, from each pair's winner
+    F [P, 3, 3] and its score [P] (f32): the inliers [P, N] (err <=
+    sigma^2 among the pair's n points), valid [P] and F at unit Frobenius
+    norm."""
+    dev = x1.device
     err = cv_epipolar_error(F[:, None], x1, x2)[:, 0]
     sigma = (2.5 * 1.4826 * (1.0 + 5.0 / (n - CV_MODEL_POINTS).clamp_min(1))
              * torch.sqrt(score.double())).clamp_min(0.001)
@@ -582,5 +595,4 @@ def fundamental_lmeds_opencv(x1: torch.Tensor, x2: torch.Tensor,
     valid = ((n >= max(min_points, CV_MODEL_POINTS + 1))
              & torch.isfinite(score) & (inliers.sum(-1) >= CV_MODEL_POINTS))
     F = F / torch.linalg.matrix_norm(F, keepdim=True).clamp_min(1e-300)
-    return dict(F=F, valid=valid, score=score, best=best, inliers=inliers,
-                models=models, no_model=no_model)
+    return F, valid, inliers

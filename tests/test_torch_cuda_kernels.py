@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels (K1-K7) against their plain-torch twins.
+"""Hand-written CUDA kernels (K1-K9) against their plain-torch twins.
 
 Runs only where a CUDA GPU and nvcc are present (marker `cuda`); the
 kernels are built from edgegraph3d_tpu_torch/csrc at first use.  This
@@ -23,13 +23,13 @@ import numpy as np
 import pytest
 import torch
 
-from edgegraph3d_tpu_torch import kernels
+from edgegraph3d_tpu_torch import kernels, pipeline
 from edgegraph3d_tpu_torch.config import EdgeGraphConfig
 from edgegraph3d_tpu_torch.core import synthetic
 from edgegraph3d_tpu_torch.matching import (communities, detection,
                                             expansion, following, matches,
                                             polyline_stages, refpoints)
-from edgegraph3d_tpu_torch.ops import triangulation
+from edgegraph3d_tpu_torch.ops import geometry, lmeds7, triangulation
 from edgegraph3d_tpu_torch.ops.gather import gather_rows
 from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs
 
@@ -1636,3 +1636,228 @@ def test_f64_stage3_on_gpu_matches_cpu(scene64):
     assert len(gpu.X) == len(cpu.X) > 0
     np.testing.assert_array_equal(gpu.obs_mask, cpu.obs_mask)
     np.testing.assert_allclose(gpu.X, cpu.X, rtol=0, atol=F64_TOL)
+
+
+# ----------------------------------------------------------------------
+# K9 lmeds7_fit: OpenCV's FM_LMEDS over every pair at once
+# ----------------------------------------------------------------------
+
+LMEDS_CFG = EdgeGraphConfig().replace(fmat_source="opencv_lmeds")
+
+
+def _unit_gap(a, b):
+    """Largest entry difference of unit-Frobenius F up to sign, per pair."""
+    return torch.minimum((a - b).abs().amax((-2, -1)),
+                         (a + b).abs().amax((-2, -1)))
+
+
+def _lmeds_inputs(sfmd, dev, trials=300):
+    """fundamental_lmeds_opencv's inputs for every ordered pair of sfmd
+    with at least 8 common refpoints, on dev."""
+    xy, mask = refpoints.dense_observations(sfmd)
+    m = mask.astype(np.int64)
+    common = m.T @ m
+    V = sfmd.n_cameras
+    pairs = np.asarray([(i, j) for i in range(V) for j in range(V)
+                        if i != j and common[i, j] >= 8])
+    n = torch.as_tensor(common[pairs[:, 0], pairs[:, 1]])
+    pi = torch.as_tensor(pairs, device=dev)
+    x1, x2 = refpoints.common_points(
+        torch.as_tensor(xy, device=dev), torch.as_tensor(mask, device=dev),
+        pi[:, 0], pi[:, 1], int(n.max()))
+    return x1, x2, n, geometry.lmeds7_samples(n, trials)
+
+
+def _assert_lmeds_agree(got, want, decided=None):
+    """K9 against the plain twin on the same samples: the same validity
+    and the same models and samples without one a pair; on the pairs
+    `decided` (all by default) the same winning sample and inliers, F
+    within 1e-9 per entry and the scores within 1e-6 relative.  The
+    root's index within the sample (best % 3) follows the null space's
+    basis, which the two find differently."""
+    got = {k: v.cpu() for k, v in got.items() if torch.is_tensor(v)}
+    want = {k: v.cpu() for k, v in want.items() if torch.is_tensor(v)}
+    for k in ("valid", "models", "no_model"):
+        assert torch.equal(got[k], want[k]), k
+    d = torch.ones_like(want["valid"]) if decided is None else decided
+    assert torch.equal(got["best"][d] // 3, want["best"][d] // 3)
+    assert torch.equal(got["inliers"][d], want["inliers"][d])
+    ok = want["valid"] & d
+    gap = _unit_gap(got["F"][ok], want["F"][ok])
+    assert gap.numel() == 0 or float(gap.max()) < 1e-9
+    fin = torch.isfinite(want["score"]) & d
+    assert torch.equal(torch.isfinite(got["score"]) & d, fin)
+    rel = got["score"][fin].double() / want["score"][fin].double() - 1
+    assert rel.numel() == 0 or float(rel.abs().max()) <= 1e-6
+
+
+@pytest.fixture(scope="module")
+def noisy_refpoints(cuda):
+    """test_torch_fmat_opencv.py's scene: 6 views, 300 refpoints carrying
+    0.5 px of noise, so that no two samples tie."""
+    sfmd, _, _ = synthetic.make_dtu_scale_scene(
+        n_cams=6, n_refpoints=300, width=400, height_px=300, focal=550.0,
+        seed=1)
+    rng = np.random.default_rng(0)
+    sfmd.obs_xy = [x + rng.normal(0, 0.5, x.shape) for x in sfmd.obs_xy]
+    return sfmd
+
+
+def test_lmeds7_fit_matches_plain(noisy_refpoints, cuda):
+    x1, x2, n, samples = _lmeds_inputs(noisy_refpoints, cuda)
+    n0 = kernels.LAUNCHES["lmeds7_fit"]["float64"]
+    got = lmeds7.lmeds7_fit(x1, x2, n, samples)
+    assert kernels.LAUNCHES["lmeds7_fit"]["float64"] == n0 + 1
+    assert kernels.LAST_PLACEMENT["lmeds7_fit"] == "static"
+    want = geometry.fundamental_lmeds_opencv(x1, x2, n.to(cuda), samples)
+    torch.cuda.synchronize()
+    assert bool(want["valid"].all())
+    _assert_lmeds_agree(got, want)
+
+
+def test_lmeds7_table_on_card_matches_cpu(noisy_refpoints, cuda):
+    """opencv_lmeds_fit on the card (K9, every pair at once) against the
+    plain twin's chunked route on the CPU; fmat_pairs_kernel counts the
+    pairs K9 scored."""
+    sfmd = noisy_refpoints
+    card = refpoints.opencv_lmeds_fit(sfmd, LMEDS_CFG, cuda)
+    cpu = refpoints.opencv_lmeds_fit(sfmd, LMEDS_CFG, "cpu")
+    assert card.pairs_kernel == len(card.pairs) == 30
+    assert cpu.pairs_kernel == 0
+    none = torch.zeros((len(cpu.pairs), 1))
+    _assert_lmeds_agree(dict(vars(card), inliers=none),
+                        dict(vars(cpu), inliers=none))
+    assert torch.equal(card.samples, cpu.samples)
+    stats = pipeline.PipelineStats()
+    refpoints.opencv_lmeds_fundamental_table(sfmd, LMEDS_CFG, cuda, stats)
+    assert stats.counters["fmat_pairs_kernel"] == 30
+
+
+def test_lmeds7_card_chunks_do_not_change_the_fit(noisy_refpoints, cuda,
+                                                  monkeypatch):
+    """One pair a chunk on the card (30 launches of K9, each into its
+    rows of the same device tensors) gives the one-chunk fit bit for
+    bit."""
+    sfmd = noisy_refpoints
+    whole = refpoints.opencv_lmeds_fit(sfmd, LMEDS_CFG, cuda)
+    monkeypatch.setattr(refpoints, "OPENCV_LMEDS_CARD_CHUNK_BYTES", 1)
+    n0 = kernels.LAUNCHES["lmeds7_fit"]["float64"]
+    part = refpoints.opencv_lmeds_fit(sfmd, LMEDS_CFG, cuda)
+    assert kernels.LAUNCHES["lmeds7_fit"]["float64"] == n0 + 30
+    assert part.pairs_kernel == 30
+    for k in ("F", "valid", "score", "best", "models", "no_model"):
+        assert torch.equal(getattr(part, k), getattr(whole, k)), k
+
+
+def _far_pairs(ns, seed, outliers=0.2):
+    """Pairs of noisy correspondences (0.5 px, a share `outliers` moved
+    30-80 px) of two 640x480 views, n[p] points each, padded to the
+    largest: x1, x2 [P, N, 2] f32 on the CPU."""
+    rng = np.random.default_rng(seed)
+    N = max(ns)
+    x1 = np.zeros((len(ns), N, 2), np.float32)
+    x2 = np.zeros_like(x1)
+    K = np.array([[800.0, 0, 320], [0, 800.0, 240], [0, 0, 1]])
+    for p, n in enumerate(ns):
+        X = rng.uniform(-1, 1, (n, 3)) + [0, 0, 5]
+        t = rng.normal(0, 1, 3)
+        w = rng.normal(0, 0.2, 3)
+        th = np.linalg.norm(w)
+        k = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]],
+                      [-w[1], w[0], 0]]) / th
+        R = np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k
+        for out, (Rc, tc) in ((x1, (np.eye(3), np.zeros(3))), (x2, (R, t))):
+            h = (X @ Rc.T + tc) @ K.T
+            out[p, :n] = h[:, :2] / h[:, 2:] + rng.normal(0, 0.5, (n, 2))
+        bad = rng.random(n) < outliers
+        x2[p, :n][bad] += rng.uniform(30, 80, (int(bad.sum()), 2))
+    return torch.as_tensor(x1), torch.as_tensor(x2)
+
+
+def test_lmeds7_fit_streams_pairs_above_shared_memory(cuda):
+    """Pairs larger than the opt-in shared memory holds (over 14,012)
+    are read from device memory, with the same results."""
+    ns = [15000, 9001, 14500]
+    x1, x2 = (t.to(cuda) for t in _far_pairs(ns, 3))
+    n = torch.tensor(ns)
+    samples = geometry.lmeds7_samples(n, 300)
+    got = lmeds7.lmeds7_fit(x1, x2, n, samples)
+    assert kernels.LAST_PLACEMENT["lmeds7_fit"] == "global"
+    want = geometry.fundamental_lmeds_opencv(x1, x2, n.to(cuda), samples)
+    torch.cuda.synchronize()
+    assert bool(want["valid"].all())
+    _assert_lmeds_agree(got, want)
+
+
+def test_lmeds7_fit_small_pairs_and_samples_without_a_model(cuda):
+    """Pairs under max(min_points, 8) points are fit but not valid; a
+    pair whose points coincide in both views, or in one, has no model at
+    all (no spread).  Under 14 points the upper median falls among a
+    sample's own 7 points, so rounding picks the winner there: those
+    pairs are held to the same decisions only."""
+    ns = [7, 9, 40, 40, 40]
+    x1, x2 = _far_pairs(ns, 4, outliers=0.0)
+    x1[2, :40] = x1[2, 0]
+    x2[2, :40] = x2[2, 0]
+    x1[3, :40] = x1[3, 0]
+    x1, x2 = x1.to(cuda), x2.to(cuda)
+    n = torch.tensor(ns)
+    samples = geometry.lmeds7_samples(n, 45)
+    got = lmeds7.lmeds7_fit(x1, x2, n, samples, min_points=10)
+    want = geometry.fundamental_lmeds_opencv(x1, x2, n.to(cuda), samples,
+                                             min_points=10)
+    torch.cuda.synchronize()
+    assert want["valid"].tolist() == [False, False, False, False, True]
+    assert want["models"][2] == want["models"][3] == 0
+    assert want["no_model"][2] == want["no_model"][3] == 45
+    assert bool(torch.isinf(want["score"][2]))
+    assert want["models"][0] > 0
+    _assert_lmeds_agree(got, want, decided=n >= 14)
+
+
+@pytest.mark.parametrize("n", [1, 2556, 2557, 6268, 14012])
+def test_lmeds7_smem_bytes(cuda, n):
+    assert kernels.lib().eg3d_lmeds7_smem(n) == lmeds7.smem_bytes(n)
+
+
+def test_lmeds7_fit_full_size_within_the_tools_tolerances(cuda):
+    """dtu49_cvlmeds at full size (2,352 pairs of 6,268 noise-free
+    refpoints, 300 samples), one seed: K9's table against the plain
+    twin's on the card (its chunk loop, as the route was before K9),
+    within tools/check_fmat_on_card.py's tolerances."""
+    import json
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    import check_fmat_on_card as tool
+    from h100bench import scenes
+    from h100bench.run import edge_graph_config, program_scene
+
+    with open(os.path.join(root, "h100bench", "configs",
+                           "dtu49_cvlmeds.json")) as f:
+        conf = json.load(f)
+    scene = scenes.make(conf["scene"], 2718281828)
+    cfg = edge_graph_config(conf)
+    sfmd = program_scene(scene)
+    fit = refpoints.opencv_lmeds_fit(sfmd, cfg, cuda)
+    assert fit.pairs_kernel == len(fit.pairs) == 2352
+    x1, x2, n, samples = _lmeds_inputs(sfmd, cuda)
+    assert torch.equal(samples, fit.samples)
+    want = {k: [] for k in ("F", "valid", "score", "best")}
+    for lo in range(0, len(n), 11):
+        part = geometry.fundamental_lmeds_opencv(
+            x1[lo:lo + 11], x2[lo:lo + 11], n[lo:lo + 11].to(cuda),
+            samples[lo:lo + 11])
+        for k in want:
+            want[k].append(part[k].cpu())
+    want = {k: torch.cat(v) for k, v in want.items()}
+    ref = [dict(F=want["F"][p].numpy() if want["valid"][p] else None,
+                score=float(want["score"][p]),
+                sample=int(want["best"][p]) // 3)
+           for p in range(len(n))]
+    xy, mask = tool.dense(scene)
+    points = [tool.common_points(xy, mask, int(i), int(j))
+              for i, j in fit.pairs]
+    nums = tool.compare(fit, ref, points, "cuda")
+    for name, (tol, sense) in tool.TOLERANCES.items():
+        v = nums[name]
+        assert (v <= tol if sense == "max" else v >= tol), (name, v, nums)

@@ -225,6 +225,52 @@ def test_chunks_do_not_change_the_fit(noisy_scene, monkeypatch):
                                    rtol=1e-12, atol=0)
 
 
+def test_card_sized_chunks_do_not_change_the_fit(noisy_scene, monkeypatch):
+    """The chunks the card takes (opencv_lmeds_chunk with on_card), here
+    at a budget of 7 pairs, so that the last of 5 chunks is short, give
+    the one-chunk fit: every chunk lands in its rows of the outputs."""
+    sfmd, _ = noisy_scene
+    whole = rp.opencv_lmeds_fit(sfmd, CFG, "cpu")
+    chunk = rp.opencv_lmeds_chunk
+    n_ref, n_max = sfmd.n_points, int(whole.n_common.max())
+    monkeypatch.setattr(rp, "OPENCV_LMEDS_CARD_CHUNK_BYTES",
+                        7 * (48 * n_ref + 17 * n_max + 73 * 900) + 1)
+    assert chunk(n_ref, n_max, 300, True) == 7
+    seen = []
+
+    def card_chunk(n_refpoints, n_max, trials, on_card):
+        seen.append(on_card)
+        return chunk(n_refpoints, n_max, trials, True)
+
+    monkeypatch.setattr(rp, "opencv_lmeds_chunk", card_chunk)
+    part = rp.opencv_lmeds_fit(sfmd, CFG, "cpu")
+    assert seen == [False] and len(whole.pairs) == 30
+    for k in ("F", "valid", "score", "best", "models", "no_model"):
+        torch.testing.assert_close(getattr(part, k), getattr(whole, k),
+                                   rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("n_ref,n_max,trials,on_card,pairs", [
+    (6268, 6268, 300, True, 4538),         # dtu49: its 2,352 pairs at once
+    (100_000, 30_000, 300, True, 399),     # 300 views of 100k refpoints
+    (6268, 6268, 300, False, 11),          # the CPU's plain route
+    (6268, 6268, 45, False, 79)])
+def test_chunk_keeps_the_work_under_its_budget(n_ref, n_max, trials,
+                                               on_card, pairs):
+    """opencv_lmeds_chunk: the pairs of a chunk, at most the budget's
+    bytes of work (common_points over every refpoint, the pair's points
+    and K9's models on the card; the plain twin's [pairs, 3T, points]
+    work on the CPU)."""
+    got = rp.opencv_lmeds_chunk(n_ref, n_max, trials, on_card)
+    assert got == pairs
+    if on_card:
+        pair = 48 * n_ref + 17 * n_max + 73 * 3 * trials
+        assert got * pair <= rp.OPENCV_LMEDS_CARD_CHUNK_BYTES \
+            < (got + 1) * pair
+    else:
+        assert got * 3 * trials * n_max * 64 <= rp.OPENCV_LMEDS_CHUNK_BYTES
+
+
 @pytest.mark.parametrize("confidence,trials", [(0.99, 300), (0.5, 45)])
 def test_confidence_sets_the_trials(noisy_scene, confidence, trials):
     """fmat_lmeds_confidence sets the samples a pair, as findFundamentalMat's
@@ -252,7 +298,19 @@ def test_too_few_common_points_get_the_sentinel(noisy_scene):
     assert stats.counters == dict(fmat_pairs_fit=0,
                                   fmat_pairs_sentinel=V * (V - 1),
                                   fmat_models_scored=0,
-                                  fmat_samples_no_model=0)
+                                  fmat_samples_no_model=0,
+                                  fmat_pairs_kernel=0)
+
+
+def test_fmat_pairs_kernel_is_zero_on_the_cpu(noisy_scene):
+    """fmat_pairs_kernel counts the pairs K9 scored on the card: none on
+    the CPU, where the plain twin fits every pair."""
+    sfmd, _ = noisy_scene
+    stats = tp.PipelineStats()
+    rp.opencv_lmeds_fundamental_table(sfmd, CFG, "cpu", stats)
+    assert stats.counters["fmat_pairs_fit"] == 30
+    assert stats.counters["fmat_pairs_kernel"] == 0
+    assert rp.opencv_lmeds_fit(sfmd, CFG, "cpu").pairs_kernel == 0
 
 
 def test_unknown_fmat_source_raises(noisy_scene):

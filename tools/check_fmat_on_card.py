@@ -7,10 +7,12 @@ against the plain reference (h100bench/lmeds_reference.py) on the same
         [--device cuda] [--scene '{"n_cams": 6}'] [--out FILE]
 
 It builds the configuration's seeded scene (h100bench/scenes.py), fits
-every ordered pair with the program (refpoints.opencv_lmeds_fit, timed
-twice, the first run warming cuSOLVER up), fits each pair again with the
-reference on the program's samples, and prints one JSON line: the fit's
-seconds and each compared number beside its tolerance.  It exits 0 when
+every ordered pair with the program (refpoints.opencv_lmeds_fit: on the
+card kernel K9, a chunk of pairs a launch, one chunk at dtu49; timed
+twice, the first run loading the kernel library and the torch kernels
+it first uses), fits each pair again with the reference on the
+program's samples, and prints one JSON line: the fit's seconds and each
+compared number beside its tolerance.  It exits 0 when
 every number is within its tolerance, else 1.  `--scene` overrides keys
 of the configuration's scene (a small scene for a rehearsal on the CPU).
 
@@ -28,26 +30,30 @@ arithmetic; which step of it was not isolated.
   noise-free refpoints a score is the float32 rounding floor of the
   observations (an upper median of about 3.6e-10 px^2, a distance of
   1.9e-5 px), so it is as sensitive as a score can be: the two sides
-  reach the same model by other float64 arithmetic (the card's batched
-  SVD; closed-form roots against the interpolated cubic's companion
-  eigenvalues), which leaves
-  their F up to 4e-10 apart per entry (4e-11 moves a line ~4e-8 px,
-  0.2% of the distance).  Read: at most 4.1e-3, 4.0e-4 and 1.8e-3
-  (the program's model the better); the float32-solve copy 9.5.
+  reach the same model by other float64 arithmetic (the program's null
+  space by elimination in kernel K9, before it the card's batched SVD;
+  closed-form roots against the interpolated cubic's companion
+  eigenvalues), which leaves their F up to 2.5e-9 apart per entry (4e-11
+  moves a line ~4e-8 px, 0.2% of the distance).  Read with K9: at most
+  1.8e-4, 3.1e-4 and 1.0e-2, the program's model the better where they
+  differ most (with the plain route before it 4.1e-3, 4.0e-4, 1.8e-3);
+  the float32-solve copy 9.5.
 - `rescore_rel`: the reference's upper median of the program's F, over
   the reference's score, less 1, at most 0.02: the chosen F itself is as
   good as the reference's best, whatever the program's score says.
-  Read: at most 1.3e-4; the float32-solve copy 33.
+  Read: at most 3.0e-4 with K9 (1.3e-4 with the plain route); the
+  float32-solve copy 33.
 - `f_same_sample`: where both chose the same sample, the largest entry
   difference of the two unit-Frobenius F up to sign, at most 1e-8: the
   same 7 points give the same model up to float64 rounding.  Read: at
-  most 3.8e-10; the float32-solve copy 3.0e-5.
+  most 2.5e-9 with K9 (3.8e-10 with the plain route); the float32-solve
+  copy 3.0e-5.
 - `same_sample_share`: the share of pairs where both chose the same
   sample, at least 0.9: the same models win unless two samples score
   within rounding of each other.  Read: 1.0 on each seed; the
   float32-solve copy 0.012.
 
-A copy of the estimator with the 7-point solve in float32 (ops/
+A copy of the plain estimator with the 7-point solve in float32 (ops/
 geometry.py, fundamental_7point's dtype) fails all four of those.
 """
 
