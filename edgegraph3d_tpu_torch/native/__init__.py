@@ -7,10 +7,11 @@ first use with g++: the sequential chain tracing of PLG extraction
 filter (`density.cpp`).
 
 Unlike the JAX package's loader, this one never returns None: a build or
-load that fails raises RuntimeError with g++'s output.  The numpy twin in
-plgs/extraction.py computes different polylines (PARITY_EXTRACTION.md:
-exact polylines agree on 0.7025 of cases), so a silent switch to it
-would change the reconstruction.  Concurrent first uses (several
+load that fails raises RuntimeError with g++'s output, and the caller
+has no other path.  The JAX package falls back to a numpy formulation of
+extraction whose polylines differ (PARITY_EXTRACTION.md: exact polylines
+agree on 0.7025 of cases), so a silent switch to it would change the
+reconstruction.  Concurrent first uses (several
 processes, e.g. test workers) are safe: each compiles into a file of its
 own under an inter-process lock held around "is it built? else build",
 so a second process waits and loads the finished library.

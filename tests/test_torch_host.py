@@ -1,11 +1,11 @@
 """The port's copied host modules give byte-identical results to the
 JAX package's, plus the port's package-level precision pin.
 
-Covered: PLG extraction (native twin), build_grids, the SfM JSON round
-trip across the two packages, and the density filter (the native pass
-against the port's numpy twin and the JAX package's filter, each on its
-sequential and round-based paths).  Tolerance: none — arrays must be
-equal.
+Covered: PLG extraction (the C++ pass, on a scene and on images without
+edges), build_grids, the SfM JSON round trip across the two packages,
+and the density filter (the native pass against the JAX package's
+filter, on its sequential and round-based paths).  Tolerance: none —
+arrays must be equal.
 """
 
 import json
@@ -25,8 +25,6 @@ from edgegraph3d_tpu_torch.core import sfm as t_sfm
 from edgegraph3d_tpu_torch.core import synthetic as t_syn
 from edgegraph3d_tpu_torch.filtering.density import density_filter as \
     t_density
-from edgegraph3d_tpu_torch.filtering.density import density_filter_numpy as \
-    t_density_numpy
 from edgegraph3d_tpu_torch.matching.grid import build_grids as t_grids
 from edgegraph3d_tpu_torch.plgs.extraction import extract_plgs as t_extract
 from test_torch_native import require_jax_native_lib
@@ -50,15 +48,25 @@ def test_synthetic_scene_identical(scenes):
         np.testing.assert_array_equal(a, b)
 
 
-def test_plg_extraction_identical(scenes):
+@pytest.mark.parametrize("images", ["scene", "blank"])
+def test_plg_extraction_identical(scenes, images):
+    """The same stacks from both packages: on the scene's edge images,
+    and on four 240x320 images without an edge pixel."""
     require_jax_native_lib()
-    (_, imgs, _), _ = scenes
+    if images == "scene":
+        (_, imgs, _), _ = scenes
+    else:
+        imgs = np.zeros((4, 240, 320), dtype=np.uint8)
     js = j_extract(imgs, EdgeGraphConfig().replace(**KW))
     ts = t_extract(imgs, TConfig().replace(**KW))
     np.testing.assert_array_equal(js.coords, ts.coords)
     np.testing.assert_array_equal(js.length, ts.length)
     assert js.overflow_dropped == ts.overflow_dropped
-    assert (ts.length >= 2).sum() > 10
+    if images == "scene":
+        assert (ts.length >= 2).sum() > 10
+    else:
+        assert ts.coords.shape[0] == 4
+        assert not ts.length.any() and ts.overflow_dropped == 0
 
 
 def test_build_grids_identical(scenes):
@@ -181,23 +189,21 @@ DENSITY_CASES = dict(
     chains=_chains_case)
 
 
-@pytest.mark.parametrize("twin", ["sequential", "rounds"])
+@pytest.mark.parametrize("jax_path", ["sequential", "rounds"])
 @pytest.mark.parametrize("case", list(DENSITY_CASES))
-def test_density_filter_identical(case, twin):
-    """The native pass, the port's numpy twin and the JAX package's
-    filter give the same keep mask.  The twins cast NaN and +-inf to
-    int64 and say so; the native pass spells that cast out."""
+def test_density_filter_identical(case, jax_path):
+    """The native pass and the JAX package's filter, on its sequential
+    loop and on its claim rounds, give the same keep mask.  JAX's filter
+    casts NaN and +-inf to int64 and says so; the native pass spells
+    that cast out."""
     obs_xy, obs_mask, w, h = DENSITY_CASES[case]()
-    threshold = None if twin == "sequential" else 0
+    threshold = None if jax_path == "sequential" else 0
     native = t_density(obs_xy, obs_mask, w, h, cell=3)
     with np.errstate(invalid="ignore"):
-        a = j_density(obs_xy, obs_mask, w, h, cell=3,
-                      sequential_threshold=threshold)
-        b = t_density_numpy(obs_xy, obs_mask, w, h, cell=3,
-                            sequential_threshold=threshold)
+        ref = j_density(obs_xy, obs_mask, w, h, cell=3,
+                        sequential_threshold=threshold)
     assert native.dtype == bool and native.shape == (len(obs_xy),)
-    np.testing.assert_array_equal(native, a)
-    np.testing.assert_array_equal(native, b)
+    np.testing.assert_array_equal(native, ref)
     if case in ("random", "chains"):
         assert 0 < native.sum() < len(obs_xy)
     if case == "masked_rows":

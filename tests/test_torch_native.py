@@ -2,9 +2,9 @@
 
 The port builds each C++ library (extraction, density) under an
 inter-process lock into a file of its own per process, and raises on a
-failed build or load instead of falling back to a numpy twin.  The JAX
-package keeps its own loader, which can return None when several
-processes build at once; `require_jax_native_lib` makes sure the
+failed build or load: extraction and the density filter have no other
+path.  The JAX package keeps its own loader, which can return None when
+several processes build at once; `require_jax_native_lib` makes sure the
 reference side of a parity test runs its native path too.
 """
 
@@ -127,41 +127,14 @@ CFG = EdgeGraphConfig().replace(max_polylines_per_view=256,
 
 
 def test_native_failure_raises_not_falls_back(edge_image, monkeypatch):
-    """use_native=True (the default) raises when the library is
-    unavailable; it never runs the numpy twin instead."""
+    """extract_plg raises when the library is unavailable; it has no
+    other path to fall back to."""
     def broken():
         raise RuntimeError("native extraction build failed (1)")
 
-    def twin_called(*a, **k):
-        raise AssertionError("the numpy twin ran on the native path")
-
     monkeypatch.setattr(native, "get_extraction_lib", broken)
-    monkeypatch.setattr(extraction, "build_pixel_edges", twin_called)
     with pytest.raises(RuntimeError, match="build failed"):
         extraction.extract_plg(edge_image, CFG)
-
-
-def test_numpy_twin_runs_only_when_asked(edge_image, monkeypatch):
-    """use_native=False runs the numpy twin without touching the native
-    library; the default path runs the C++ chains."""
-    twin_edges = extraction.build_pixel_edges
-    calls = []
-
-    def spy(*a, **k):
-        calls.append(1)
-        return twin_edges(*a, **k)
-
-    monkeypatch.setattr(extraction, "build_pixel_edges", spy)
-    nat = extraction.extract_plg(edge_image, CFG)
-    assert calls == []
-
-    def no_native(*a, **k):
-        raise AssertionError("the native path ran with use_native=False")
-
-    monkeypatch.setattr(extraction, "extract_chains_native", no_native)
-    twin = extraction.extract_plg(edge_image, CFG, use_native=False)
-    assert calls == [1]
-    assert (twin.length >= 2).sum() > 5 and (nat.length >= 2).sum() > 5
 
 
 def test_jax_helper_recovers_from_a_lost_race(monkeypatch):
