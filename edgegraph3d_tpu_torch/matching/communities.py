@@ -1,9 +1,13 @@
 """Community detection for the stage-1 similarity graph.
 
 Port of edgegraph3d_tpu/matching/communities.py.  Label propagation (LP)
-runs in torch on the graph's device; modularity, the two Louvain passes,
-the LP-then-merge refinement and the method dispatch are the JAX
-package's host (numpy) code, copied.
+runs in torch on the graph's device.  Host Louvain's sequential
+local-moving pass runs in native C++ (native/louvain.cpp): the same
+float64 operations in the same order as the JAX package's numpy pass, so
+the tests hold its labels to that pass's exactly.  Modularity, Louvain's
+phases around the pass (degrees, CSR, aggregation), its batch-parallel
+pass for graphs above LOUVAIN_MAX_NODES, the LP-then-merge refinement
+and the method dispatch are the JAX package's host (numpy) code, copied.
 
 LP is synchronous weighted label propagation with ties toward the smaller
 label and an early exit once a round changes no label.  Every round sums
@@ -22,10 +26,14 @@ same tie rule, so one form serves every size here.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from edgegraph3d_tpu_torch import native
 from edgegraph3d_tpu_torch.devices import resolve_device
+from edgegraph3d_tpu_torch.pipeline import PipelineStats
 
 
 def _directed(edges: torch.Tensor, weights: torch.Tensor):
@@ -118,51 +126,35 @@ def modularity(edges: np.ndarray, weights: np.ndarray,
 
 
 def _louvain_one_level(indptr: np.ndarray, nbr: np.ndarray,
-                       w: np.ndarray, deg: np.ndarray,
-                       two_m: float) -> np.ndarray:
+                       w: np.ndarray, deg: np.ndarray, two_m: float,
+                       counters: dict | None = None) -> np.ndarray:
     """One sequential local-moving pass over a CSR adjacency: greedily
     move nodes to the neighbouring community with the best modularity
     gain until no move improves (active-queue scheduling, ties toward
-    the smaller community label)."""
+    the smaller community label), in one native call.  Adds the sweeps
+    run, the nodes visited and the moves made to `counters` under
+    louvain_sweeps, louvain_visits and louvain_moves."""
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    indptr = np.ascontiguousarray(indptr, np.int64)
+    nbr = np.ascontiguousarray(nbr, np.int64)
+    w = np.ascontiguousarray(w, np.float64)
+    deg = np.ascontiguousarray(deg, np.float64)
     n = len(deg)
-    labels = np.arange(n)
-    sum_tot = deg.copy()                       # per-community degree
-    active = np.ones(n, dtype=bool)
-    for _ in range(64):
-        idx = np.flatnonzero(active)
-        if len(idx) == 0:
-            break
-        active[:] = False
-        moved = False
-        for i in idx:
-            s, t = indptr[i], indptr[i + 1]
-            if s == t:
-                continue
-            ln = labels[nbr[s:t]]
-            o = np.argsort(ln, kind="stable")
-            lx, wx = ln[o], w[s:t][o]
-            starts = np.flatnonzero(
-                np.concatenate(([True], lx[1:] != lx[:-1])))
-            comms = lx[starts]                 # ascending
-            wc = np.add.reduceat(wx, starts)
-            ci = labels[i]
-            sum_tot[ci] -= deg[i]
-            gains = wc - deg[i] * sum_tot[comms] / two_m
-            p = np.searchsorted(comms, ci)
-            stay = (gains[p] if p < len(comms) and comms[p] == ci
-                    else -deg[i] * sum_tot[ci] / two_m)
-            j = int(np.argmax(gains))          # first max = smallest c
-            best_c, best_g = int(comms[j]), float(gains[j])
-            move = (best_g > stay + 1e-12
-                    or (abs(best_g - stay) <= 1e-12 and best_c < ci))
-            new_c = best_c if move else ci
-            labels[i] = new_c
-            sum_tot[new_c] += deg[i]
-            if new_c != ci:
-                moved = True
-                active[nbr[s:t]] = True
-        if not moved:
-            break
+    if len(indptr) != n + 1 or len(nbr) != len(w) \
+            or (n and indptr[-1] != len(nbr)):
+        raise ValueError("malformed CSR adjacency")
+    labels = np.empty(n, np.int64)
+    work = np.zeros(3, np.int64)
+    native.get_louvain_lib().eg3d_louvain_one_level(
+        indptr.ctypes.data_as(i64p), nbr.ctypes.data_as(i64p),
+        w.ctypes.data_as(f64p), deg.ctypes.data_as(f64p), n,
+        float(two_m), labels.ctypes.data_as(i64p),
+        work.ctypes.data_as(i64p))
+    if counters is not None:
+        for name, v in zip(("louvain_sweeps", "louvain_visits",
+                            "louvain_moves"), work):
+            counters[name] = counters.get(name, 0) + int(v)
     return labels
 
 
@@ -261,12 +253,23 @@ def _flat_ranges(starts: np.ndarray, ends: np.ndarray,
 
 def louvain_host(edges: np.ndarray, weights: np.ndarray,
                  n_nodes: int, max_phases: int = 10,
-                 parallel: bool | None = None) -> np.ndarray:
+                 parallel: bool | None = None,
+                 stats: PipelineStats | None = None) -> np.ndarray:
     """Multi-phase Louvain on the host: local moving to a modularity
     local optimum, aggregate communities into super-nodes, repeat until
     no phase merges anything.  `parallel` picks the local-moving pass:
     False = sequential, True = batch-parallel, None = sequential up to
-    LOUVAIN_MAX_NODES nodes."""
+    LOUVAIN_MAX_NODES nodes.  The call is the span louvain of `stats`,
+    and the sequential passes add their work to its counters."""
+    stats = stats if stats is not None else PipelineStats()
+    with stats.span("louvain"):
+        return _louvain_phases(edges, weights, n_nodes, max_phases,
+                               parallel, stats.counters)
+
+
+def _louvain_phases(edges, weights, n_nodes: int, max_phases: int,
+                    parallel: bool | None, counters: dict) -> np.ndarray:
+    """louvain_host's phases; the sequential passes add to `counters`."""
     edges = np.asarray(edges)
     weights = np.asarray(weights, np.float64)
     ok = (edges[:, 0] >= 0) & (edges[:, 1] >= 0) \
@@ -291,9 +294,12 @@ def louvain_host(edges: np.ndarray, weights: np.ndarray,
         ww2 = np.concatenate([w[ns], w[ns]])
         order = np.argsort(src, kind="stable")
         indptr = np.searchsorted(src[order], np.arange(n + 1))
-        level = _louvain_one_level_parallel if parallel \
-            else _louvain_one_level
-        lab = level(indptr, dst[order], ww2[order], deg, two_m)
+        if parallel:
+            lab = _louvain_one_level_parallel(indptr, dst[order],
+                                              ww2[order], deg, two_m)
+        else:
+            lab = _louvain_one_level(indptr, dst[order], ww2[order], deg,
+                                     two_m, counters)
         uniq, lab_c = np.unique(lab, return_inverse=True)
         total_map = lab_c[total_map]
         if len(uniq) == n:
@@ -319,10 +325,13 @@ def louvain_host(edges: np.ndarray, weights: np.ndarray,
 
 
 def refine_labels_by_modularity(edges: np.ndarray, weights: np.ndarray,
-                                labels: np.ndarray) -> np.ndarray:
+                                labels: np.ndarray,
+                                stats: PipelineStats | None = None
+                                ) -> np.ndarray:
     """LP-then-merge: aggregate the LP communities into super-nodes and
     run host Louvain on the community graph (merges over-split
-    communities; cannot split)."""
+    communities; cannot split).  Its Louvain call is a span louvain of
+    `stats`."""
     edges = np.asarray(edges)
     weights = np.asarray(weights, np.float64)
     ok = (edges[:, 0] >= 0) & (edges[:, 1] >= 0) \
@@ -340,7 +349,7 @@ def refine_labels_by_modularity(edges: np.ndarray, weights: np.ndarray,
     w2 = np.zeros(len(uk))
     np.add.at(w2, inv, w)
     e2 = np.stack([uk // n_c, uk % n_c], axis=1)
-    merged = louvain_host(e2, w2, n_c)
+    merged = louvain_host(e2, w2, n_c, stats=stats)
     return merged[lab_c]
 
 
@@ -352,7 +361,9 @@ LOUVAIN_MAX_NODES = 20_000
 def communities_from_edges(edges: np.ndarray, weights: np.ndarray,
                            n_nodes: int, n_iters: int = 30,
                            min_size: int = 2, method: str = "auto",
-                           device="cuda") -> list[np.ndarray]:
+                           device="cuda",
+                           stats: PipelineStats | None = None
+                           ) -> list[np.ndarray]:
     """Edge list -> list of node-id arrays (communities of >= min_size).
 
     Methods (as in the JAX package): "louvain" (host Louvain), "lp"
@@ -360,7 +371,9 @@ def communities_from_edges(edges: np.ndarray, weights: np.ndarray,
     modularity merge), "union" (the lp+merge and Louvain communities,
     deduplicated), "union3" (union plus the raw-LP communities) and
     "auto" (= union3).  `device` defaults to "cuda" and raises without a
-    GPU, whatever the method."""
+    GPU, whatever the method.  Each host Louvain call is a span louvain
+    of `stats`, its work in the counters louvain_sweeps, louvain_visits
+    and louvain_moves."""
     device = resolve_device(device)
     if len(edges) == 0 or n_nodes == 0:
         return []
@@ -389,8 +402,8 @@ def communities_from_edges(edges: np.ndarray, weights: np.ndarray,
         # raw-LP arm
         lp_labels = run_lp()
         a = to_comms(refine_labels_by_modularity(edges, weights,
-                                                 lp_labels))
-        b = to_comms(louvain_host(edges, weights, n_nodes))
+                                                 lp_labels, stats))
+        b = to_comms(louvain_host(edges, weights, n_nodes, stats=stats))
         if method == "union3":
             b = b + to_comms(lp_labels)
         seen = {frozenset(int(x) for x in c) for c in a}
@@ -402,9 +415,10 @@ def communities_from_edges(edges: np.ndarray, weights: np.ndarray,
                 out3.append(c)
         return out3
     if method == "louvain":
-        labels = louvain_host(edges, weights, n_nodes)
+        labels = louvain_host(edges, weights, n_nodes, stats=stats)
     else:
         labels = run_lp()
         if method == "lp+merge":
-            labels = refine_labels_by_modularity(edges, weights, labels)
+            labels = refine_labels_by_modularity(edges, weights, labels,
+                                                 stats)
     return to_comms(labels)

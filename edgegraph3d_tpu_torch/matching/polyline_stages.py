@@ -298,7 +298,8 @@ def similarity_match_sets(sfmd: SfMData, ctx: rp.MatchingContext,
     """Polyline-compatibility communities of the similarity graph, as
     [k, 2] (view, polyline) arrays with >= 3 distinct views, largest
     first.  The sub-phases are the spans stage1_close / graph /
-    communities of `stats` (a PipelineStats)."""
+    communities of `stats` (a PipelineStats); inside stage1_communities
+    each host Louvain call is a span louvain."""
     stats = stats if stats is not None else PipelineStats()
     graph = similarity_graph(sfmd, ctx, stats)
     if graph is None:
@@ -307,7 +308,8 @@ def similarity_match_sets(sfmd: SfMData, ctx: rp.MatchingContext,
     with stats.span("stage1_communities") as sp:
         comms = comm_mod.communities_from_edges(
             edges, weights, len(used), min_size=3,
-            method=ctx.config.community_method, device=ctx.device)
+            method=ctx.config.community_method, device=ctx.device,
+            stats=stats)
         sp.count = len(comms)
     return communities_to_match_sets(used, comms, ctx.plg_coords.shape[1],
                                      max_sets)

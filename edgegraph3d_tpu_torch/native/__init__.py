@@ -1,10 +1,12 @@
 """Native (C++) host-runtime components, loaded via ctypes.
 
 The reference's runtime outside the compute kernels is C++; here the
-host-side passes that cannot ride the device have a C++ path compiled on
+host-side passes that cannot ride the device run in C++ compiled on
 first use with g++: the sequential chain tracing of PLG extraction
-(`extraction.cpp`) and the sequential first-claim pass of the density
-filter (`density.cpp`).
+(`extraction.cpp`), the sequential first-claim pass of the density
+filter (`density.cpp`) and the sequential local-moving pass of host
+Louvain (`louvain.cpp`, built with `-ffp-contract=off` so that its
+float64 gains round as numpy's do).
 
 Unlike the JAX package's loader, this one never returns None: a build or
 load that fails raises RuntimeError with g++'s output, and the caller
@@ -39,13 +41,15 @@ class Library:
 
     `src` and `so` are read at build time (tests point them at a fresh
     directory); the lock file is `so + ".lock"`.  `entries` maps each
-    exported C function to (restype, argtypes)."""
+    exported C function to (restype, argtypes); `flags` are added to
+    g++'s command line."""
 
-    def __init__(self, name: str, entries: dict):
+    def __init__(self, name: str, entries: dict, flags: tuple = ()):
         self.name = name
         self.src = os.path.join(_DIR, f"{name}.cpp")
         self.so = os.path.join(_DIR, f"_{name}.so")
         self.entries = entries
+        self.flags = tuple(flags)
         self.lib = None
         self._lock = threading.Lock()
 
@@ -54,7 +58,7 @@ class Library:
         RuntimeError when it cannot be built or loaded."""
         with self._lock:
             if self.lib is None:
-                so = _build(self.src, self.so, self.name)
+                so = _build(self.src, self.so, self.name, self.flags)
                 try:
                     lib = ctypes.CDLL(so)
                     for entry, (restype, argtypes) in self.entries.items():
@@ -69,7 +73,7 @@ class Library:
             return self.lib
 
 
-def _build(src: str, so: str, name: str) -> str:
+def _build(src: str, so: str, name: str, flags: tuple) -> str:
     """Compile `src` into `so` unless `so` is newer; returns `so`."""
     with open(so + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -78,7 +82,7 @@ def _build(src: str, so: str, name: str) -> str:
             return so
         tmp = f"{so}.{os.getpid()}.tmp"
         cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-               "-std=c++17", src, "-o", tmp]
+               "-std=c++17", *flags, src, "-o", tmp]
         try:
             res = subprocess.run(cmd, capture_output=True, text=True,
                                  timeout=300)
@@ -108,6 +112,14 @@ DENSITY = Library("density", {
                                       _i64, _u8p])
     for t, xyp in (("f32", _f32p), ("f64", _f64p))})
 
+#: labels [n] and counts [3] from indptr [n + 1], nbr, w, deg [n], n,
+#: two_m; segment sums as np.add.reduceat gives them, for the tests
+LOUVAIN = Library("louvain", {
+    "eg3d_louvain_one_level": (None, [_i64p, _i64p, _f64p, _f64p, _i64,
+                                      ctypes.c_double, _i64p, _i64p]),
+    "eg3d_segment_sums": (None, [_f64p, _i64p, _i64, _i64, _f64p]),
+}, flags=("-ffp-contract=off",))
+
 
 def get_extraction_lib():
     """The native extraction library (`extraction.cpp`)."""
@@ -117,3 +129,8 @@ def get_extraction_lib():
 def get_density_lib():
     """The native density filter library (`density.cpp`)."""
     return DENSITY.get()
+
+
+def get_louvain_lib():
+    """The native Louvain local-moving library (`louvain.cpp`)."""
+    return LOUVAIN.get()

@@ -1,9 +1,9 @@
 """The port's native loader (edgegraph3d_tpu_torch/native).
 
-The port builds each C++ library (extraction, density) under an
-inter-process lock into a file of its own per process, and raises on a
-failed build or load: extraction and the density filter have no other
-path.  The JAX package keeps its own loader, which can return None when
+The port builds each C++ library (extraction, density, louvain) under
+an inter-process lock into a file of its own per process, and raises on
+a failed build or load: extraction, the density filter and host
+Louvain's sequential local-moving pass have no other path.  The JAX package keeps its own loader, which can return None when
 several processes build at once; `require_jax_native_lib` makes sure the
 reference side of a parity test runs its native path too.
 """
@@ -15,11 +15,13 @@ import sys
 import textwrap
 import time
 
+import numpy as np
 import pytest
 
 from edgegraph3d_tpu_torch import native
 from edgegraph3d_tpu_torch.config import EdgeGraphConfig
 from edgegraph3d_tpu_torch.core import synthetic
+from edgegraph3d_tpu_torch.matching import communities
 from edgegraph3d_tpu_torch.plgs import extraction
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -56,7 +58,7 @@ _LOAD = textwrap.dedent("""
 """)
 
 
-@pytest.fixture(params=["EXTRACTION", "DENSITY"], ids=str.lower)
+@pytest.fixture(params=["EXTRACTION", "DENSITY", "LOUVAIN"], ids=str.lower)
 def fresh_paths(request, tmp_path, monkeypatch):
     """A library's source copied into an empty directory, and the
     loader pointed at it: (library attribute, library, src, so)."""
@@ -126,15 +128,43 @@ CFG = EdgeGraphConfig().replace(max_polylines_per_view=256,
                                 max_polyline_len=64)
 
 
-def test_native_failure_raises_not_falls_back(edge_image, monkeypatch):
-    """extract_plg raises when the library is unavailable; it has no
-    other path to fall back to."""
-    def broken():
-        raise RuntimeError("native extraction build failed (1)")
+#: a small graph whose sequential Louvain pass has work to do
+_EDGES = [(0, 1), (1, 2), (0, 2), (3, 4), (4, 5), (3, 5), (2, 3)]
 
-    monkeypatch.setattr(native, "get_extraction_lib", broken)
+
+@pytest.mark.parametrize("getter,call", [
+    ("get_extraction_lib",
+     lambda image: extraction.extract_plg(image, CFG)),
+    ("get_louvain_lib",
+     lambda image: communities.louvain_host(np.array(_EDGES), np.ones(7),
+                                            6, parallel=False)),
+], ids=["extraction", "louvain"])
+def test_native_failure_raises_not_falls_back(edge_image, monkeypatch,
+                                              getter, call):
+    """extract_plg and host Louvain's sequential pass raise when their
+    library is unavailable; neither has another path to fall back to."""
+    def broken():
+        raise RuntimeError("native library build failed (1)")
+
+    monkeypatch.setattr(native, getter, broken)
     with pytest.raises(RuntimeError, match="build failed"):
-        extraction.extract_plg(edge_image, CFG)
+        call(edge_image)
+
+
+def test_louvain_is_built_without_contraction(tmp_path, monkeypatch):
+    """g++ builds the Louvain pass with -ffp-contract=off, so that no
+    fused multiply-add rounds its gains otherwise than numpy does."""
+    lib = native.LOUVAIN
+    src = tmp_path / os.path.basename(lib.src)
+    shutil.copy(lib.src, src)
+    monkeypatch.setattr(lib, "src", str(src))
+    monkeypatch.setattr(lib, "so", str(tmp_path / os.path.basename(lib.so)))
+    monkeypatch.setattr(lib, "lib", None)
+    cmds, run = [], subprocess.run
+    monkeypatch.setattr(subprocess, "run",
+                        lambda cmd, **k: cmds.append(cmd) or run(cmd, **k))
+    lib.get()
+    assert len(cmds) == 1 and "-ffp-contract=off" in cmds[0]
 
 
 def test_jax_helper_recovers_from_a_lost_race(monkeypatch):

@@ -28,7 +28,7 @@ KW = dict(max_polylines_per_view=256, max_polyline_len=128)
 READ = ("plg_extraction", "context(F+grids)", "f_table",
         "stage3_refpoints", "expand_all_views", "chain_extension",
         "density_filter", "outlier_filter", "group_chains",
-        "expansion_copies", "run_pipeline")
+        "expansion_copies", "run_pipeline", "louvain")
 MS = 1_000_000
 
 
@@ -91,6 +91,20 @@ def test_density_points_in_counts_what_entered_the_filter(runs, run):
     n_in = stats.counters["density_points_in"]
     assert n_in == runs["density_in"][run] > 0
     assert 0 < stats.counts["density_filter"] <= n_in
+
+
+@pytest.mark.parametrize("run", RUNS)
+def test_louvain_spans_and_counters(runs, run):
+    """The default method (union3) runs host Louvain twice inside
+    stage1_communities, each a span louvain, and the native passes'
+    work is in the counters."""
+    stats = runs[run]
+    louvain = [sp for sp in stats.spans if sp[0] == "louvain"]
+    assert len(louvain) == 2
+    assert {sp[1] for sp in louvain} == {"stage1_communities"}
+    c = stats.counters
+    assert 1 <= c["louvain_sweeps"] <= 2 * 64 * 10
+    assert 0 < c["louvain_moves"] <= c["louvain_visits"]
 
 
 @pytest.mark.parametrize("run", RUNS)
@@ -249,7 +263,8 @@ def run_record(*timings, traces=()):
 @pytest.mark.parametrize("name,span", [("group_chains_s", "group_chains"),
                                        ("expansion_copies_s",
                                         "expansion_copies"),
-                                       ("f_table_s", "f_table")])
+                                       ("f_table_s", "f_table"),
+                                       ("louvain_s", "louvain")])
 def test_span_readers(name, span):
     read = reader(name).read
     assert read(run_record({span: 1.0, "expand_all_views": 3.0},
